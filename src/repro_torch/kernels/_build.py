@@ -1,0 +1,153 @@
+"""Build and load the port's CUDA kernels: `nvcc` for sm_90a into shared
+libraries with a plain C interface, loaded with ctypes.
+
+Each `csrc/<name>.cu` becomes `build/kernels/lib<name>.so` at the root of
+the checkout, built at first use (or ahead of time by `build_all`, which
+starts one `nvcc` per source at once). A library is rebuilt when its
+source is newer. Every C entry returns `cudaGetLastError()` after its
+launch; `check` raises on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: ctypes signatures of every C entry, by library name
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "decode_attention": {
+        # dtype, q, k, v, q_pos, k_pos, out, B, H, KV, hd, S, window, stream
+        "decode_attention": [_I] + [_P] * 6 + [_I] * 6 + [_P],
+        # dtype, q, k_pool, v_pool, q_pos, kpos_pool, tables, out,
+        # B, H, KV, hd, block_size, MB, window, stream
+        "paged_decode_attention": [_I] + [_P] * 7 + [_I] * 7 + [_P],
+    },
+    "flash_attention": {
+        # dtype, q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, hd,
+        # window, causal, stream
+        "flash_attention": [_I] + [_P] * 6 + [_I] * 8 + [_P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    """Missing, or older than its source or any shared header."""
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
+
+
+def _start(name: str):
+    """Start one nvcc into a temporary file beside the library (renamed into
+    place on success, so concurrent builders never load a partial file)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, proc, tmp: str) -> str:
+    """Wait for nvcc; returns its output (ptxas: registers, spills)."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, _lib_path(name))
+    return out
+
+
+def build_all() -> Dict[str, str]:
+    """Build every stale library, one nvcc per source, all at once.
+    Returns the build log per library built."""
+    started = {n: _start(n) for n in SIGNATURES if _stale(n)}
+    logs, errors = {}, []
+    for n, (proc, tmp) in started.items():
+        try:
+            logs[n] = _finish(n, proc, tmp)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if it is missing or stale."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    if _stale(name):
+        _finish(name, *_start(name))
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+#: the kernels' `dtype` argument
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def require(cond: bool, msg: str) -> None:
+    """Validate a kernel argument before any pointer reaches the card."""
+    if not cond:
+        raise ValueError(msg)
+
+
+def cuda_args(*tensors: torch.Tensor, dtype=None) -> List[int]:
+    """Check that every tensor is a contiguous CUDA tensor (of `dtype`,
+    and 16-byte aligned for the kernels' vector loads, if `dtype` is
+    given) and return their data pointers."""
+    for t in tensors:
+        require(t.is_cuda, "kernel operand must be a CUDA tensor")
+        require(t.is_contiguous(), "kernel operand must be contiguous")
+        require(dtype is None or (t.dtype == dtype and t.data_ptr() % 16 == 0),
+                f"kernel operand must be a 16-byte aligned {dtype} tensor, "
+                f"got {t.dtype}")
+    return [t.data_ptr() for t in tensors]
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream

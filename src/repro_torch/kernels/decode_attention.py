@@ -1,0 +1,72 @@
+"""Launchers of the hand-written Hopper flash-decode kernels
+(`csrc/decode_attention.cu`): one query token per request against a
+contiguous (B, S, KV, hd) cache row or through the paged (NB, bs, KV, hd)
+pools and a (B, MB) block table. They replace the Pallas kernels
+`decode_attention_kernel` and `paged_decode_attention_kernel` of the JAX
+package; `ref.decode_attention_ref` / `ref.paged_decode_attention_ref` are
+their plain versions. CUDA tensors only: `ops` dispatches CPU tensors to
+the plain versions.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: slots per contiguous tile, and the largest paged block the kernel takes
+TILE = 64
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _check_q(q, KV, hd):
+    B, H, qhd = q.shape
+    _build.require(q.dtype in _build.DTYPE_CODE, f"unsupported dtype {q.dtype}")
+    _build.require(qhd == hd and H % KV == 0,
+                   f"q {tuple(q.shape)} does not match kv heads {KV} x {hd}")
+    _build.require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
+    _build.require((H // KV) * hd <= 2048, "G * head_dim must be <= 2048")
+    return B, H
+
+
+def decode_attention_cuda(q, k, v, q_pos, k_pos, *, window: int = 0):
+    """q: (B, H, hd); k/v: (B, S, KV, hd); q_pos: (B,); k_pos: (B, S)."""
+    _, S, KV, hd = k.shape
+    B, H = _check_q(q, KV, hd)
+    _build.require(k.shape == v.shape and k.shape[0] == B
+                   and tuple(k_pos.shape) == (B, S) and q_pos.shape == (B,),
+                   "decode_attention: inconsistent shapes")
+    q_pos = q_pos.to(torch.int32).contiguous()
+    k_pos = k_pos.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    ptrs = _build.cuda_args(q, k, v, dtype=q.dtype) \
+        + _build.cuda_args(q_pos, k_pos, out)
+    lib = _build.library("decode_attention")
+    _build.check(lib.decode_attention(
+        _build.DTYPE_CODE[q.dtype], *ptrs, B, H, KV, hd, S, window,
+        _build.stream()), "decode_attention")
+    return out
+
+
+def paged_decode_attention_cuda(q, k_pool, v_pool, q_pos, kpos_pool, tables,
+                                *, window: int = 0):
+    """q: (B, H, hd); k/v_pool: (NB, bs, KV, hd); q_pos: (B,);
+    kpos_pool: (NB, bs); tables: (B, MB), -1 = unallocated."""
+    NB, bs, KV, hd = k_pool.shape
+    B, H = _check_q(q, KV, hd)
+    MB = tables.shape[1]
+    _build.require(k_pool.shape == v_pool.shape
+                   and tuple(kpos_pool.shape) == (NB, bs)
+                   and tables.shape[0] == B and q_pos.shape == (B,),
+                   "paged_decode_attention: inconsistent shapes")
+    _build.require(bs <= TILE, f"block_size {bs} > {TILE}")
+    q_pos = q_pos.to(torch.int32).contiguous()
+    kpos_pool = kpos_pool.to(torch.int32).contiguous()
+    tables = tables.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    ptrs = _build.cuda_args(q, k_pool, v_pool, dtype=q.dtype) \
+        + _build.cuda_args(q_pos, kpos_pool, tables, out)
+    lib = _build.library("decode_attention")
+    _build.check(lib.paged_decode_attention(
+        _build.DTYPE_CODE[q.dtype], *ptrs, B, H, KV, hd, bs, MB, window,
+        _build.stream()), "paged_decode_attention")
+    return out

@@ -1,0 +1,66 @@
+"""Dispatch for the port's kernels.
+
+A CPU tensor goes to the plain PyTorch version in `ref`; a CUDA tensor goes
+to the hand-written Hopper kernel, or the call raises. Nothing falls back.
+`LAUNCHES` counts kernel launches per kernel (plain-version calls are not
+counted), so a run can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  paged_decode_attention_cuda)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+LAUNCHES: Dict[str, int] = {"decode_attention": 0,
+                            "paged_decode_attention": 0,
+                            "flash_attention": 0, "rmsnorm": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
+    """q: (B, H, hd); k/v: (B, S, KV, hd); q_pos: (B,); k_pos: (B, S)."""
+    if not q.is_cuda:
+        return ref.decode_attention_ref(q, k, v, q_pos, k_pos, window=window)
+    out = decode_attention_cuda(q, k, v, q_pos, k_pos, window=window)
+    LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, q_pos, kpos_pool, tables, *,
+                           window: int = 0):
+    """Flash decode through the paged KV pools + block tables (DESIGN §9)."""
+    if not q.is_cuda:
+        return ref.paged_decode_attention_ref(q, k_pool, v_pool, q_pos,
+                                              kpos_pool, tables, window=window)
+    out = paged_decode_attention_cuda(q, k_pool, v_pool, q_pos, kpos_pool,
+                                      tables, window=window)
+    LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def flash_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
+                    causal: bool = True):
+    """q: (B, Tq, H, hd); k/v: (B, Tk, KV, hd) -> (B, Tq, H, hd)."""
+    if not q.is_cuda:
+        return ref.flash_attention_ref(q, k, v, q_pos, k_pos, window=window,
+                                       causal=causal)
+    out = flash_attention_cuda(q, k, v, q_pos, k_pos, window=window,
+                               causal=causal)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6):
+    if not x.is_cuda:
+        return ref.rmsnorm_ref(x, w, eps=eps)
+    out = rmsnorm_cuda(x, w, eps=eps)
+    LAUNCHES["rmsnorm"] += 1
+    return out

@@ -1,0 +1,104 @@
+"""Plain PyTorch versions of the port's kernels: the CPU path and the
+yardstick every Hopper kernel is held against on the card.
+
+Semantics shared with the kernels (and, on every row with a visible key,
+with the JAX package's `kernels/ref.py`):
+
+* masked scores are -1e30, and a masked key's probability is exactly 0;
+* the softmax denominator is clamped at 1e-30, so a row with no visible
+  key (a padding row, query position -1) returns 0;
+* positions are absolute, -1 marks an empty slot;
+* query head h reads kv head h // G (kv-major head layout);
+* accumulation is in fp32, the result is cast back to q's dtype.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis with masked entries at exactly 0 and the
+    denominator clamped at 1e-30 (all-masked rows give all zeros)."""
+    scores = torch.where(mask, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(scores - m), 0.0)
+    return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def decode_attention_ref(q, k, v, q_pos, k_pos, *, window: int = 0):
+    """q: (B, H, hd); k/v: (B, S, KV, hd); q_pos: (B,); k_pos: (B, S)."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qh = q.reshape(B, KV, G, hd).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qh, k.float()) / math.sqrt(hd)
+    mask = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    if window:
+        mask = mask & (k_pos > q_pos[:, None] - window)
+    p = _masked_softmax(scores, mask[:, None, None, :])
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_view(pool_k, pool_v, pool_pos, tables):
+    """Gather a per-request contiguous (B, MB*bs) view of the paged pools
+    (DESIGN §9). Logical block j of request b sits at view indices
+    [j*bs, (j+1)*bs), so a token at absolute position p lands at view
+    index p. Unallocated table entries (-1) read as empty slots
+    (K/V = 0, pos = -1)."""
+    NB, bs = pool_k.shape[:2]
+    B, MB = tables.shape
+    offs = torch.arange(bs, device=tables.device)
+    idx = (tables.clamp_min(0)[:, :, None] * bs + offs).reshape(B, MB * bs)
+    valid = (tables >= 0)[:, :, None].expand(B, MB, bs).reshape(B, MB * bs)
+    kf = pool_k.reshape((NB * bs,) + pool_k.shape[2:])
+    vf = pool_v.reshape((NB * bs,) + pool_v.shape[2:])
+    vm = valid[:, :, None, None]
+    k = torch.where(vm, kf[idx], torch.zeros((), dtype=kf.dtype,
+                                             device=kf.device))
+    v = torch.where(vm, vf[idx], torch.zeros((), dtype=vf.dtype,
+                                             device=vf.device))
+    kpos = torch.where(valid, pool_pos.reshape(NB * bs)[idx], -1)
+    return k, v, kpos
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, q_pos, kpos_pool, tables,
+                               *, window: int = 0):
+    """Gather-then-attend version of the paged decode kernel (DESIGN §9).
+
+    q: (B, H, hd); k/v_pool: (NB, bs, KV, hd); q_pos: (B,);
+    kpos_pool: (NB, bs); tables: (B, MB), -1 = unallocated."""
+    k, v, kpos = paged_view(k_pool, v_pool, kpos_pool, tables)
+    return decode_attention_ref(q, k, v, q_pos, kpos, window=window)
+
+
+def flash_attention_ref(q, k, v, q_pos, k_pos, *, window: int = 0,
+                        causal: bool = True):
+    """q: (B, Tq, H, hd); k/v: (B, Tk, KV, hd); q_pos: (B, Tq); k_pos: (B, Tk).
+
+    Returns (B, Tq, H, hd)."""
+    B, Tq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qh = q.reshape(B, Tq, KV, G, hd).float()
+    scores = torch.einsum("btkgd,bskd->bkgts", qh, k.float()) / math.sqrt(hd)
+    mask = (k_pos[:, None, :] >= 0).expand(B, Tq, k.shape[1])
+    if causal:
+        mask = mask & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window:
+        mask = mask & (k_pos[:, None, :] > q_pos[:, :, None] - window)
+    p = _masked_softmax(scores, mask[:, None, None, :, :])
+    out = torch.einsum("bkgts,bskd->btkgd", p, v.float())
+    return out.reshape(B, Tq, H, hd).to(q.dtype)
+
+
+def rmsnorm_ref(x, w, *, eps: float = 1e-6):
+    """x * rsqrt(mean(x^2) + eps) * (1 + w), in fp32, cast to x.dtype."""
+    x32 = x.float()
+    ms = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(ms + eps) * (1.0 + w.float())
+    return y.to(x.dtype)

@@ -1,0 +1,138 @@
+"""The port's Hopper kernels against their plain PyTorch versions, on an
+NVIDIA GPU at the serving path's widths. Marked `cuda`: they skip on a
+machine without a card. This file imports no JAX, so it runs where the
+card is:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+
+def _paged_case(rng):
+    B, H, KV, hd, NB, bs, MB = 3, 4, 2, 16, 10, 8, 4
+    q = rng.randn(B, H, hd)
+    kp, vp = rng.randn(2, NB, bs, KV, hd)
+    owned = [[2, 5, 7], [1], [9, 0]]       # non-contiguous, non-monotone
+    tables = np.full((B, MB), -1, np.int32)
+    for b, tbl in enumerate(owned):
+        tables[b, :len(tbl)] = tbl
+    q_pos = np.array([20, 5, 11], np.int32)
+    kpos = np.full((NB, bs), -1, np.int32)
+    for b, tbl in enumerate(owned):
+        for j, pb in enumerate(tbl):
+            for o in range(bs):
+                if j * bs + o <= q_pos[b]:
+                    kpos[pb, o] = j * bs + o
+    kpos[3] = 2   # stale positions in an UNOWNED block must stay invisible
+    return q, kp, vp, q_pos, kpos, tables
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernels run only there")
+    ops.reset_launches()
+    return torch.device("cuda")
+
+
+def _on(dev, *arrays, dtype=torch.bfloat16):
+    return [torch.from_numpy(a).to(dev) if a.dtype.kind in "iu"
+            else torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+            for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(1, 1024), (8, 1000)])
+def test_decode_kernel_matches_plain_on_card(cuda, B, S):
+    rng = np.random.RandomState(0)
+    H, KV, hd = 32, 8, 128
+    q_pos = rng.randint(-1, S, size=B).astype(np.int32)
+    k_pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    q, k, v, qp, kp = _on(cuda, rng.randn(B, H, hd), rng.randn(B, S, KV, hd),
+                          rng.randn(B, S, KV, hd), q_pos, k_pos)
+    got = ops.decode_attention(q, k, v, qp, kp)
+    want = ref.decode_attention_ref(q, k, v, qp, kp)
+    assert ops.LAUNCHES["decode_attention"] == 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_matches_plain_on_card(cuda):
+    q, kp, vp, q_pos, kpos, tables = _paged_case(np.random.RandomState(0))
+    args = _on(cuda, q, kp, vp, q_pos, kpos, tables, dtype=torch.float32)
+    got = ops.paged_decode_attention(*args)
+    want = ref.paged_decode_attention_ref(*args)
+    assert ops.LAUNCHES["paged_decode_attention"] == 1
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq", [16, 500])
+def test_flash_kernel_matches_plain_on_card(cuda, Tq):
+    rng = np.random.RandomState(0)
+    B, Tk, H, KV, hd = 1, 1024, 32, 8, 128
+    qp = np.arange(Tk - Tq, Tk, dtype=np.int32)[None]
+    kp = np.arange(Tk, dtype=np.int32)[None]
+    q, k, v, qpt, kpt = _on(cuda, rng.randn(B, Tq, H, hd),
+                            rng.randn(B, Tk, KV, hd),
+                            rng.randn(B, Tk, KV, hd), qp, kp)
+    got = ops.flash_attention(q, k, v, qpt, kpt)
+    want = ref.flash_attention_ref(q, k, v, qpt, kpt)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 4096])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows):
+    rng = np.random.RandomState(0)
+    x, w = _on(cuda, rng.randn(rows, 4096), rng.randn(4096) * 0.1)
+    got = ops.rmsnorm(x, w)
+    assert ops.LAUNCHES["rmsnorm"] == 1
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_model_on_card_matches_cpu(cuda, paged):
+    """Reduced granite in fp32: chunked prefill + decode through the four
+    kernels on the card gives the CPU plain path's logits."""
+    from repro_torch.config.registry import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("granite-3-8b", "reduced")
+    m_gpu = build_model(cfg, torch.float32, cuda)
+    m_cpu = build_model(cfg, torch.float32, "cpu")
+    p_cpu = m_cpu.init(0)
+
+    def to(p, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in p.items()}
+
+    toks = torch.randint(0, cfg.vocab_size, (2, 30),
+                         generator=torch.Generator().manual_seed(0))
+    pos = torch.arange(30, dtype=torch.int32)[None].repeat(2, 1)
+    outs = []
+    for m, p, dev in ((m_gpu, to(p_cpu, cuda), cuda), (m_cpu, p_cpu, "cpu")):
+        if paged:
+            cache = m.init_paged_cache(8, 16)
+            tables = torch.tensor([[0, 1, -1, -1], [5, 3, -1, -1]],
+                                  dtype=torch.int32, device=dev)
+            step = lambda t, q, c: m.prefill_paged(p, t, q, tables, c)  # noqa: E731
+        else:
+            cache = m.init_cache(2, 64)
+            step = lambda t, q, c: m.prefill(p, t, q, c)  # noqa: E731
+        seq = []
+        for s, e in ((0, 24), (24, 25), (25, 26), (26, 30)):
+            lg, cache = step(toks[:, s:e].to(dev), pos[:, s:e].to(dev), cache)
+            seq.append(lg.cpu())
+        outs.append(torch.cat(seq, 1))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+    used = ("paged_decode_attention" if paged else "decode_attention",
+            "flash_attention", "rmsnorm")
+    assert all(ops.LAUNCHES[k] > 0 for k in used), ops.LAUNCHES

@@ -1,0 +1,193 @@
+"""The port's kernel plain versions (`repro_torch.kernels.ref`) against the
+JAX package's oracles (`repro.kernels.ref`) and its Pallas kernels in
+interpret mode, over the shape sweeps of tests/test_kernels.py. (The Hopper
+kernels themselves are held against the plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py.)
+
+Inputs come from a numpy seed and go to both packages. Only rows with at
+least one visible key are compared with the JAX side: on a row with none,
+the JAX oracle returns the mean of V while the port returns 0 by
+definition (pinned by its own test below).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+from test_torch_cuda import _paged_case
+
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def both(a, dtype="float32"):
+    """One numpy array as (JAX array, torch tensor) of `dtype`."""
+    if a.dtype.kind in "iu":
+        return jnp.asarray(a), torch.from_numpy(a)
+    return (jnp.asarray(a, jnp.float32).astype(JAX_DT[dtype]),
+            torch.from_numpy(a.astype(np.float32)).to(TORCH_DT[dtype]))
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# decode attention (contiguous)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,hd,S,bs", [
+    (2, 8, 2, 32, 64, 32),
+    (1, 4, 4, 16, 128, 128),   # MHA-style, single block
+    (3, 8, 1, 64, 96, 32),     # MQA, ragged block count
+])
+def test_decode_attention_plain_matches_jax(B, H, KV, hd, S, bs, dtype):
+    rng = np.random.RandomState(7)
+    qn = rng.randn(B, H, hd)
+    kn, vn = rng.randn(2, B, S, KV, hd)
+    q_posn = np.array([S - 1, S // 2, 3][:B], np.int32)
+    k_posn = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S))
+    k_posn = np.where(k_posn <= q_posn[:, None], k_posn, -1).astype(np.int32)
+    (jq, q), (jk, k), (jv, v) = both(qn, dtype), both(kn, dtype), both(vn, dtype)
+    (jqp, qp), (jkp, kp) = both(q_posn), both(k_posn)
+    got = f32(ops.decode_attention(q, k, v, qp, kp))
+    np.testing.assert_allclose(
+        got, f32(jref.decode_attention_ref(jq, jk, jv, jqp, jkp)), **tol(dtype))
+    if dtype == "float32":
+        np.testing.assert_allclose(
+            got, f32(jops.decode_attention(jq, jk, jv, jqp, jkp, block_s=bs)),
+            **tol(dtype))
+
+
+def test_decode_attention_ring_buffer_semantics():
+    """Positions, not slot order, decide masking — a wrapped ring."""
+    rng = np.random.RandomState(1)
+    qn, kn, vn = rng.randn(1, 4, 16), rng.randn(1, 8, 1, 16), rng.randn(1, 8, 1, 16)
+    k_posn = np.array([[11, 12, 13, 14, 15, 8, 9, 10]], np.int32)
+    q_posn = np.array([15], np.int32)
+    (jq, q), (jk, k), (jv, v) = both(qn), both(kn), both(vn)
+    (jqp, qp), (jkp, kp) = both(q_posn), both(k_posn)
+    got = f32(ops.decode_attention(q, k, v, qp, kp, window=4))
+    want = f32(jops.decode_attention(jq, jk, jv, jqp, jkp, window=4,
+                                     block_s=4))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_rows_without_visible_key_return_zero():
+    """A padding row (q_pos = -1) or a row whose keys are all masked
+    returns exactly 0 in every attention plain version; the other rows
+    still match the JAX oracle."""
+    rng = np.random.RandomState(2)
+    B, H, KV, hd, S = 3, 4, 2, 16, 32
+    q = torch.from_numpy(rng.randn(B, H, hd).astype(np.float32))
+    k, v = (torch.from_numpy(a.astype(np.float32))
+            for a in rng.randn(2, B, S, KV, hd))
+    q_pos = torch.tensor([-1, 20, 5], dtype=torch.int32)
+    k_pos = torch.arange(S, dtype=torch.int32)[None].repeat(B, 1)
+    k_pos[2] = -1                                  # row 2: an empty cache
+    out = ops.decode_attention(q, k, v, q_pos, k_pos)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
+    want = jref.decode_attention_ref(*(jnp.asarray(t.numpy()) for t in
+                                       (q, k, v, q_pos, k_pos)))
+    np.testing.assert_allclose(out[1].numpy(), np.asarray(want)[1],
+                               rtol=2e-5, atol=2e-5)
+    # the prefill version: a padding query row inside a chunk
+    qf = q[:, None].repeat(1, 2, 1, 1)
+    qpf = torch.tensor([[-1, -1], [19, 20], [4, 5]], dtype=torch.int32)
+    outf = ops.flash_attention(qf, k, v, qpf, k_pos)
+    assert torch.equal(outf[0], torch.zeros_like(outf[0]))
+    assert torch.equal(outf[2], torch.zeros_like(outf[2]))
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_paged_decode_plain_matches_jax(window):
+    args = _paged_case(np.random.RandomState(0))
+    jargs, targs = zip(*(both(a) for a in args))
+    got = f32(ops.paged_decode_attention(*targs, window=window))
+    np.testing.assert_allclose(
+        got, f32(jref.paged_decode_attention_ref(*jargs, window=window)),
+        rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        got, f32(jops.paged_decode_attention(*jargs, window=window)),
+        rtol=2e-5, atol=2e-5)
+
+
+def test_paged_view_matches_jax():
+    q, kp, vp, q_pos, kpos, tables = _paged_case(np.random.RandomState(3))
+    (jk, k), (jv, v), (jpp, pp), (jt, t) = \
+        both(kp), both(vp), both(kpos), both(tables)
+    for got, want in zip(ref.paged_view(k, v, pp, t),
+                         jref.paged_view(jk, jv, jpp, jt)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# flash attention (prefill)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Tq,Tk,H,KV,hd,bq,bk,window,causal", [
+    (64, 64, 8, 4, 32, 32, 32, 0, True),
+    (32, 96, 4, 1, 16, 16, 32, 0, True),    # chunk continuing a cache
+    (64, 64, 4, 4, 32, 64, 64, 16, True),   # sliding window
+    (32, 32, 8, 2, 16, 32, 32, 0, False),   # bidirectional (encoder)
+])
+def test_flash_attention_plain_matches_jax(Tq, Tk, H, KV, hd, bq, bk, window,
+                                           causal, dtype):
+    B = 2
+    rng = np.random.RandomState(7)
+    (jq, q) = both(rng.randn(B, Tq, H, hd), dtype)
+    (jk, k), (jv, v) = (both(a, dtype) for a in rng.randn(2, B, Tk, KV, hd))
+    off = Tk - Tq
+    qpn = np.broadcast_to(off + np.arange(Tq, dtype=np.int32)[None], (B, Tq))
+    kpn = np.broadcast_to(np.arange(Tk, dtype=np.int32)[None], (B, Tk))
+    (jqp, qp), (jkp, kp) = both(np.ascontiguousarray(qpn)), \
+        both(np.ascontiguousarray(kpn))
+    got = f32(ops.flash_attention(q, k, v, qp, kp, window=window,
+                                  causal=causal))
+    np.testing.assert_allclose(
+        got, f32(jref.flash_attention_ref(jq, jk, jv, jqp, jkp, window=window,
+                                          causal=causal)), **tol(dtype))
+    if dtype == "float32":
+        np.testing.assert_allclose(
+            got, f32(jops.flash_attention(jq, jk, jv, jqp, jkp, window=window,
+                                          causal=causal, block_q=bq,
+                                          block_k=bk)), **tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# fused RMSNorm
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,br", [
+    ((2, 32, 128), 16),
+    ((4, 7, 256), 128),     # rows not a block multiple
+    ((1, 1, 64), 8),
+])
+def test_rmsnorm_plain_matches_jax(shape, br, dtype):
+    rng = np.random.RandomState(7)
+    (jx, x) = both(rng.randn(*shape), dtype)
+    (jw, w) = both(rng.randn(shape[-1]) * 0.1)
+    got = f32(ops.rmsnorm(x, w))
+    np.testing.assert_allclose(got, f32(jref.rmsnorm_ref(jx, jw)),
+                               **tol(dtype))
+    if dtype == "float32":
+        np.testing.assert_allclose(
+            got, f32(jops.rmsnorm(jx, jw, block_rows=br)), **tol(dtype))
