@@ -8,20 +8,29 @@ Phases, one JSON line each:
              versions; TF32 off for fp32 products.
 2. build     nvcc builds every CUDA kernel of the port (one process per
              source, all at once); the Triton kernel compiles at first call.
-3. kernels   each of the 4 kernels against its plain PyTorch version on the
-             card at the serving path's shapes in bf16 (the fp32 plain
-             version is the reference), with CUDA-event timings (median of
-             30 runs after warm-up, L2 flushed before each run) of the
-             kernel, its plain version and the nearest PyTorch library call,
-             and the least time the card could take (bound_ms).
-4. reference full-width granite-3-8b cut to 2 layers: the kernels' path on
-             the card in bf16 against the plain path on the CPU in fp32 with
-             the same weights, over a prefill and a few decode steps.
-5. serve_contiguous / serve_paged
-             the engine at full granite-3-8b width (40 layers, random
-             weights from seed 0) through `repro_torch.launch.serve.run`:
-             12 requests of 32-480 prompt tokens, chunked prefill on 2
+3. kernels   each of the 6 kernels against its plain PyTorch version on the
+             card at the serving path's shapes (the attention kernels and
+             RMSNorm in bf16 against the fp32 plain version, the SSD and
+             RG-LRU kernels in fp32 against their fp32 plain versions),
+             with CUDA-event timings (median of 30 runs after warm-up, L2
+             flushed before each run) of the kernel, its plain version and
+             the nearest PyTorch library call, and the least time the card
+             could take (bound_ms, with the peak it was taken against).
+4. reference per family, full width with depth cut to one layer pattern
+             (granite-3-8b 2 layers, mamba2-2.7b 2, recurrentgemma-9b 3):
+             the kernels' path on the card in bf16 against the plain path
+             on the CPU in fp32 with the same weights, over a prefill and a
+             few decode steps (mamba2 and recurrentgemma prefill 300 tokens:
+             two SSD chunks, the second padded).
+5. serve_<arch>_contiguous / serve_<arch>_paged
+             the engine at full width and depth (random weights from seed
+             0) through `repro_torch.launch.serve.run`, for granite-3-8b
+             (12 requests), mamba2-2.7b and recurrentgemma-9b (8 each):
+             prompts of 32-480 tokens, 32 new tokens, chunked prefill on 2
              lanes, policy `memory`, each path's kernel launches counted.
+             Every request finishes, the structural counters agree across
+             the two layouts, and mamba2 preempts nothing and ends with the
+             allocator full.
 
 Then the card's name and power limit, the `{"kernels": [...]}` summary,
 and as the last line `{"ok": true, "device": {...}}`. Any failure raises:
@@ -30,6 +39,7 @@ without a GPU or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -43,18 +53,29 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT_DIR = ROOT / "chiprun_out"
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense bf16 FLOP/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense FLOP/s by
+#: input type (TF32 is the fastest the card multiplies fp32 inputs)
 HBM_BPS = 3.35e12
-BF16_FLOPS = 989e12
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 494.7e12, "fp32": 67e12}
 #: bf16 kernel output against the fp32 plain version
 ATOL = RTOL = 2e-2
+#: fp32 kernels against their fp32 plain version: every element within
+#: FP32_TOL * max|plain| (the same sums, taken in another order)
+FP32_TOL = 1e-4
 
 SERVE_ARGS = ["--variant", "full", "--policy", "memory", "--b-max", "8",
               "--batch-buckets", "1,2,4,8", "--chunked", "--lanes", "2",
               "--chunk-budget", "512", "--max-context", "1024",
               "--block-size", "16", "--pool-tokens", "8192",
               "--max-new", "32", "--seed", "0", "--device", "cuda"]
-N_REQUESTS, PROMPT_LO, PROMPT_HI = 12, 32, 480
+PROMPT_LO, PROMPT_HI = 32, 480
+#: arch -> (requests served, kernels its main path must launch, in both
+#: layouts; the decode kernel of the layout is added per layout)
+FAMILIES = {
+    "granite-3-8b": (12, ("flash_attention", "rmsnorm")),
+    "mamba2-2.7b": (8, ("ssd_intra", "rmsnorm")),
+    "recurrentgemma-9b": (8, ("rglru_scan", "flash_attention", "rmsnorm")),
+}
 STRUCTURAL = ("decode_steps", "mean_batch", "admitted", "preemptions",
               "prefill_tokens", "finished")
 
@@ -91,15 +112,23 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / BF16_FLOPS * 1e3
+def bound(n_bytes: float, n_ops: float, peak: str):
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = n_ops / PEAK_FLOPS[peak] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_err(got, want) -> float:
-    """Max abs error; raises when any element is outside atol + rtol|want|."""
+    """Max abs error over the outputs (a tensor or a tuple of them); raises
+    when an element is outside the tolerance: atol + rtol|want| for a bf16
+    output, FP32_TOL * max|want| for an fp32 one."""
+    if isinstance(got, tuple):
+        return max(max_err(g, w) for g, w in zip(got, want))
     d = (got.float() - want.float()).abs()
-    bad = d > ATOL + RTOL * want.float().abs()
+    if got.dtype == torch.float32:
+        bad = d > FP32_TOL * want.abs().max()
+    else:
+        bad = d > ATOL + RTOL * want.float().abs()
     if not bool(torch.isfinite(got.float()).all()) or bool(bad.any()):
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"max abs err {float(d.max())}")
@@ -112,87 +141,114 @@ def max_err(got, want) -> float:
 
 def kernel_cases(dev):
     """(kernel, label, kernel call, plain call, fp32 plain call, library
-    call or None, bytes, operations) at the serving path's shapes."""
+    call or None, bytes, operations, peak) at the serving path's shapes:
+    granite-3-8b's attention (32 heads on 8 kv heads of 128) and
+    recurrentgemma-9b's (16 heads on 1 kv head of 256), RMSNorm at d 4096,
+    the SSD term at mamba2-2.7b's widths and the RG-LRU scan at width 4096."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
-    H, KV, hd, d = 32, 8, 128, 4096
 
-    def rn(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(bf)
+    def rn(*shape, dtype=bf):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def f32(*a):
+        return [t.float() if t.is_floating_point() else t for t in a]
 
     cases = []
-    for B, S in ((1, 1024), (1, 1000), (8, 1024), (8, 1000)):
+
+    def decode(B, S, H, KV, hd, label, window=0):
+        """One query per row at position q_pos over an S-slot ring row."""
         q, k, v = rn(B, H, hd), rn(B, S, KV, hd), rn(B, S, KV, hd)
-        qp = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
-        kp = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
-        mask = (kp >= 0)[:, None, None, :]
-        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        last = S - 1 + (window // 2 if window else 0)
+        qp = torch.full((B,), last, dtype=torch.int32, device=dev)
+        ar = torch.arange(S, dtype=torch.int32, device=dev)
+        kp = torch.where(ar + S <= last, ar + S, ar).repeat(B, 1)
+        vis = (kp <= qp[:, None]) & ((kp > qp[:, None] - window) if window
+                                     else (kp >= 0))
+        a = (q, k, v, qp, kp)
         cases.append((
-            "decode_attention", f"B={B} S={S}",
-            lambda q=q, k=k, v=v, qp=qp, kp=kp: ops.decode_attention(q, k, v, qp, kp),
-            lambda q=q, k=k, v=v, qp=qp, kp=kp: ref.decode_attention_ref(q, k, v, qp, kp),
-            lambda q=q, k=k, v=v, qp=qp, kp=kp: ref.decode_attention_ref(
-                q.float(), k.float(), v.float(), qp, kp),
-            lambda qs=qs, ks=ks, vs=vs, m=mask: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=m, enable_gqa=True),
-            nbytes(q, k, v, qp, kp, q), 4 * hd * H * S * B))
+            "decode_attention", label,
+            lambda a=a: ops.decode_attention(*a, window=window),
+            lambda a=a: ref.decode_attention_ref(*a, window=window),
+            lambda a=a: ref.decode_attention_ref(*f32(*a), window=window),
+            lambda q=q, k=k, v=v, m=vis[:, None, None, :]:
+                F.scaled_dot_product_attention(
+                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=m, enable_gqa=True),
+            nbytes(q, k, v, qp, kp, q), 4 * hd * H * int(vis.sum()), "bf16"))
 
-    # paged: the serving pool (8192 tokens in blocks of 16), tables of 64
-    # entries with shuffled physical ids and -1 tails
-    NB, bs, MB, B = 512, 16, 64, 8
-    kpool, vpool = rn(NB, bs, KV, hd), rn(NB, bs, KV, hd)
-    q = rn(B, H, hd)
-    perm = torch.randperm(NB, generator=g, device=dev)
-    lens = [1024, 1000, 777, 512, 301, 160, 33, 1]
-    tables = torch.full((B, MB), -1, dtype=torch.int32, device=dev)
-    kpos = torch.full((NB, bs), -1, dtype=torch.int32, device=dev)
-    used = 0
-    for b, n in enumerate(lens):
-        nb = -(-n // bs)
-        ids = perm[used:used + nb]
-        used += nb
-        tables[b, :nb] = ids.to(torch.int32)
-        pos = torch.arange(nb * bs, dtype=torch.int32, device=dev)
-        kpos[ids] = torch.where(pos < n, pos, -1).reshape(nb, bs)
-    qp = torch.tensor([n - 1 for n in lens], dtype=torch.int32, device=dev)
-    blocks = int((tables >= 0).sum())
-    paged = (q, kpool, vpool, qp, kpos, tables)
-    blk_bytes = bs * KV * hd * 2 * 2 + bs * 4
-    cases.append((
-        "paged_decode_attention", f"B={B} blocks={blocks}",
-        lambda a=paged: ops.paged_decode_attention(*a),
-        lambda a=paged: ref.paged_decode_attention_ref(*a),
-        lambda a=paged: ref.paged_decode_attention_ref(
-            a[0].float(), a[1].float(), a[2].float(), *a[3:]),
-        None, blocks * blk_bytes + nbytes(q, qp, tables, q),
-        4 * hd * H * sum(lens)))
+    def paged(H, KV, hd, label):
+        """The serving pool (8192 tokens in blocks of 16), tables of 64
+        entries with shuffled physical ids and -1 tails."""
+        NB, bs, MB, B = 512, 16, 64, 8
+        kpool, vpool = rn(NB, bs, KV, hd), rn(NB, bs, KV, hd)
+        q = rn(B, H, hd)
+        perm = torch.randperm(NB, generator=g, device=dev)
+        lens = [1024, 1000, 777, 512, 301, 160, 33, 1]
+        tables = torch.full((B, MB), -1, dtype=torch.int32, device=dev)
+        kpos = torch.full((NB, bs), -1, dtype=torch.int32, device=dev)
+        used = 0
+        for b, n in enumerate(lens):
+            nb = -(-n // bs)
+            ids = perm[used:used + nb]
+            used += nb
+            tables[b, :nb] = ids.to(torch.int32)
+            pos = torch.arange(nb * bs, dtype=torch.int32, device=dev)
+            kpos[ids] = torch.where(pos < n, pos, -1).reshape(nb, bs)
+        qp = torch.tensor([n - 1 for n in lens], dtype=torch.int32,
+                          device=dev)
+        blocks = int((tables >= 0).sum())
+        a = (q, kpool, vpool, qp, kpos, tables)
+        blk_bytes = bs * KV * hd * 2 * 2 + bs * 4
+        cases.append((
+            "paged_decode_attention", f"{label}{blocks}",
+            lambda a=a: ops.paged_decode_attention(*a),
+            lambda a=a: ref.paged_decode_attention_ref(*a),
+            lambda a=a: ref.paged_decode_attention_ref(*f32(*a)),
+            None, blocks * blk_bytes + nbytes(q, qp, tables, q),
+            4 * hd * H * sum(lens), "bf16"))
 
-    # prefill: a chunk of Tq queries ending at position 496 against a
-    # 1024-slot cache row filled up to it (slots past it empty)
-    Tk = 1024
-    for Tq in (16, 500):
+    def flash(Tq, H, KV, hd, label):
+        """A chunk of Tq queries ending at position 496 (or Tq) against a
+        1024-slot cache row filled up to it (slots past it empty)."""
+        Tk = 1024
         end = max(496, Tq)
         q, k, v = rn(1, Tq, H, hd), rn(1, Tk, KV, hd), rn(1, Tk, KV, hd)
         qp = torch.arange(end - Tq, end, dtype=torch.int32, device=dev)[None]
         ar = torch.arange(Tk, dtype=torch.int32, device=dev)
         kp = torch.where(ar < end, ar, -1)[None]
-        mask = ((kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None]))[:, None]
-        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        pairs = int(mask.sum())
+        mask = ((kp[:, None, :] >= 0)
+                & (kp[:, None, :] <= qp[:, :, None]))[:, None]
+        a = (q, k, v, qp, kp)
         cases.append((
-            "flash_attention", f"Tq={Tq} Tk={Tk}",
-            lambda q=q, k=k, v=v, qp=qp, kp=kp: ops.flash_attention(q, k, v, qp, kp),
-            lambda q=q, k=k, v=v, qp=qp, kp=kp: ref.flash_attention_ref(q, k, v, qp, kp),
-            lambda q=q, k=k, v=v, qp=qp, kp=kp: ref.flash_attention_ref(
-                q.float(), k.float(), v.float(), qp, kp),
-            lambda qs=qs, ks=ks, vs=vs, m=mask: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=m, enable_gqa=True),
+            "flash_attention", label,
+            lambda a=a: ops.flash_attention(*a),
+            lambda a=a: ref.flash_attention_ref(*a),
+            lambda a=a: ref.flash_attention_ref(*f32(*a)),
+            lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=m, enable_gqa=True),
             nbytes(q, q, qp) + end * KV * hd * 2 * 2 + end * 4,
-            4 * hd * H * pairs))
+            4 * hd * H * int(mask.sum()), "bf16"))
 
+    # granite-3-8b
+    for B, S in ((1, 1024), (1, 1000), (8, 1024), (8, 1000)):
+        decode(B, S, 32, 8, 128, f"B={B} S={S}")
+    paged(32, 8, 128, "B=8 blocks=")
+    for Tq in (16, 500):
+        flash(Tq, 32, 8, 128, f"Tq={Tq} Tk=1024")
+    # recurrentgemma-9b: hd 256, 16 query heads on one kv head
+    decode(8, 1024, 16, 1, 256, "B=8 S=1024 hd=256")
+    decode(8, 2048, 16, 1, 256, "B=8 S=2048 window=2048 hd=256",
+           window=2048)
+    paged(16, 1, 256, "B=8 hd=256 blocks=")
+    for Tq in (16, 500):
+        flash(Tq, 16, 1, 256, f"Tq={Tq} Tk=1024 hd=256")
+
+    d = 4096
     for rows in (8, 4096):
         x, w = rn(rows, d), rn(d) * 0.1
         w1 = 1.0 + w
@@ -202,7 +258,45 @@ def kernel_cases(dev):
             lambda x=x, w=w: ref.rmsnorm_ref(x, w),
             lambda x=x, w=w: ref.rmsnorm_ref(x.float(), w.float()),
             lambda x=x, w1=w1: F.rms_norm(x, (d,), weight=w1, eps=1e-6),
-            nbytes(x, w, x), 4 * rows * d))
+            nbytes(x, w, x), 4 * rows * d, "bf16"))
+
+    # mamba2-2.7b: 80 heads of P 64, N 128; the serving chunk (Q 16) and
+    # the config's (two chunks of 256). mamba2-like magnitudes: dt in
+    # [1e-3, 1e-1], A in [-80, -1], so the decays lie in (0, 1]
+    H, P, N = 80, 64, 128
+    for B, nc, Q in ((1, 1, 16), (1, 2, 256)):
+        dt = torch.rand((B, nc, Q, H), generator=g, device=dev) * 0.099 \
+            + 0.001
+        A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+        xdt = rn(B, nc, Q, H, P, dtype=torch.float32) * dt[..., None]
+        cum_a = torch.cumsum(dt * A, dim=2)
+        Br, Cr = rn(B, nc, Q, N, dtype=torch.float32), \
+            rn(B, nc, Q, N, dtype=torch.float32)
+        a = (xdt, cum_a, Br, Cr)
+        y_bytes = xdt.numel() * 4 + B * nc * H * P * N * 4
+        tri = Q * (Q + 1) // 2
+        n_ops = 2 * B * nc * (N * tri + H * (P * tri + Q * N * P))
+        cases.append((
+            "ssd_intra", f"B={B} nc={nc} Q={Q} H={H} P={P} N={N}",
+            lambda a=a: ops.ssd_intra(*a),
+            lambda a=a: ref.ssd_intra_ref(*a),
+            lambda a=a: ref.ssd_intra_ref(*a),
+            None, nbytes(*a) + y_bytes, n_ops, "tf32"))
+
+    # recurrentgemma-9b: lru width 4096; two lanes of a serving chunk and
+    # one long prefill
+    W = 4096
+    for B, T in ((2, 16), (1, 512)):
+        a_ = torch.rand((B, T, W), generator=g, device=dev) * 0.5 + 0.5
+        bx = rn(B, T, W, dtype=torch.float32)
+        h0 = rn(B, W, dtype=torch.float32)
+        a = (a_, bx, h0)
+        cases.append((
+            "rglru_scan", f"B={B} T={T} W={W}",
+            lambda a=a: ops.rglru_scan(*a),
+            lambda a=a: ref.rglru_scan_ref(*a),
+            lambda a=a: ref.rglru_scan_ref(*a),
+            None, nbytes(*a) + nbytes(bx, h0), 2 * B * T * W, "fp32"))
     return cases
 
 
@@ -220,22 +314,35 @@ KERNELS = {
     "rmsnorm": (
         "triton", "src/repro_torch/kernels/rmsnorm.py",
         "src/repro/kernels/rmsnorm.py:25", "rows=8 d=4096"),
+    "ssd_intra": (
+        "cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:38",
+        "B=1 nc=1 Q=16 H=80 P=64 N=128"),
+    "rglru_scan": (
+        "cuda", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan.py:31", "B=2 T=16 W=4096"),
 }
 
 
 def run_kernels(dev):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     results = []
-    for name, label, kern, plain, plain32, lib, n_bytes, n_ops in \
+    for name, label, kern, plain, plain32, lib, n_bytes, n_ops, peak in \
             kernel_cases(dev):
         got = kern()
         torch.cuda.synchronize()
-        err = max_err(got, plain32())
-        b_ms, b_by = bound(n_bytes, n_ops)
-        r = dict(name=name, case=label, max_abs_err=err, tol=ATOL,
+        want = plain32()
+        err = max_err(got, want)
+        fp32 = (got[0] if isinstance(got, tuple) else got).dtype \
+            == torch.float32
+        b_ms, b_by = bound(n_bytes, n_ops, peak)
+        r = dict(name=name, case=label, max_abs_err=err,
+                 tol=f"{FP32_TOL} * max|plain|" if fp32
+                 else f"{ATOL} + {RTOL} * |plain|",
                  ms=time_ms(kern, flush), plain_ms=time_ms(plain, flush),
                  library_ms=time_ms(lib, flush) if lib else None,
-                 bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=n_ops)
+                 bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=n_ops,
+                 peak=f"{peak} {PEAK_FLOPS[peak] / 1e12} TFLOP/s")
         emit("kernels", **r)
         results.append(r)
     return results
@@ -244,16 +351,20 @@ def run_kernels(dev):
 # ---------------------------------------------------------------------------
 # phase 4: reference
 
+#: arch -> (layers kept, prefill tokens, decode steps)
+REFERENCE = {"granite-3-8b": (2, 64, 4), "mamba2-2.7b": (2, 300, 4),
+             "recurrentgemma-9b": (3, 300, 4)}
 
-def run_reference(dev):
-    """Full width, depth cut to 2 layers: the kernels' path (bf16, card)
-    against the plain path (fp32, CPU) with the same weights."""
+
+def run_reference(dev, arch: str):
+    """Full width, depth cut to one layer pattern: the kernels' path (bf16,
+    card) against the plain path (fp32, CPU) with the same weights."""
     import dataclasses
     from repro_torch.config.registry import get_config
     from repro_torch.models.model import build_model
 
-    cfg = dataclasses.replace(get_config("granite-3-8b", "full"),
-                              num_layers=2)
+    layers, T, n_dec = REFERENCE[arch]
+    cfg = dataclasses.replace(get_config(arch, "full"), num_layers=layers)
     m = build_model(cfg, torch.bfloat16, dev)
     params = m.init(0)
     m_cpu = build_model(cfg, torch.float32, "cpu")
@@ -263,15 +374,14 @@ def run_reference(dev):
             else t.float().cpu()
 
     p_cpu = to_cpu(params)
-    T, n_dec = 64, 4
     toks = torch.randint(0, cfg.vocab_size, (1, T + n_dec),
                          generator=torch.Generator().manual_seed(0))
     pos = torch.arange(T + n_dec, dtype=torch.int32)[None]
     outs = []
     for model, p, d in ((m, params, dev), (m_cpu, p_cpu, "cpu")):
-        cache = model.init_cache(1, 128)
+        cache = model.init_cache(1, 2 * T, prefill_chunk=T)
         lg, cache = model.prefill(p, toks[:, :T].to(d), pos[:, :T].to(d),
-                                  cache)
+                                  cache, last_only=True)
         seq = [lg[0, -1]]
         for t in range(T, T + n_dec):
             lg, cache = model.decode_step(p, toks[:, t].to(d),
@@ -284,30 +394,35 @@ def run_reference(dev):
         raise AssertionError(f"bad logits: shape {tuple(got.shape)}")
     rel = float((got - want).abs().max() / want.abs().max())
     same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    emit("reference", layers=2, d_model=cfg.d_model, rel_max_err=rel,
-         tol=5e-2, argmax_agreement=same)
+    emit("reference", arch=arch, layers=layers, d_model=cfg.d_model,
+         prefill_tokens=T, rel_max_err=rel, tol=5e-2,
+         argmax_agreement=same)
     if rel > 5e-2:
-        raise AssertionError(f"kernel path vs fp32 plain path: rel err {rel}")
-    del m, params
+        raise AssertionError(f"{arch}: kernel path vs fp32 plain path: "
+                             f"rel err {rel}")
+    del m, params, m_cpu, p_cpu
+    gc.collect()
     torch.cuda.empty_cache()
+    return dict(arch=arch, rel_max_err=rel, argmax_agreement=same)
 
 
 # ---------------------------------------------------------------------------
 # phase 5: serving
 
 
-def run_serve(paged: bool):
+def run_serve(arch: str, paged: bool):
     import numpy as np
     from repro_torch.config.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
+    n_req, path = FAMILIES[arch]
     args = serve.build_parser().parse_args(
-        SERVE_ARGS + (["--paged"] if paged else []))
+        SERVE_ARGS + ["--arch", arch] + (["--paged"] if paged else []))
     vocab = get_config(args.arch, args.variant).vocab_size
     rng = np.random.RandomState(0)
     prompts = [list(map(int, rng.randint(0, vocab, size=rng.randint(
-        PROMPT_LO, PROMPT_HI + 1)))) for _ in range(N_REQUESTS)]
+        PROMPT_LO, PROMPT_HI + 1)))) for _ in range(n_req)]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -316,20 +431,23 @@ def run_serve(paged: bool):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     s = eng.summary()
-    n_out = eng.total_decoded
-    name = "serve_paged" if paged else "serve_contiguous"
+    allocator_full = eng.blocks.free_blocks == eng.blocks.num_blocks
+    name = f"serve_{arch}_{'paged' if paged else 'contiguous'}"
     emit(name, summary=s, launches=launches, wall_s=wall,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         tokens_out=n_out)
-    if s["finished"] != N_REQUESTS:
-        raise AssertionError(f"{name}: {s['finished']} of {N_REQUESTS} "
+         tokens_out=eng.total_decoded, allocator_full=allocator_full)
+    if s["finished"] != n_req:
+        raise AssertionError(f"{name}: {s['finished']} of {n_req} "
                              f"requests finished")
-    path = ("paged_decode_attention" if paged else "decode_attention",
-            "flash_attention", "rmsnorm")
-    for k in path:
+    if eng.state_only and (s["preemptions"] != 0 or not allocator_full):
+        raise AssertionError(f"{name}: a state-only family preempted "
+                             f"({s['preemptions']}) or leaked blocks")
+    decode = "paged_decode_attention" if paged else "decode_attention"
+    for k in path + ((decode,) if arch != "mamba2-2.7b" else ()):
         if launches[k] <= 0:
             raise AssertionError(f"{name}: kernel {k} never launched")
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
     return s, launches
 
@@ -366,14 +484,21 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     kres = run_kernels(dev)
-    run_reference(dev)
-    s_c, l_c = run_serve(paged=False)
-    s_p, l_p = run_serve(paged=True)
-    diff = {k: (s_c[k], s_p[k]) for k in STRUCTURAL if s_c[k] != s_p[k]}
-    if diff:
-        raise AssertionError(f"structural counters differ between cache "
-                             f"layouts: {diff}")
-    launches = {k: l_c[k] + l_p[k] for k in l_c}
+    refs = [run_reference(dev, arch) for arch in REFERENCE]
+    serves, launches = {}, {}
+    for arch in FAMILIES:
+        layouts = {}
+        for paged in (False, True):
+            s, ln = run_serve(arch, paged)
+            layouts["paged" if paged else "contiguous"] = s
+            for k, n in ln.items():
+                launches[k] = launches.get(k, 0) + n
+        s_c, s_p = layouts["contiguous"], layouts["paged"]
+        diff = {k: (s_c[k], s_p[k]) for k in STRUCTURAL if s_c[k] != s_p[k]}
+        if diff:
+            raise AssertionError(f"{arch}: structural counters differ "
+                                 f"between cache layouts: {diff}")
+        serves[arch] = layouts
     if any(n <= 0 for n in launches.values()):
         raise AssertionError(f"a kernel never launched: {launches}")
 
@@ -391,8 +516,8 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kres, "summary": summary,
-         "serve_contiguous": s_c, "serve_paged": s_p,
-         "launches": launches}, indent=1))
+         "reference": refs, "serve": serves, "launches": launches},
+        indent=1))
     print(card)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,8 @@ _ARCH_MODULES = {
 }
 
 #: arch ids whose model path the port runs (ROADMAP.md lists the rest)
-_PORTED = ("granite-3-8b",)
+_PORTED = ("granite-3-8b",
+           "mamba2-2.7b", "recurrentgemma-9b")
 
 
 def register(arch_id: str, full: Callable[[], ModelConfig],

@@ -39,6 +39,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # window, causal, stream
         "flash_attention": [_I] + [_P] * 6 + [_I] * 8 + [_P],
     },
+    "ssd_scan": {
+        # xdt, cum_a, Br, Cr, cb scratch, y, s, Z, Q, H, P, N, stream
+        "ssd_intra": [_P] * 7 + [_I] * 5 + [_P],
+    },
+    "rglru_scan": {
+        # a, bx, h0, y, hT, B, T, W, stream
+        "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -39,7 +39,9 @@ using repro::warp_sum;
 
 constexpr int kThreads = 128;
 constexpr int kTile = 64;       // slots per KV tile (paged: block_size <= kTile)
-constexpr int kMaxAcc = 16;     // accumulators per thread: G*hd <= 2048
+// accumulators per thread: G*hd <= 2048, and 4096 at hd 256 (16 query heads
+// on one kv head), so the narrower heads keep their register budget
+__host__ __device__ constexpr int max_acc(int hd) { return hd >= 256 ? 32 : 16; }
 
 size_t smem_bytes(int G, int hd) {
   return sizeof(float) * ((size_t)kTile * (hd + 1) + (size_t)kTile * hd +
@@ -80,6 +82,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + ((size_t)b * H + (size_t)kvh * G) * HD;
   for (int i = tid; i < GD; i += kThreads) Qs[i] = to_f(qb[i]);
   for (int g = tid; g < G; g += kThreads) { Ms[g] = kNegInf; Ls[g] = 0.f; }
+  constexpr int kMaxAcc = max_acc(HD);
   float acc[kMaxAcc];
 #pragma unroll
   for (int r = 0; r < kMaxAcc; ++r) acc[r] = 0.f;
@@ -185,8 +188,8 @@ int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
              const void* q_pos, const void* k_pos, const void* tables,
              void* out, int B, int H, int KV, int span, int n_tiles,
              int window, void* stream) {
-  if (KV <= 0 || H % KV || (H / KV) * hd > kMaxAcc * kThreads || span <= 0 ||
-      (PAGED && span > kTile))
+  if (KV <= 0 || H % KV || (H / KV) * hd > max_acc(hd) * kThreads ||
+      span <= 0 || (PAGED && span > kTile))
     return (int)cudaErrorInvalidValue;
 #define REPRO_DECODE_CASE(T, HD_)                                           \
   if (hd == HD_)                                                            \
@@ -197,11 +200,13 @@ int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
     REPRO_DECODE_CASE(float, 32)
     REPRO_DECODE_CASE(float, 64)
     REPRO_DECODE_CASE(float, 128)
+    REPRO_DECODE_CASE(float, 256)
   } else if (dtype == 1) {
     REPRO_DECODE_CASE(__nv_bfloat16, 16)
     REPRO_DECODE_CASE(__nv_bfloat16, 32)
     REPRO_DECODE_CASE(__nv_bfloat16, 64)
     REPRO_DECODE_CASE(__nv_bfloat16, 128)
+    REPRO_DECODE_CASE(__nv_bfloat16, 256)
   }
 #undef REPRO_DECODE_CASE
   return (int)cudaErrorInvalidValue;
@@ -209,7 +214,7 @@ int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 128}. Every entry
+// dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 128, 256}. Every entry
 // returns cudaGetLastError() after its launch.
 extern "C" int decode_attention(int dtype, const void* q, const void* k,
                                 const void* v, const void* q_pos,

@@ -41,6 +41,7 @@ __device__ __forceinline__ bool visible(int kp, int qp, int causal, int window) 
   return kp >= 0 && (!causal || kp <= qp) && (window == 0 || kp > qp - window);
 }
 
+// 214,024 bytes at HD 256, inside the 232,448 a block may opt in to.
 template <int HD>
 constexpr size_t smem_bytes() {
   return sizeof(float) * ((size_t)kBQ * (HD + 1) + (size_t)kBK * (HD + 1) +
@@ -171,6 +172,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos,
            int window, int causal, void* stream) {
   auto kern = flash_kernel<T, NC>;
   constexpr size_t smem = smem_bytes<32 * NC>();
+  static_assert(smem <= 232448, "shared memory over the per-block opt-in");
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -189,13 +191,14 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 32: return launch<T, 1>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
     case 64: return launch<T, 2>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
     case 128: return launch<T, 4>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
+    case 256: return launch<T, 8>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128}. Returns
+// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128, 256}. Returns
 // cudaGetLastError() after the launch.
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, const void* q_pos,

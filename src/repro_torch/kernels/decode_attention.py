@@ -15,7 +15,7 @@ from repro_torch.kernels import _build
 
 #: slots per contiguous tile, and the largest paged block the kernel takes
 TILE = 64
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def _check_q(q, KV, hd):
@@ -24,7 +24,10 @@ def _check_q(q, KV, hd):
     _build.require(qhd == hd and H % KV == 0,
                    f"q {tuple(q.shape)} does not match kv heads {KV} x {hd}")
     _build.require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
-    _build.require((H // KV) * hd <= 2048, "G * head_dim must be <= 2048")
+    # the kernel's accumulators: 16 per thread, 32 at head_dim 256
+    max_gd = 4096 if hd == 256 else 2048
+    _build.require((H // KV) * hd <= max_gd,
+                   f"G * head_dim must be <= {max_gd} at head_dim {hd}")
     return B, H
 
 

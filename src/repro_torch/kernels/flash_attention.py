@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def flash_attention_cuda(q, k, v, q_pos, k_pos, *, window: int = 0,

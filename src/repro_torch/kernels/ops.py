@@ -13,11 +13,14 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   paged_decode_attention_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rglru_scan import rglru_scan_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.ssd_scan import ssd_intra_cuda
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0,
-                            "flash_attention": 0, "rmsnorm": 0}
+                            "flash_attention": 0, "rmsnorm": 0,
+                            "ssd_intra": 0, "rglru_scan": 0}
 
 
 def reset_launches() -> None:
@@ -63,4 +66,25 @@ def rmsnorm(x, w, *, eps: float = 1e-6):
         return ref.rmsnorm_ref(x, w, eps=eps)
     out = rmsnorm_cuda(x, w, eps=eps)
     LAUNCHES["rmsnorm"] += 1
+    return out
+
+
+def ssd_intra(xdt, cum_a, Br, Cr):
+    """Mamba2 SSD intra-chunk term and chunk states (fp32):
+    xdt (B, nc, Q, H, P), cum_a (B, nc, Q, H), Br/Cr (B, nc, Q, N) ->
+    y_intra (B, nc, Q, H, P), s_chunk (B, nc, H, P, N)."""
+    if not xdt.is_cuda:
+        return ref.ssd_intra_ref(xdt, cum_a, Br, Cr)
+    out = ssd_intra_cuda(xdt, cum_a, Br, Cr)
+    LAUNCHES["ssd_intra"] += 1
+    return out
+
+
+def rglru_scan(a, bx, h0):
+    """h_t = a_t h_{t-1} + bx_t (fp32): a/bx (B, T, W), h0 (B, W) ->
+    (h_all (B, T, W), h_T (B, W))."""
+    if not a.is_cuda:
+        return ref.rglru_scan_ref(a, bx, h0)
+    out = rglru_scan_cuda(a, bx, h0)
+    LAUNCHES["rglru_scan"] += 1
     return out

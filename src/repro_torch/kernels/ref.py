@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels: the CPU path and the
 yardstick every Hopper kernel is held against on the card.
 
-Semantics shared with the kernels (and, on every row with a visible key,
-with the JAX package's `kernels/ref.py`):
+The SSD intra-chunk term and the RG-LRU scan compute in fp32, as the JAX
+package's `kernels/ref.py` does. Attention semantics shared with the
+kernels (and, on every row with a visible key, with the JAX package):
 
 * masked scores are -1e30, and a masked key's probability is exactly 0;
 * the softmax denominator is clamped at 1e-30, so a row with no visible
@@ -102,3 +103,37 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-6):
     ms = (x32 * x32).mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(ms + eps) * (1.0 + w.float())
     return y.to(x.dtype)
+
+
+def ssd_intra_ref(xdt, cum_a, Br, Cr):
+    """Mamba2 SSD intra-chunk term and per-chunk states, in fp32.
+
+    xdt: (B, nc, Q, H, P) dt-scaled inputs; cum_a: (B, nc, Q, H)
+    within-chunk cumulative log-decay; Br/Cr: (B, nc, Q, N).
+    Returns y_intra (B, nc, Q, H, P) = ((C B^T) o L) xdt with
+    L[i, j] = exp(cum_a_i - cum_a_j) for i >= j, and the chunk states
+    s_chunk (B, nc, H, P, N) = ((B o exp(cum_a_end - cum_a))^T xdt)^T."""
+    xdt, cum_a = xdt.float(), cum_a.float()
+    Br, Cr = Br.float(), Cr.float()
+    Q = xdt.shape[2]
+    li = cum_a[:, :, :, None, :]
+    lj = cum_a[:, :, None, :, :]
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=xdt.device).tril()
+    L = torch.where(tri[None, None, :, :, None], torch.exp(li - lj), 0.0)
+    cb = torch.einsum("bzin,bzjn->bzij", Cr, Br)
+    y = torch.einsum("bzijh,bzjhp->bzihp", cb[..., None] * L, xdt)
+    decay_to_end = torch.exp(cum_a[:, :, -1:, :] - cum_a)
+    s = torch.einsum("bzjn,bzjhp->bzhpn", Br, xdt * decay_to_end[..., None])
+    return y, s
+
+
+def rglru_scan_ref(a, bx, h0):
+    """h_t = a_t * h_{t-1} + bx_t, sequentially over t, in fp32.
+
+    a/bx: (B, T, W); h0: (B, W). Returns (h_all (B, T, W), h_T (B, W))."""
+    h = h0.float()
+    out = []
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + bx[:, t].float()
+        out.append(h)
+    return torch.stack(out, dim=1), h

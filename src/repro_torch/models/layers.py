@@ -1,4 +1,4 @@
-"""Transformer layers of the dense family: RMSNorm, RoPE, GQA attention
+"""Transformer layers: seeded parameter init, RMSNorm, RoPE, GQA attention
 through a contiguous (possibly ring) or paged KV cache, SwiGLU MLP.
 
 Conventions (those of the JAX package's `models/layers.py`):
@@ -15,7 +15,8 @@ tensors, their plain versions for CPU tensors. The projections stay
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +24,66 @@ import torch.nn.functional as F
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import paged_view
+
+
+class ParamInit:
+    """Seeded random weights with the JAX package's scales, drawn in place
+    in the working dtype on the target device (one layer at a time, so peak
+    memory stays at the weights themselves). The numbers differ from the
+    JAX package's for the same seed; the distributions are the same."""
+
+    def __init__(self, seed: int, dtype: torch.dtype, device):
+        self.dtype, self.device = dtype, device
+        self.g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(self, shape, scale: float):
+        return torch.empty(shape, dtype=self.dtype, device=self.device
+                           ).normal_(0.0, scale, generator=self.g)
+
+    def stacked(self, n: int, shape, scale: Optional[float] = None):
+        """n layers of `shape`, each normal / sqrt(fan_in = shape[0]) unless
+        `scale` is given."""
+        w = torch.empty((n,) + tuple(shape), dtype=self.dtype,
+                        device=self.device)
+        for i in range(n):
+            w[i].normal_(0.0, scale if scale is not None
+                         else 1 / math.sqrt(shape[0]), generator=self.g)
+        return w
+
+    def uniform(self, shape, lo: float, hi: float):
+        """fp32 uniform draws in [lo, hi)."""
+        return torch.empty(shape, dtype=torch.float32, device=self.device
+                           ).uniform_(lo, hi, generator=self.g)
+
+    def zeros(self, *shape, dtype=None):
+        return torch.zeros(shape, dtype=dtype or self.dtype,
+                           device=self.device)
+
+
+def init_attention(init: ParamInit, cfg: ModelConfig, n: int):
+    """n stacked GQA attention blocks: wq/wk/wv at 1/sqrt(d), wo at
+    0.02/sqrt(2 L), zero biases where the config has them."""
+    d, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    p = {"wq": init.stacked(n, (d, H * hd)),
+         "wk": init.stacked(n, (d, KV * hd)),
+         "wv": init.stacked(n, (d, KV * hd)),
+         "wo": init.stacked(n, (H * hd, d), out_scale(cfg))}
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
+            p[name] = init.zeros(n, width)
+    return p
+
+
+def init_mlp(init: ParamInit, cfg: ModelConfig, n: int):
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_gate": init.stacked(n, (d, f)), "w_up": init.stacked(n, (d, f)),
+            "w_down": init.stacked(n, (f, d), out_scale(cfg))}
+
+
+def out_scale(cfg: ModelConfig) -> float:
+    """Scale of every projection back into the residual stream."""
+    return 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
 
 
 def rms_norm(x, w, eps: float = 1e-6):

@@ -34,7 +34,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
                  device=None):
         super().__init__()
-        B.require_dense(cfg)
+        B.require_ported(cfg)
         self.cfg = cfg
         self.dtype = B.cfg_dtype(cfg, dtype)
         self.device = resolve_device(device)
@@ -49,16 +49,20 @@ class Model(nn.Module):
         return B.init_cache(self.cfg, batch, max_context, self.dtype,
                             self.device, chunk=prefill_chunk)
 
-    def init_paged_cache(self, num_blocks: int, block_size: int):
-        """Physically paged serving cache: block pools (DESIGN §9)."""
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         n_slots: int = 0):
+        """Physically paged serving cache: block pools plus `n_slots` rows
+        of per-request state and the padding sentinel (DESIGN §9)."""
         return B.init_paged_cache(self.cfg, num_blocks, block_size,
-                                  self.dtype, self.device)
+                                  self.dtype, self.device, n_slots=n_slots)
 
     @torch.no_grad()
     def forward(self, params, tokens, positions, cache, *,
-                last_only: bool = False, tables=None):
+                decode: bool = False, last_only: bool = False, tables=None,
+                rows=None):
         return B.forward_cached(params, tokens, positions, cache, self.cfg,
-                                last_only=last_only, tables=tables)
+                                decode=decode, last_only=last_only,
+                                tables=tables, rows=rows)
 
     def prefill(self, params, tokens, positions, cache,
                 last_only: bool = False):
@@ -69,20 +73,24 @@ class Model(nn.Module):
     def decode_step(self, params, tokens, seq_lens, cache):
         """tokens: (B,) next input ids; seq_lens: (B,) their absolute
         positions (-1 = padding row). Returns (logits (B, V), cache)."""
-        logits, cache = self(params, tokens[:, None], seq_lens[:, None], cache)
+        logits, cache = self(params, tokens[:, None], seq_lens[:, None], cache,
+                             decode=True)
         return logits[:, 0], cache
 
     def prefill_paged(self, params, tokens, positions, tables, cache,
-                      last_only: bool = False):
+                      rows=None, last_only: bool = False):
         """Chunked prefill through the paged pools: `tables` is the (B, MB)
-        per-request physical block table (DESIGN §9)."""
+        per-request physical block table, `rows` (B,) the requests' state
+        slots (DESIGN §9)."""
         return self(params, tokens, positions, cache, last_only=last_only,
-                    tables=tables)
+                    tables=tables, rows=rows)
 
-    def decode_step_paged(self, params, tokens, seq_lens, tables, cache):
-        """Paged decode step (DESIGN §9)."""
+    def decode_step_paged(self, params, tokens, seq_lens, tables, cache,
+                          rows=None):
+        """Paged decode step (DESIGN §9); a padding row's `rows` entry is
+        the sentinel slot."""
         logits, cache = self(params, tokens[:, None], seq_lens[:, None],
-                             cache, tables=tables)
+                             cache, decode=True, tables=tables, rows=rows)
         return logits[:, 0], cache
 
 

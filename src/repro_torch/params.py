@@ -12,11 +12,15 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.models.backbone import FP32_LEAVES
+
 
 def from_jax_params(tree: Dict[str, Any], device="cpu",
                     dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-    """Nested dict of numpy arrays -> nested dict of `dtype` tensors on
-    `device` (integer arrays keep their integer type)."""
+    """Nested dict of numpy arrays -> nested dict of tensors on `device`:
+    float leaves in `dtype`, except those the JAX package keeps in fp32
+    whatever the working dtype (`backbone.FP32_LEAVES`: the SSM and RG-LRU
+    constants), which stay fp32; integer arrays keep their type."""
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -26,6 +30,7 @@ def from_jax_params(tree: Dict[str, Any], device="cpu",
         if a.dtype.name == "bfloat16":   # ml_dtypes: torch cannot wrap it
             a = a.astype(np.float32)
         t = torch.from_numpy(a)
-        out[k] = t.to(device=device,
-                      dtype=dtype if t.is_floating_point() else t.dtype)
+        if t.is_floating_point():
+            t = t.to(torch.float32 if k in FP32_LEAVES else dtype)
+        out[k] = t.to(device)
     return out

@@ -12,6 +12,14 @@ multi-row prefill. Finished lanes promote into the compacted decode region.
 The paged cache (DESIGN §9) keeps K/V in block pools addressed through the
 BlockManager's tables, so promotion, finish and eviction copy nothing.
 
+Per-request state (DESIGN §9; SSM conv/ssm, RG-LRU conv/rec) is a cache row
+per slot. In the contiguous layout it moves with the K/V row. In the paged
+layout a request pins a state slot from `_free_slots` for its whole life;
+decode reads the slots of the active requests and pads the bucket with the
+sentinel slot, which reads zeros and is never written. State-only families
+(no K/V: `mem.bytes_per_token == 0`) hold one block per request as an
+admission cap, never grow it, and never preempt.
+
 This slice is the synchronous loop (`overlap_depth=0`, DESIGN §14):
 every interval dispatches its steps and retires them before it returns,
 reading the tokens back once; a decode step's TBT sample is the
@@ -32,10 +40,29 @@ from repro_torch.core.batching import bucketize, make_policy
 from repro_torch.core.lanes import lane_order, pack_chunks
 from repro_torch.core.memory_model import MemoryModel
 from repro_torch.core.telemetry import Telemetry
+from repro_torch.models.backbone import STATE_KEYS
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serving.kv_cache import BlockManager
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import sample
+
+
+def cache_rows(cache: Dict[str, torch.Tensor],
+               rows) -> Dict[str, torch.Tensor]:
+    """Rows `rows` (an int, a slice or an index tensor) of a contiguous
+    cache: `pos` has its rows on axis 0, every other key on axis 1. An int
+    or a slice gives views."""
+    return {k: v[rows] if k == "pos" else v[:, rows] for k, v in cache.items()}
+
+
+def put_cache_rows(cache: Dict[str, torch.Tensor], rows,
+                   sub: Dict[str, torch.Tensor]) -> None:
+    """Write `sub` into rows `rows` of a contiguous cache, in place."""
+    for k, v in cache.items():
+        if k == "pos":
+            v[rows] = sub[k]
+        else:
+            v[:, rows] = sub[k]
 
 
 def check_ported(serve: ServeConfig) -> None:
@@ -106,9 +133,12 @@ class Engine:
         self.n_slots = self.max_slots + self.n_lanes
         # per-request block-table width: enough blocks for a full context
         self.max_blocks = -(-max_context // serve.block_size)
+        # state-only family: constant per-request state, no K/V to grow
+        self.state_only = self.mem.bytes_per_token == 0
         if self.paged:
-            self.cache = model.init_paged_cache(self.mem.num_blocks,
-                                                serve.block_size)
+            self.cache = model.init_paged_cache(
+                self.mem.num_blocks, serve.block_size, n_slots=self.n_slots)
+            self._free_slots = list(range(self.n_slots))
         else:
             self.cache = model.init_cache(self.n_slots, max_context,
                                           prefill_chunk=prefill_chunk)
@@ -163,20 +193,30 @@ class Engine:
     def _rows_view(self, start: int, n: int) -> Dict[str, torch.Tensor]:
         """Rows [start, start + n) of the contiguous cache as VIEWS: a step
         run on them writes the cache in place — no take/put copy."""
-        return {"k": self.cache["k"][:, start:start + n],
-                "v": self.cache["v"][:, start:start + n],
-                "pos": self.cache["pos"][start:start + n]}
+        return cache_rows(self.cache, slice(start, start + n))
+
+    def _clear_state(self, i: int) -> None:
+        """Zero row i's per-request state (all a paged slot needs)."""
+        for k in STATE_KEYS:
+            if k in self.cache:
+                self.cache[k][:, i] = 0
 
     def _clear_row(self, i: int) -> None:
-        """Forget row i's contents: empty positions mask its stale K/V."""
-        self.cache["pos"][i] = -1
+        """Forget row i's contents: empty positions mask its stale K/V, and
+        its state starts from zero."""
+        if "pos" in self.cache:
+            self.cache["pos"][i] = -1
+        self._clear_state(i)
 
     def _copy_row(self, dst: int, src: int) -> None:
-        for k in ("k", "v"):
-            self.cache[k][:, dst] = self.cache[k][:, src]
-        self.cache["pos"][dst] = self.cache["pos"][src]
+        put_cache_rows(self.cache, dst, cache_rows(self.cache, src))
         self.copy_rows += 1
         self.copy_bytes += self._row_bytes
+
+    def _acquire_slot(self, r: Request) -> None:
+        """Paged mode: pin a zeroed state slot for the request's life."""
+        r.slot = self._free_slots.pop()
+        self._clear_state(r.slot)
 
     # -- paged-mode helpers (DESIGN §9) -------------------------------------------
     def _tables_for(self, reqs, pad_to: int = 0) -> torch.Tensor:
@@ -191,14 +231,23 @@ class Engine:
 
     def _free_request(self, r: Request) -> None:
         """Release a request's blocks; in paged mode clear their pos-pool
-        rows so a future tenant never sees stale positions (DESIGN §9)."""
+        rows so a future tenant never sees stale positions, and return its
+        state slot (DESIGN §9)."""
         freed = self.blocks.free(r.rid)
         self._pending_tok.pop(r.rid, None)
-        if self.paged and freed:
+        if not self.paged:
+            return
+        if freed and "pos" in self.cache:
             self.cache["pos"][torch.tensor(freed, device=self.device)] = -1
+        if r.slot >= 0:
+            self._free_slots.append(r.slot)
+            r.slot = -1
 
     def _int32(self, rows) -> torch.Tensor:
         return torch.tensor(rows, dtype=torch.int32, device=self.device)
+
+    def _slots(self, slots) -> torch.Tensor:
+        return torch.tensor(slots, dtype=torch.int64, device=self.device)
 
     # -- public API -------------------------------------------------------------
     def submit(self, prompt_tokens: List[int], max_new_tokens: int = 0,
@@ -246,7 +295,9 @@ class Engine:
         while self.waiting \
                 and len(self.active) + len(self.prefilling) < cap:
             r = self.waiting[0]
-            need = r.prompt_len + 1
+            # a state-only request holds one block: an admission cap
+            need = self.serve.block_size if self.state_only \
+                else r.prompt_len + 1
             verdict = self.blocks.admission_verdict(
                 self.blocks.blocks_needed(0, need, r.rid), self.max_blocks)
             if verdict != "admit":
@@ -306,7 +357,9 @@ class Engine:
             if not queued:
                 break
             _, r = queued.pop(0)
-            if not self.paged:
+            if self.paged:
+                self._acquire_slot(r)
+            else:
                 r.slot = self.max_slots + j
                 self._clear_row(r.slot)
             r.lane = j
@@ -323,21 +376,18 @@ class Engine:
         if self.paged:
             logits, _ = self.model.prefill_paged(
                 self.params, tt, pos, self._tables_for(reqs), self.cache,
-                last_only=True)
+                rows=self._slots([r.slot for r in reqs]), last_only=True)
         elif len(reqs) == 1:
             logits, _ = self.model.prefill(
                 self.params, tt, pos, self._rows_view(reqs[0].slot, 1),
                 last_only=True)
         else:
             # lane rows need not be adjacent: gather, run, scatter back
-            rows = torch.tensor([r.slot for r in reqs], device=self.device)
-            sub = {"k": self.cache["k"][:, rows], "v": self.cache["v"][:, rows],
-                   "pos": self.cache["pos"][rows]}
+            rows = self._slots([r.slot for r in reqs])
+            sub = cache_rows(self.cache, rows)
             logits, sub = self.model.prefill(self.params, tt, pos, sub,
                                              last_only=True)
-            self.cache["k"][:, rows] = sub["k"]
-            self.cache["v"][:, rows] = sub["v"]
-            self.cache["pos"][rows] = sub["pos"]
+            put_cache_rows(self.cache, rows, sub)
         return logits[:, -1]
 
     def _advance_prefill(self, budget_tokens: int, rec: _StepRec) -> None:
@@ -404,7 +454,9 @@ class Engine:
     def _prefill_request(self, r: Request, rec: _StepRec):
         """Non-chunked admission: prefill the whole prompt now, in
         exact-size chunks of `prefill_chunk` tokens."""
-        if not self.paged:
+        if self.paged:
+            self._acquire_slot(r)
+        else:
             r.slot = len(self.active)
             self._clear_row(r.slot)
         r.state = RequestState.PREFILLING
@@ -421,7 +473,10 @@ class Engine:
 
     def _preempt_if_needed(self):
         """Recompute preemption: evict the newest request until the next
-        decode step's block growth fits the pool (vLLM order)."""
+        decode step's block growth fits the pool (vLLM order). A state-only
+        family's decode never grows, so it never preempts."""
+        if self.state_only:
+            return
         while self.active:
             need = sum(self.blocks.blocks_needed(r.context_len, 1, r.rid)
                        for r in self.active)
@@ -469,9 +524,12 @@ class Engine:
             tt[[i for i, _ in pend]] = torch.stack([v for _, v in pend])
         ll = self._int32(lens)
         if self.paged:
+            # padding rows read the sentinel slot n_slots (zeros)
+            rows = self._slots([r.slot for r in self.active]
+                               + [self.n_slots] * (bucket - n))
             logits, _ = self.model.decode_step_paged(
                 self.params, tt, ll, self._tables_for(self.active, bucket),
-                self.cache)
+                self.cache, rows=rows)
         else:
             logits, _ = self.model.decode_step(self.params, tt, ll,
                                                self._rows_view(0, bucket))
@@ -486,8 +544,10 @@ class Engine:
         finished = []
         grow_failed = []
         for i, r in enumerate(self.active):
-            # grow the KV footprint for the NEXT step's write
-            grew = self.blocks.allocate(r.rid, r.context_len, 1)
+            # grow the KV footprint for the NEXT step's write; constant
+            # per-request state never grows
+            grew = self.state_only or \
+                self.blocks.allocate(r.rid, r.context_len, 1)
             rec.patches.append((r, len(r.output_tokens),
                                 self._gen.get(r.rid, 0), "d", i))
             r.output_tokens.append(None)

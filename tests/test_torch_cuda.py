@@ -136,3 +136,163 @@ def test_model_on_card_matches_cpu(cuda, paged):
     used = ("paged_decode_attention" if paged else "decode_attention",
             "flash_attention", "rmsnorm")
     assert all(ops.LAUNCHES[k] > 0 for k in used), ops.LAUNCHES
+
+
+def _close_normwise(got, want, tol=1e-4):
+    """fp32 kernels: every element within tol * max|want| (sums of up to
+    Q * N products taken in another order than the plain version's)."""
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
+
+
+def _ssd_inputs(rng, B, nc, Q, H, P, N):
+    """mamba2-like magnitudes: dt in [1e-3, 1e-1], A in [-H, -1]."""
+    dt = rng.uniform(1e-3, 1e-1, (B, nc, Q, H))
+    A = -np.arange(1, H + 1)
+    xdt = rng.randn(B, nc, Q, H, P) * dt[..., None]
+    cum_a = np.cumsum(dt * A, axis=2)
+    Br, Cr = rng.randn(2, B, nc, Q, N)
+    return xdt, cum_a, Br, Cr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nc,Q,H,P,N", [
+    (1, 1, 16, 80, 64, 128),     # the serving chunk of mamba2-2.7b
+    (1, 2, 256, 80, 64, 128),    # the config's chunk
+    (2, 3, 40, 4, 32, 16),       # ragged tiles, reduced widths
+])
+def test_ssd_intra_kernel_matches_plain_on_card(cuda, B, nc, Q, H, P, N):
+    args = _on(cuda, *_ssd_inputs(np.random.RandomState(0), B, nc, Q, H, P,
+                                  N), dtype=torch.float32)
+    y, s = ops.ssd_intra(*args)
+    yr, sr = ref.ssd_intra_ref(*args)
+    assert ops.LAUNCHES["ssd_intra"] == 1
+    _close_normwise(y, yr)
+    _close_normwise(s, sr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,W", [(2, 16, 4096), (1, 512, 4096),
+                                   (3, 37, 1000)])
+def test_rglru_scan_kernel_matches_plain_on_card(cuda, B, T, W):
+    rng = np.random.RandomState(0)
+    a, bx, h0 = _on(cuda, rng.uniform(0.5, 1.0, (B, T, W)),
+                    rng.randn(B, T, W), rng.randn(B, W), dtype=torch.float32)
+    y, hT = ops.rglru_scan(a, bx, h0)
+    yr, hTr = ref.rglru_scan_ref(a, bx, h0)
+    assert ops.LAUNCHES["rglru_scan"] == 1
+    _close_normwise(y, yr)
+    _close_normwise(hT, hTr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,window", [(1024, 0), (2048, 2048), (2048, 512)])
+def test_decode_kernel_head_dim_256_on_card(cuda, S, window):
+    """recurrentgemma-9b's local attention: 16 heads on 1 kv head of 256."""
+    rng = np.random.RandomState(0)
+    B, H, KV, hd = 8, 16, 1, 256
+    q_pos = rng.randint(S // 2, S + window, size=B).astype(np.int32)
+    k_pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    # a ring: slot s holds the newest position congruent to s mod S
+    k_pos = np.where(k_pos + S <= q_pos[:, None], k_pos + S, k_pos)
+    q, k, v, qp, kp = _on(cuda, rng.randn(B, H, hd), rng.randn(B, S, KV, hd),
+                          rng.randn(B, S, KV, hd), q_pos, k_pos)
+    got = ops.decode_attention(q, k, v, qp, kp, window=window)
+    want = ref.decode_attention_ref(q.float(), k.float(), v.float(), qp, kp,
+                                    window=window)
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_head_dim_256_on_card(cuda):
+    rng = np.random.RandomState(0)
+    B, H, KV, hd, NB, bs, MB = 4, 16, 1, 256, 40, 16, 8
+    tables = rng.permutation(NB)[:B * MB].reshape(B, MB).astype(np.int32)
+    tables[1, 5:] = -1
+    q_pos = np.array([127, 70, 100, 3], np.int32)
+    kpos = np.full((NB, bs), -1, np.int32)
+    for b in range(B):
+        for j, pb in enumerate(tables[b]):
+            if pb >= 0:
+                kpos[pb] = np.where(j * bs + np.arange(bs) <= q_pos[b],
+                                    j * bs + np.arange(bs), -1)
+    args = _on(cuda, rng.randn(B, H, hd), rng.randn(NB, bs, KV, hd),
+               rng.randn(NB, bs, KV, hd), q_pos, kpos, tables)
+    got = ops.paged_decode_attention(*args, window=64)
+    want = ref.paged_decode_attention_ref(args[0].float(), args[1].float(),
+                                          args[2].float(), *args[3:],
+                                          window=64)
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq", [16, 500])
+def test_flash_kernel_head_dim_256_on_card(cuda, Tq):
+    rng = np.random.RandomState(0)
+    B, Tk, H, KV, hd = 1, 1024, 16, 1, 256
+    qp = np.arange(Tk - Tq, Tk, dtype=np.int32)[None]
+    kp = np.arange(Tk, dtype=np.int32)[None]
+    q, k, v, qpt, kpt = _on(cuda, rng.randn(B, Tq, H, hd),
+                            rng.randn(B, Tk, KV, hd),
+                            rng.randn(B, Tk, KV, hd), qp, kp)
+    got = ops.flash_attention(q, k, v, qpt, kpt, window=512)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), qpt, kpt,
+                                   window=512)
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_stateful_model_on_card_matches_cpu(cuda, arch, paged):
+    """Reduced mamba2 / recurrentgemma in fp32: chunked prefill (a ragged
+    SSD chunk included) + decode through the kernels on the card gives the
+    CPU plain path's logits."""
+    from repro_torch.config.registry import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(arch, "reduced")
+    m_gpu = build_model(cfg, torch.float32, cuda)
+    m_cpu = build_model(cfg, torch.float32, "cpu")
+    p_cpu = m_cpu.init(0)
+
+    def to(p, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in p.items()}
+
+    toks = torch.randint(0, cfg.vocab_size, (2, 80),
+                         generator=torch.Generator().manual_seed(0))
+    pos = torch.arange(80, dtype=torch.int32)[None].repeat(2, 1)
+    outs = []
+    for m, p, dev in ((m_gpu, to(p_cpu, cuda), cuda), (m_cpu, p_cpu, "cpu")):
+        if paged:
+            cache = m.init_paged_cache(16, 16, n_slots=4)
+            tables = torch.tensor([[0, 1, 2, 3, 4, -1], [9, 7, 5, 11, 6, -1]],
+                                  dtype=torch.int32, device=dev)
+            rows = torch.tensor([2, 0], device=dev)
+
+            def step(t, q, c, dec):
+                fn = m.decode_step_paged if dec else m.prefill_paged
+                if dec:
+                    lg, c = fn(p, t[:, 0], q[:, 0], tables, c, rows=rows)
+                    return lg[:, None], c
+                return fn(p, t, q, tables, c, rows=rows)
+        else:
+            cache = m.init_cache(2, 96, prefill_chunk=70)
+
+            def step(t, q, c, dec):
+                if dec:
+                    lg, c = m.decode_step(p, t[:, 0], q[:, 0], c)
+                    return lg[:, None], c
+                return m.prefill(p, t, q, c)
+        seq = []
+        for s, e in ((0, 70), (70, 71), (71, 72), (72, 80)):
+            lg, cache = step(toks[:, s:e].to(dev), pos[:, s:e].to(dev), cache,
+                             e - s == 1)
+            seq.append(lg.cpu())
+        outs.append(torch.cat(seq, 1))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+    used = ["rmsnorm", "ssd_intra"] if arch == "mamba2-2.7b" else \
+        ["rmsnorm", "rglru_scan", "flash_attention",
+         "paged_decode_attention" if paged else "decode_attention"]
+    assert all(ops.LAUNCHES[k] > 0 for k in used), ops.LAUNCHES

@@ -191,3 +191,52 @@ def test_rmsnorm_plain_matches_jax(shape, br, dtype):
     if dtype == "float32":
         np.testing.assert_allclose(
             got, f32(jops.rmsnorm(jx, jw, block_rows=br)), **tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD intra-chunk term
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,nc,Q,H,P,N", [
+    (2, 3, 16, 4, 8, 12),
+    (1, 1, 64, 2, 32, 16),
+    (2, 4, 8, 8, 16, 8),
+])
+def test_ssd_intra_plain_matches_jax(B, nc, Q, H, P, N, dtype):
+    """The sweep of tests/test_kernels.py; inputs of `dtype` (the Pallas
+    kernel and both plain versions compute in fp32)."""
+    rng = np.random.RandomState(7)
+    (jx, x) = both(rng.randn(B, nc, Q, H, P), dtype)
+    (jc, c) = both(-np.abs(rng.randn(B, nc, Q, H)).cumsum(axis=2))
+    (jb, b), (jr, r) = (both(a, dtype) for a in rng.randn(2, B, nc, Q, N))
+    y, s = ops.ssd_intra(x, c, b, r)
+    assert y.dtype == s.dtype == torch.float32
+    assert tuple(s.shape) == (B, nc, H, P, N)
+    for want in (jref.ssd_intra_ref(jx, jc, jb, jr),
+                 jops.ssd_intra(jx, jc, jb, jr)):
+        np.testing.assert_allclose(f32(y), f32(want[0]), rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(f32(s), f32(want[1]), rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU linear recurrence
+
+
+@pytest.mark.parametrize("B,T,W,bw", [
+    (2, 32, 256, 128),
+    (1, 128, 128, 128),
+    (4, 16, 512, 64),
+    (3, 9, 100, 0),      # width not a block multiple: the plain version only
+])
+def test_rglru_scan_plain_matches_jax(B, T, W, bw):
+    rng = np.random.RandomState(7)
+    (ja, a) = both(1 / (1 + np.exp(-rng.randn(B, T, W))))
+    (jb, bx), (jh, h0) = both(rng.randn(B, T, W)), both(rng.randn(B, W))
+    y, hT = ops.rglru_scan(a, bx, h0)
+    wants = [jref.rglru_scan_ref(ja, jb, jh)]
+    if bw:
+        wants.append(jops.rglru_scan(ja, jb, jh, block_w=bw))
+    for wy, wh in wants:
+        np.testing.assert_allclose(f32(y), f32(wy), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(f32(hT), f32(wh), rtol=1e-5, atol=1e-5)

@@ -109,7 +109,28 @@ def test_unported_features_raise(argv):
 
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("mamba2-2.7b", "reduced")
+        get_config("qwen2-moe-a2.7b", "reduced")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_stateful_families_build_and_serve_on_cpu(arch, capsys):
+    """Both variants configure, the memory model builds (an SSM request
+    costs its fixed state, no bytes per token), and the CLI serves."""
+    from repro_torch.core.memory_model import MemoryModel
+
+    full = get_config(arch, "full")
+    mem = MemoryModel(full, hbm_budget_bytes=0, eta_tokens=4096)
+    if arch == "mamba2-2.7b":
+        assert mem.bytes_per_token == 0
+        # 64 layers x (3 x 5376 bf16 conv taps + 80 x 64 x 128 fp32 state)
+        assert mem.fixed_bytes_per_request() == 64 * (3 * 5376 * 2
+                                                      + 80 * 64 * 128 * 4)
+    else:
+        assert mem.bytes_per_token == 2 * 12 * 1 * 256 * 2
+    port_serve.main(["--device", "cpu", "--arch", arch, "--requests", "3",
+                     "--max-new", "3", "--chunked", "--lanes", "2",
+                     "--paged"])
+    assert "'finished': 3" in capsys.readouterr().out
 
 
 def test_cli_serves_on_cpu(capsys):
