@@ -8,6 +8,8 @@ Phases, one JSON line each:
              versions; TF32 off for fp32 products.
 2. build     nvcc builds every CUDA kernel of the port (one process per
              source, all at once); the Triton kernel compiles at first call.
+             Registers and spill bytes per kernel instantiation, from
+             ptxas; a spill in a bf16 tensor-core attention kernel fails.
 3. kernels   each of the 6 kernels against its plain PyTorch version on the
              card at the serving path's shapes (the attention kernels and
              RMSNorm in bf16 against the fp32 plain version, the SSD and
@@ -15,7 +17,11 @@ Phases, one JSON line each:
              with CUDA-event timings (median of 30 runs after warm-up, L2
              flushed before each run) of the kernel, its plain version and
              the nearest PyTorch library call, and the least time the card
-             could take (bound_ms, with the peak it was taken against).
+             could take (bound_ms, with the peak it was taken against). A
+             bf16 attention call is timed whole: the split pass and, where
+             the key axis is split, the combine pass. One decode case has
+             rows filled to 33-512 of 1024 slots, as in serving; its bound
+             counts the visible slots' K/V and every slot's k_pos.
 4. reference per family, full width with depth cut to one layer pattern
              (granite-3-8b 2 layers, mamba2-2.7b 2, recurrentgemma-9b 3):
              the kernels' path on the card in bf16 against the plain path
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -136,6 +143,51 @@ def max_err(got, want) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: build
+
+#: the port's kernel entry functions, as they appear in mangled names
+KERNEL_NAMES = ("mma_attention_kernel", "mma_combine_kernel", "decode_kernel",
+                "flash_kernel", "cb_kernel", "intra_kernel", "scan_kernel")
+
+
+def _label(mangled: str) -> str:
+    """`name<template args>` of a mangled kernel name (dtype, ints, bools)."""
+    name = next((n for n in KERNEL_NAMES if n in mangled), mangled)
+    tail = mangled.split(name, 1)[-1]
+    if not tail.startswith("I"):
+        return name
+    args = [("bf16" if m.group(0)[0] == "1" else "fp32" if m.group(0) == "f"
+             else m.group(1) or ("true" if m.group(2) == "1" else "false"))
+            for m in re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb([01])E|f",
+                                 tail[1:tail.find("Ev")])]
+    return f"{name}<{', '.join(args)}>"
+
+
+def ptxas_table(logs):
+    """One row per kernel instantiation from `ptxas -v` output: library,
+    kernel (name and template arguments), registers, stack frame and spill
+    bytes."""
+    rows, spills = [], {}
+    for lib, log in logs.items():
+        prop = None
+        for ln in log.splitlines():
+            if m := re.search(r"Compiling entry function '([^']+)'", ln):
+                rows.append(dict(lib=lib, mangled=m.group(1)))
+            elif m := re.search(r"Function properties for (\S+)", ln):
+                prop = m.group(1)
+            elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes "
+                                r"spill stores, (\d+) bytes spill loads", ln):
+                spills[prop] = tuple(int(x) for x in m.groups())
+            elif (m := re.search(r"Used (\d+) registers", ln)) and rows:
+                rows[-1]["registers"] = int(m.group(1))
+    for r in rows:
+        r["kernel"] = _label(r["mangled"])
+        r["stack"], r["spill_stores"], r["spill_loads"] = spills.get(
+            r.pop("mangled"), (0, 0, 0))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: kernels
 
 
@@ -159,15 +211,26 @@ def kernel_cases(dev):
 
     cases = []
 
-    def decode(B, S, H, KV, hd, label, window=0):
-        """One query per row at position q_pos over an S-slot ring row."""
+    def decode(B, S, H, KV, hd, label, window=0, fill=None):
+        """One query per row at position q_pos over an S-slot ring row; or,
+        with `fill`, row b filled to fill[b] slots (the rest empty) and its
+        query at fill[b] - 1, the bound counting the visible slots' K/V and
+        every slot's k_pos."""
         q, k, v = rn(B, H, hd), rn(B, S, KV, hd), rn(B, S, KV, hd)
-        last = S - 1 + (window // 2 if window else 0)
-        qp = torch.full((B,), last, dtype=torch.int32, device=dev)
         ar = torch.arange(S, dtype=torch.int32, device=dev)
-        kp = torch.where(ar + S <= last, ar + S, ar).repeat(B, 1)
-        vis = (kp <= qp[:, None]) & ((kp > qp[:, None] - window) if window
-                                     else (kp >= 0))
+        if fill is None:
+            last = S - 1 + (window // 2 if window else 0)
+            qp = torch.full((B,), last, dtype=torch.int32, device=dev)
+            kp = torch.where(ar + S <= last, ar + S, ar).repeat(B, 1)
+        else:
+            n = torch.tensor(fill, dtype=torch.int32, device=dev)
+            qp = n - 1
+            kp = torch.where(ar[None] < n[:, None], ar[None], -1)
+        vis = (kp >= 0) & (kp <= qp[:, None])
+        if window:
+            vis &= kp > qp[:, None] - window
+        kv_bytes = nbytes(k, v) if fill is None \
+            else int(vis.sum()) * KV * hd * 2 * 2
         a = (q, k, v, qp, kp)
         cases.append((
             "decode_attention", label,
@@ -178,7 +241,8 @@ def kernel_cases(dev):
                 F.scaled_dot_product_attention(
                     q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                     attn_mask=m, enable_gqa=True),
-            nbytes(q, k, v, qp, kp, q), 4 * hd * H * int(vis.sum()), "bf16"))
+            nbytes(q, qp, kp, q) + kv_bytes, 4 * hd * H * int(vis.sum()),
+            "bf16"))
 
     def paged(H, KV, hd, label):
         """The serving pool (8192 tokens in blocks of 16), tables of 64
@@ -237,6 +301,9 @@ def kernel_cases(dev):
     # granite-3-8b
     for B, S in ((1, 1024), (1, 1000), (8, 1024), (8, 1000)):
         decode(B, S, 32, 8, 128, f"B={B} S={S}")
+    # serving fill: prompts of 32-480 tokens plus up to 32 new ones
+    decode(8, 1024, 32, 8, 128, "B=8 S=1024 fill=33-512",
+           fill=[33, 100, 160, 240, 301, 384, 450, 512])
     paged(32, 8, 128, "B=8 blocks=")
     for Tq in (16, 500):
         flash(Tq, 32, 8, 128, f"Tq={Tq} Tk=1024")
@@ -478,10 +545,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build_all()
-    ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, log in logs.items()}
+    ptxas = ptxas_table(logs)
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    spills = [r for r in ptxas if r["kernel"].startswith("mma_")
+              and (r["spill_stores"] or r["spill_loads"])]
+    if spills or not any(r["kernel"].startswith("mma_attention_kernel")
+                         for r in ptxas):
+        raise AssertionError(f"bf16 tensor-core attention kernels spill "
+                             f"(or were not built): {spills}")
 
     kres = run_kernels(dev)
     refs = [run_reference(dev, arch) for arch in REFERENCE]
@@ -515,7 +586,7 @@ def main() -> int:
             library_ms=main_row["library_ms"], case=main_row["case"]))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": kres, "summary": summary,
+        {"card": card, "ptxas": ptxas, "kernels": kres, "summary": summary,
          "reference": refs, "serve": serves, "launches": launches},
         indent=1))
     print(card)

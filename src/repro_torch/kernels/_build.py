@@ -2,9 +2,9 @@
 libraries with a plain C interface, loaded with ctypes.
 
 Each `csrc/<name>.cu` becomes `build/kernels/lib<name>.so` at the root of
-the checkout, built at first use (or ahead of time by `build_all`, which
-starts one `nvcc` per source at once). A library is rebuilt when its
-source is newer. Every C entry returns `cudaGetLastError()` after its
+the checkout, built at first use when it is missing or older than its
+source (or all anew by `build_all`, which starts one `nvcc` per source at
+once). Every C entry returns `cudaGetLastError()` after its
 launch; `check` raises on a non-zero code.
 """
 from __future__ import annotations
@@ -28,16 +28,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "decode_attention": {
-        # dtype, q, k, v, q_pos, k_pos, out, B, H, KV, hd, S, window, stream
-        "decode_attention": [_I] + [_P] * 6 + [_I] * 6 + [_P],
+        # dtype, q, k, v, q_pos, k_pos, out, part_o, part_ml,
+        # B, H, KV, hd, S, window, n_splits, stream
+        "decode_attention": [_I] + [_P] * 8 + [_I] * 7 + [_P],
         # dtype, q, k_pool, v_pool, q_pos, kpos_pool, tables, out,
         # B, H, KV, hd, block_size, MB, window, stream
         "paged_decode_attention": [_I] + [_P] * 7 + [_I] * 7 + [_P],
     },
     "flash_attention": {
-        # dtype, q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, hd,
-        # window, causal, stream
-        "flash_attention": [_I] + [_P] * 6 + [_I] * 8 + [_P],
+        # dtype, q, k, v, q_pos, k_pos, out, part_o, part_ml,
+        # B, Tq, Tk, H, KV, hd, window, causal, n_splits, stream
+        "flash_attention": [_I] + [_P] * 8 + [_I] * 9 + [_P],
     },
     "ssd_scan": {
         # xdt, cum_a, Br, Cr, cb scratch, y, s, Z, Q, H, P, N, stream
@@ -99,9 +100,9 @@ def _finish(name: str, proc, tmp: str) -> str:
 
 
 def build_all() -> Dict[str, str]:
-    """Build every stale library, one nvcc per source, all at once.
-    Returns the build log per library built."""
-    started = {n: _start(n) for n in SIGNATURES if _stale(n)}
+    """Build every library anew, one nvcc per source, all at once. Returns
+    the build log per library (ptxas: registers, spills)."""
+    started = {n: _start(n) for n in SIGNATURES}
     logs, errors = {}, []
     for n, (proc, tmp) in started.items():
         try:

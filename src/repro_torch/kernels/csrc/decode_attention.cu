@@ -1,33 +1,39 @@
 // GQA flash decode for Hopper (sm_90a): one new query token per request
 // against its KV cache, in the contiguous and the paged cache layout.
 //
-// Replaces the Pallas kernels `decode_attention_kernel` and
-// `paged_decode_attention_kernel` of src/repro/kernels/decode_attention.py.
+// Replaces the Pallas kernels `decode_attention_kernel` (contiguous) and
+// `paged_decode_attention_kernel` (paged) of
+// src/repro/kernels/decode_attention.py.
 //
 // Bound: device-memory bytes. Each request's K and V rows are read once;
 // the arithmetic is 4*hd operations per (query head, key), far below the
-// card's operations-per-byte line. The design keeps every intermediate
-// (scores, probabilities, the running max / denominator / accumulator) in
-// shared memory and registers, so K and V are the only device-memory reads.
+// card's operations-per-byte line, so the kernels have to keep enough loads
+// in flight and read nothing twice.
 //
-// Grid (B, KV): one block owns the G = H/KV query heads that read one kv
-// head and loops over KV tiles staged in shared memory (fp32). A contiguous
-// tile is 64 cache slots with the ragged tail masked; a paged tile is one
-// block of `block_size` slots found through tables[b, s]. A table entry < 0
-// contributes nothing and its physical block is never read.
+// Which dtype takes which path:
+// * contiguous, bf16 (the serving dtype): the tensor-core kernel of
+//   attention_mma.cuh as the Tq = 1 case. A block packs the G query heads
+//   of one kv head as rows (padded to 16 with zero rows; the block's 4
+//   warps split each key tile), reads the row's K/V once in bf16 tiles
+//   loaded with cp.async two ahead of the one in use, skips a tile whose
+//   slots are all invisible after reading only its k_pos, and splits the
+//   key axis across blocks (flash-decoding) when the (B, KV) grid is under
+//   half a wave; the combine pass and the split count (`kernels/split.py`)
+//   are shared with the prefill kernel.
+// * contiguous, fp32, and paged in both dtypes: `decode_kernel` below, one
+//   block per (B, KV) on CUDA cores in fp32 (mma.sync in TF32 would not hold
+//   the fp32 model tests' 1e-4). It loops over KV tiles staged in shared
+//   memory as fp32: 64 contiguous slots with the ragged tail masked, or one
+//   paged block of `block_size` slots found through tables[b, s]; a table
+//   entry < 0 contributes nothing and its physical block is never read.
+//   Each thread issues all of its 16-byte loads of a tile before it
+//   converts and stores any, so a tile's loads are in flight together.
 //
-// Masked keys take the score -1e30 and the probability exactly 0, and the
-// denominator is clamped at 1e-30, so a row with no visible key (a padding
-// row of a decode bucket) returns 0. On every row with a visible key this is
-// the JAX package's semantics in exact arithmetic.
-//
-// Each thread issues all of its 16-byte loads of a K/V tile before it
-// converts and stores any, so a tile's loads are in flight together.
-//
-// Later work: a (B, KV) grid at B <= 16 fills at most 128 of 132 SMs and
-// usually far fewer, so the flash-decoding split over the table axis with a
-// combine pass is the next step; then a cp.async/TMA ring of tiles.
-#include "common.cuh"
+// Both paths: masked keys take the score -1e30 and the probability exactly
+// 0, and the denominator is clamped at 1e-30, so a row with no visible key
+// (a padding row of a decode bucket) returns 0. On every row with a
+// visible key this is the JAX package's semantics in exact arithmetic.
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -183,46 +189,53 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos,
   return (int)cudaGetLastError();
 }
 
-template <bool PAGED>
-int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
+template <typename T, bool PAGED>
+int dispatch(int hd, const void* q, const void* k, const void* v,
              const void* q_pos, const void* k_pos, const void* tables,
              void* out, int B, int H, int KV, int span, int n_tiles,
              int window, void* stream) {
   if (KV <= 0 || H % KV || (H / KV) * hd > max_acc(hd) * kThreads ||
       span <= 0 || (PAGED && span > kTile))
     return (int)cudaErrorInvalidValue;
-#define REPRO_DECODE_CASE(T, HD_)                                           \
-  if (hd == HD_)                                                            \
+  switch (hd) {
+#define REPRO_DECODE_CASE(HD_)                                              \
+  case HD_:                                                                 \
     return launch<T, PAGED, HD_>(q, k, v, q_pos, k_pos, tables, out, B, H,  \
                                  KV, span, n_tiles, window, stream);
-  if (dtype == 0) {
-    REPRO_DECODE_CASE(float, 16)
-    REPRO_DECODE_CASE(float, 32)
-    REPRO_DECODE_CASE(float, 64)
-    REPRO_DECODE_CASE(float, 128)
-    REPRO_DECODE_CASE(float, 256)
-  } else if (dtype == 1) {
-    REPRO_DECODE_CASE(__nv_bfloat16, 16)
-    REPRO_DECODE_CASE(__nv_bfloat16, 32)
-    REPRO_DECODE_CASE(__nv_bfloat16, 64)
-    REPRO_DECODE_CASE(__nv_bfloat16, 128)
-    REPRO_DECODE_CASE(__nv_bfloat16, 256)
-  }
+    REPRO_DECODE_CASE(16)
+    REPRO_DECODE_CASE(32)
+    REPRO_DECODE_CASE(64)
+    REPRO_DECODE_CASE(128)
+    REPRO_DECODE_CASE(256)
 #undef REPRO_DECODE_CASE
-  return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 128, 256}. Every entry
-// returns cudaGetLastError() after its launch.
+// returns cudaGetLastError() after its last launch.
+//
+// Contiguous: bf16 goes to the tensor-core kernel, with n_splits key ranges
+// and, when n_splits > 1, the scratch part_o (n_splits, B*H, hd) fp32 and
+// part_ml (n_splits, B*H, 2) fp32 for the combine pass; fp32 goes to
+// `decode_kernel` and ignores the three.
 extern "C" int decode_attention(int dtype, const void* q, const void* k,
                                 const void* v, const void* q_pos,
-                                const void* k_pos, void* out, int B, int H,
-                                int KV, int hd, int S, int window,
+                                const void* k_pos, void* out, void* part_o,
+                                void* part_ml, int B, int H, int KV, int hd,
+                                int S, int window, int n_splits,
                                 void* stream) {
-  return dispatch<false>(dtype, hd, q, k, v, q_pos, k_pos, nullptr, out, B, H,
-                         KV, S, (S + kTile - 1) / kTile, window, stream);
+  if (dtype == 1)
+    return repro::mma_attention(hd, q, k, v, q_pos, k_pos, out, part_o,
+                                part_ml, B, 1, S, H, KV, window, 1, n_splits,
+                                stream);
+  if (dtype == 0)
+    return dispatch<float, false>(hd, q, k, v, q_pos, k_pos, nullptr, out, B,
+                                  H, KV, S, (S + kTile - 1) / kTile, window,
+                                  stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int paged_decode_attention(int dtype, const void* q,
@@ -231,6 +244,13 @@ extern "C" int paged_decode_attention(int dtype, const void* q,
                                       const void* tables, void* out, int B,
                                       int H, int KV, int hd, int block_size,
                                       int MB, int window, void* stream) {
-  return dispatch<true>(dtype, hd, q, k_pool, v_pool, q_pos, kpos_pool, tables,
-                        out, B, H, KV, block_size, MB, window, stream);
+  if (dtype == 0)
+    return dispatch<float, true>(hd, q, k_pool, v_pool, q_pos, kpos_pool,
+                                 tables, out, B, H, KV, block_size, MB, window,
+                                 stream);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16, true>(hd, q, k_pool, v_pool, q_pos,
+                                         kpos_pool, tables, out, B, H, KV,
+                                         block_size, MB, window, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -4,26 +4,39 @@
 // Replaces the Pallas kernel `flash_attention_kernel` of
 // src/repro/kernels/flash_attention.py.
 //
-// Bound: at the chunk lengths of chunked prefill against a 1k-slot cache the
-// work sits near the card's operations-per-byte line; this first version
-// computes its products on CUDA cores in fp32, so it is bound by its own
-// arithmetic, far from either roofline. Tensor-core products (mma.sync, then
-// wgmma with a TMA-fed ring of K/V tiles) are later work.
+// Bound: at the chunk lengths of chunked prefill against a 1k-slot cache
+// the work is small (16 queries x G heads per kv head) and bound by the
+// K/V bytes of the visible keys and by latency; at long chunks it nears
+// the card's operations-per-byte line, so the products belong on the
+// tensor cores.
 //
-// Grid (ceil(Tq/64), H, B): one block owns 64 query rows of one head and
-// loops over K/V tiles of 64 keys staged in shared memory. Each of the 4
-// warps owns 16 query rows; a lane owns keys (lane, lane+32) of a tile for
-// the scores and head dims (lane + 32c) of the output, so the row max and
-// sum of the online softmax are warp reductions held in registers.
+// Which dtype takes which path:
+// * bf16 (the serving dtype): the tensor-core kernel of attention_mma.cuh.
+//   A block packs the G query heads of one kv head as rows, token-major
+//   (row (t, g) is q[b, t, kvh*G + g]), so a 16-token chunk of granite
+//   fills 64 rows and K/V are read once for all G heads; S and P V are
+//   mma.sync.m16n8k16 products from bf16 tiles loaded with cp.async one
+//   ahead of the one in use; a tile no row can see is skipped after
+//   reading its k_pos; the key axis is split across blocks when the grid
+//   is under half a wave, with the combine pass and split count
+//   (`kernels/split.py`) shared with the contiguous decode kernel.
+// * fp32: `flash_kernel` below, on CUDA cores in fp32 (mma.sync in TF32
+//   would not hold the fp32 model tests' 1e-4). Grid (ceil(Tq/64), H, B):
+//   one block owns 64 query rows of one head and loops over K/V tiles of
+//   64 keys staged in shared memory. Each of the 4 warps owns 16 query
+//   rows; a lane owns keys (lane, lane+32) of a tile for the scores and
+//   head dims (lane + 32c) of the output, so the row max and sum of the
+//   online softmax are warp reductions held in registers. Each thread
+//   issues all of its 16-byte loads of a tile before it converts and
+//   stores any, so a tile's loads are in flight together.
 //
-// Masks are the JAX package's: kpos >= 0, causal kpos <= qpos, window
-// kpos > qpos - window. Masked scores take -1e30 and probability exactly 0;
-// the denominator is clamped at 1e-30. Ragged Tq and Tk tails are masked,
-// never padded. A K/V tile in which no key is visible to any row of the
-// block (empty cache slots, keys past the causal edge) is skipped whole.
-// Each thread issues all of its 16-byte loads of a tile before it converts
-// and stores any, so a tile's loads are in flight together.
-#include "common.cuh"
+// Both paths: masks are the JAX package's: kpos >= 0, causal kpos <= qpos,
+// window kpos > qpos - window. Masked scores take -1e30 and probability
+// exactly 0; the denominator is clamped at 1e-30. Ragged Tq and Tk tails
+// are masked, never padded. A K/V tile in which no key is visible to any
+// row of the block (empty cache slots, keys past the causal edge) is
+// skipped whole.
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -183,15 +196,15 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                const void* q_pos, const void* k_pos, void* out, int B, int Tq,
-                int Tk, int H, int KV, int window, int causal, void* stream) {
+int dispatch_fp32(int hd, const void* q, const void* k, const void* v,
+                  const void* q_pos, const void* k_pos, void* out, int B,
+                  int Tq, int Tk, int H, int KV, int window, int causal,
+                  void* stream) {
   switch (hd) {
-    case 32: return launch<T, 1>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
-    case 64: return launch<T, 2>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
-    case 128: return launch<T, 4>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
-    case 256: return launch<T, 8>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
+    case 32: return launch<float, 1>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
+    case 64: return launch<float, 2>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
+    case 128: return launch<float, 4>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
+    case 256: return launch<float, 8>(q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -199,16 +212,25 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128, 256}. Returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the last launch. bf16 goes to the tensor-core
+// kernel, with n_splits key ranges and, when n_splits > 1, the scratch
+// part_o (n_splits, B*Tq*H, hd) fp32 and part_ml (n_splits, B*Tq*H, 2)
+// fp32 for the combine pass; fp32 goes to `flash_kernel` and ignores the
+// three.
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, const void* q_pos,
-                               const void* k_pos, void* out, int B, int Tq,
-                               int Tk, int H, int KV, int hd, int window,
-                               int causal, void* stream) {
-  if (KV <= 0 || H % KV || Tq <= 0 || Tk <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
+                               const void* k_pos, void* out, void* part_o,
+                               void* part_ml, int B, int Tq, int Tk, int H,
+                               int KV, int hd, int window, int causal,
+                               int n_splits, void* stream) {
+  if (KV <= 0 || H % KV || Tq <= 0 || Tk <= 0 || hd < 32)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV, window, causal, stream);
+    return repro::mma_attention(hd, q, k, v, q_pos, k_pos, out, part_o,
+                                part_ml, B, Tq, Tk, H, KV, window, causal,
+                                n_splits, stream);
+  if (dtype == 0)
+    return dispatch_fp32(hd, q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV,
+                         window, causal, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,12 +6,23 @@ pools and a (B, MB) block table. They replace the Pallas kernels
 package; `ref.decode_attention_ref` / `ref.paged_decode_attention_ref` are
 their plain versions. CUDA tensors only: `ops` dispatches CPU tensors to
 the plain versions.
+
+Both are bound by the bytes of K and V. Contiguous decode in bf16 (the
+serving dtype) runs the tensor-core kernel of `csrc/attention_mma.cuh` as
+its Tq = 1 case: the G query heads of a kv head are packed as mma rows, so
+K/V are read once for all of them, in bf16 tiles loaded with cp.async two
+ahead of the one in use; a tile whose slots are all invisible is skipped
+after reading its k_pos; and the key axis is split across blocks when the
+(B, KV) grid is under half a wave, with the count from
+`split.num_splits` and the combine pass that the prefill kernel shares.
+Contiguous decode in fp32 and paged decode in both dtypes run the
+CUDA-core fp32 kernel, one block per (B, KV).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, split
 
 #: slots per contiguous tile, and the largest paged block the kernel takes
 TILE = 64
@@ -43,10 +54,11 @@ def decode_attention_cuda(q, k, v, q_pos, k_pos, *, window: int = 0):
     out = torch.empty_like(q)
     ptrs = _build.cuda_args(q, k, v, dtype=q.dtype) \
         + _build.cuda_args(q_pos, k_pos, out)
+    n_splits, scratch = split.plan(q, B, KV, H // KV, S, hd, B * H)
     lib = _build.library("decode_attention")
     _build.check(lib.decode_attention(
-        _build.DTYPE_CODE[q.dtype], *ptrs, B, H, KV, hd, S, window,
-        _build.stream()), "decode_attention")
+        _build.DTYPE_CODE[q.dtype], *ptrs, *split.pointers(scratch), B, H,
+        KV, hd, S, window, n_splits, _build.stream()), "decode_attention")
     return out
 
 

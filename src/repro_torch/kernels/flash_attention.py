@@ -4,12 +4,23 @@ replaces the Pallas kernel `flash_attention_kernel` of the JAX package;
 `ref.flash_attention_ref` is its plain version. Ragged Tq/Tk tails are
 masked in the kernel, so chunks of any length go through unpadded. CUDA
 tensors only: `ops` dispatches CPU tensors to the plain version.
+
+A serving chunk (16 tokens against a 1k-slot row) is small work, bound by
+the visible keys' K/V bytes and by latency. bf16 (the serving dtype) runs
+the tensor-core kernel of `csrc/attention_mma.cuh`: rows are (token, head
+in group) pairs of one kv head, token-major, so K/V are read once for all
+G heads; S and P V are mma.sync products from bf16 tiles loaded with
+cp.async one ahead of the one in use; a tile no row can see is skipped;
+and the key axis is split across blocks when the grid is under half a
+wave, with the count from `split.num_splits` and the combine pass that
+contiguous decode shares.
+fp32 runs the CUDA-core fp32 kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, split
 
 HEAD_DIMS = (32, 64, 128, 256)
 
@@ -31,8 +42,11 @@ def flash_attention_cuda(q, k, v, q_pos, k_pos, *, window: int = 0,
     out = torch.empty_like(q)
     ptrs = _build.cuda_args(q, k, v, dtype=q.dtype) \
         + _build.cuda_args(q_pos, k_pos, out)
+    n_splits, scratch = split.plan(q, B, KV, Tq * (H // KV), Tk, hd,
+                                   B * Tq * H)
     lib = _build.library("flash_attention")
     _build.check(lib.flash_attention(
-        _build.DTYPE_CODE[q.dtype], *ptrs, B, Tq, Tk, H, KV, hd, window,
-        int(causal), _build.stream()), "flash_attention")
+        _build.DTYPE_CODE[q.dtype], *ptrs, *split.pointers(scratch), B, Tq,
+        Tk, H, KV, hd, window, int(causal), n_splits, _build.stream()),
+        "flash_attention")
     return out

@@ -241,6 +241,95 @@ def test_flash_kernel_head_dim_256_on_card(cuda, Tq):
     torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
 
 
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernels (packed GQA rows, key-axis split and combine,
+# tile skip) against the fp32 plain versions at atol = rtol = 2e-2
+
+
+def _decode_bf16(dev, rng, S, H, KV, hd, q_pos, k_pos, window=0):
+    B = len(q_pos)
+    args = _on(dev, rng.randn(B, H, hd), rng.randn(B, S, KV, hd),
+               rng.randn(B, S, KV, hd), np.asarray(q_pos, np.int32),
+               np.asarray(k_pos, np.int32))
+    got = ops.decode_attention(*args, window=window)
+    want = ref.decode_attention_ref(*[a.float() for a in args[:3]], *args[3:],
+                                    window=window)
+    assert ops.LAUNCHES["decode_attention"] == 1
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4, 16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_decode_bf16_group_sizes_on_card(cuda, G, hd):
+    """G query heads packed as rows (padded to 16 at G < 16), rows filled
+    to 700 / 351 / 41 of 700 slots (a ragged last tile, empty tails)."""
+    S, KV = 700, 2
+    q_pos = np.array([699, 350, 40])
+    ar = np.arange(S)[None]
+    _decode_bf16(cuda, np.random.RandomState(1), S, G * KV, KV, hd, q_pos,
+                 np.where(ar <= q_pos[:, None], ar, -1))
+
+
+@pytest.mark.cuda
+def test_decode_bf16_long_row_splits_on_card(cuda):
+    """B = 1: the (B, KV) grid is 8 blocks, so the key axis is split and
+    the combine pass runs."""
+    from repro_torch.kernels import split
+
+    S, H, KV, hd = 4096, 32, 8, 128
+    assert split.num_splits(1, KV, split.row_tiles(H // KV),
+                            S // split.key_tile(hd, H // KV),
+                            split.sm_count(cuda.index or 0)) > 1
+    _decode_bf16(cuda, np.random.RandomState(2), S, H, KV, hd, [S - 1],
+                 np.arange(S)[None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 300])
+def test_decode_bf16_split_edges_on_card(cuda, window):
+    """Rows whose visible keys fall in only some splits: 70 keys (the first
+    split only), a padding row (q_pos -1: exactly 0), a row filled to 1500
+    with an empty tail, and a ring that wrapped (slots 0-499 hold positions
+    S..S+499)."""
+    S, H, KV, hd = 2048, 8, 2, 128
+    ar = np.arange(S)
+    q_pos = [69, -1, 1499, S + 499]
+    k_pos = np.stack([np.where(ar < 70, ar, -1), ar,
+                      np.where(ar < 1500, ar, -1),
+                      np.where(ar < 500, ar + S, ar)])
+    got = _decode_bf16(cuda, np.random.RandomState(3), S, H, KV, hd, q_pos,
+                       k_pos, window=window)
+    assert bool((got[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 256])
+@pytest.mark.parametrize("Tq", [2, 16, 17, 63, 500])
+def test_flash_bf16_chunk_lengths_on_card(cuda, Tq, window):
+    """Chunks of Tq tokens (G 4 heads each, token-major rows) against a
+    1024-slot row: one chunk ends at 600 in a row filled to it, one starts
+    the row (the rest empty) and ends on a padding query (q_pos -1:
+    exactly 0)."""
+    rng = np.random.RandomState(4)
+    B, Tk, H, KV, hd = 2, 1024, 8, 2, 128
+    ends = [600, Tq]
+    qp = np.stack([np.arange(e - Tq, e) for e in ends]).astype(np.int32)
+    qp[1, -1] = -1
+    kp = np.stack([np.where(np.arange(Tk) < e, np.arange(Tk), -1)
+                   for e in ends]).astype(np.int32)
+    q, k, v, qpt, kpt = _on(cuda, rng.randn(B, Tq, H, hd),
+                            rng.randn(B, Tk, KV, hd),
+                            rng.randn(B, Tk, KV, hd), qp, kp)
+    got = ops.flash_attention(q, k, v, qpt, kpt, window=window)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), qpt, kpt,
+                                   window=window)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    assert bool((got[1, -1] == 0).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
