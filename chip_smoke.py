@@ -7,21 +7,28 @@ Phases, one JSON line each:
 1. env       the card (nvidia-smi name and power limit), torch and CUDA
              versions; TF32 off for fp32 products.
 2. build     nvcc builds every CUDA kernel of the port (one process per
-             source, all at once); the Triton kernel compiles at first call.
-             Registers and spill bytes per kernel instantiation, from
-             ptxas; a spill in a bf16 tensor-core attention kernel fails.
-3. kernels   each of the 6 kernels against its plain PyTorch version on the
-             card at the serving path's shapes (the attention kernels and
-             RMSNorm in bf16 against the fp32 plain version, the SSD and
-             RG-LRU kernels in fp32 against their fp32 plain versions),
-             with CUDA-event timings (median of 30 runs after warm-up, L2
-             flushed before each run) of the kernel, its plain version and
-             the nearest PyTorch library call, and the least time the card
-             could take (bound_ms, with the peak it was taken against). A
-             bf16 attention call is timed whole: the split pass and, where
-             the key axis is split, the combine pass. One decode case has
-             rows filled to 33-512 of 1024 slots, as in serving; its bound
-             counts the visible slots' K/V and every slot's k_pos.
+             source, all at once). Registers and spill bytes per kernel
+             instantiation, from ptxas; a spill in a bf16 tensor-core
+             attention kernel (contiguous or paged) fails, and so does a
+             build without the paged instantiations.
+3. kernels   each of the 8 kernel entries against its plain PyTorch version
+             on the card at the serving path's shapes (the attention
+             kernels and RMSNorm in bf16 against the fp32 plain version, the
+             SSD and RG-LRU kernels in fp32 against their fp32 plain
+             versions), with CUDA-event timings (median of 30 runs after
+             warm-up, L2 flushed before each run) of the kernel, its plain
+             version and the nearest PyTorch library call, and the least
+             time the card could take (bound_ms, with the peak it was taken
+             against). A bf16 attention call is timed whole: the split pass
+             and, where the key axis is split, the combine pass. One decode
+             case has rows filled to 33-512 of 1024 slots, as in serving;
+             its bound counts the visible slots' K/V and every slot's k_pos.
+             Paged decode runs beside the contiguous kernel on the same
+             rows (the gathered view) as its yardstick, paged chunks beside
+             the contiguous chunk cases. The fused add + RMSNorm's sum must
+             be bit for bit `x + y`. The norms' rows also carry host_us,
+             the wall time per launch of 1000 back-to-back launches, for
+             the kernel and for its library call.
 4. reference per family, full width with depth cut to one layer pattern
              (granite-3-8b 2 layers, mamba2-2.7b 2, recurrentgemma-9b 3):
              the kernels' path on the card in bf16 against the plain path
@@ -36,7 +43,12 @@ Phases, one JSON line each:
              lanes, policy `memory`, each path's kernel launches counted.
              Every request finishes, the structural counters agree across
              the two layouts, and mamba2 preempts nothing and ends with the
-             allocator full.
+             allocator full. Paged runs attend through the block table
+             only (paged decode and paged chunks, no contiguous attention
+             launch); contiguous runs launch no paged kernel; every
+             forward launches the fused add + RMSNorm and the plain RMSNorm
+             its family's number of times (granite 80 + 1, mamba2 64 + 65,
+             recurrentgemma 76 + 1).
 
 Then the card's name and power limit, the `{"kernels": [...]}` summary,
 and as the last line `{"ok": true, "device": {...}}`. Any failure raises:
@@ -76,13 +88,19 @@ SERVE_ARGS = ["--variant", "full", "--policy", "memory", "--b-max", "8",
               "--block-size", "16", "--pool-tokens", "8192",
               "--max-new", "32", "--seed", "0", "--device", "cuda"]
 PROMPT_LO, PROMPT_HI = 32, 480
-#: arch -> (requests served, kernels its main path must launch, in both
-#: layouts; the decode kernel of the layout is added per layout)
+#: arch -> (requests served, kernels its main path must launch in both
+#: layouts, whether it attends (the layout's decode and chunk kernels are
+#: then added), (fused add + RMSNorm, plain RMSNorm) launches per forward)
 FAMILIES = {
-    "granite-3-8b": (12, ("flash_attention", "rmsnorm")),
-    "mamba2-2.7b": (8, ("ssd_intra", "rmsnorm")),
-    "recurrentgemma-9b": (8, ("rglru_scan", "flash_attention", "rmsnorm")),
+    "granite-3-8b": (12, ("rmsnorm", "add_rmsnorm"), True, (80, 1)),
+    "mamba2-2.7b": (8, ("ssd_intra", "rmsnorm", "add_rmsnorm"), False,
+                    (64, 65)),
+    "recurrentgemma-9b": (8, ("rglru_scan", "rmsnorm", "add_rmsnorm"), True,
+                          (76, 1)),
 }
+#: attention kernels by layout (paged?): (decode, chunk)
+ATTENTION = {False: ("decode_attention", "flash_attention"),
+             True: ("paged_decode_attention", "paged_flash_attention")}
 STRUCTURAL = ("decode_steps", "mean_batch", "admitted", "preemptions",
               "prefill_tokens", "finished")
 
@@ -113,6 +131,19 @@ def time_ms(fn, flush, reps: int = 30, warmup: int = 3) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_us(fn, n: int = 1000, warmup: int = 50) -> float:
+    """Host microseconds per launch: the wall time of n back-to-back calls
+    after warm-up, with one synchronize at the end, over n."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
 
 
 def nbytes(*tensors) -> int:
@@ -147,7 +178,8 @@ def max_err(got, want) -> float:
 
 #: the port's kernel entry functions, as they appear in mangled names
 KERNEL_NAMES = ("mma_attention_kernel", "mma_combine_kernel", "decode_kernel",
-                "flash_kernel", "cb_kernel", "intra_kernel", "scan_kernel")
+                "flash_kernel", "rmsnorm_kernel", "cb_kernel", "intra_kernel",
+                "scan_kernel")
 
 
 def _label(mangled: str) -> str:
@@ -244,15 +276,15 @@ def kernel_cases(dev):
             nbytes(q, qp, kp, q) + kv_bytes, 4 * hd * H * int(vis.sum()),
             "bf16"))
 
-    def paged(H, KV, hd, label):
-        """The serving pool (8192 tokens in blocks of 16), tables of 64
-        entries with shuffled physical ids and -1 tails."""
-        NB, bs, MB, B = 512, 16, 64, 8
+    def pools(KV, hd, lens):
+        """The serving pool (8192 tokens in blocks of 16) and tables of 64
+        entries (1024 slots a row) with shuffled physical ids and -1 tails:
+        row b holds positions [0, lens[b])."""
+        NB, bs, MB = 512, 16, 64
         kpool, vpool = rn(NB, bs, KV, hd), rn(NB, bs, KV, hd)
-        q = rn(B, H, hd)
         perm = torch.randperm(NB, generator=g, device=dev)
-        lens = [1024, 1000, 777, 512, 301, 160, 33, 1]
-        tables = torch.full((B, MB), -1, dtype=torch.int32, device=dev)
+        tables = torch.full((len(lens), MB), -1, dtype=torch.int32,
+                            device=dev)
         kpos = torch.full((NB, bs), -1, dtype=torch.int32, device=dev)
         used = 0
         for b, n in enumerate(lens):
@@ -262,18 +294,54 @@ def kernel_cases(dev):
             tables[b, :nb] = ids.to(torch.int32)
             pos = torch.arange(nb * bs, dtype=torch.int32, device=dev)
             kpos[ids] = torch.where(pos < n, pos, -1).reshape(nb, bs)
+        blocks = int((tables >= 0).sum())
+        # the bytes a walk must read: every allocated block's K, V, k_pos
+        read = blocks * (bs * KV * hd * 2 * 2 + bs * 4) + nbytes(tables)
+        return kpool, vpool, kpos, tables, blocks, read
+
+    def paged(H, KV, hd, label, lens=(1024, 1000, 777, 512, 301, 160, 33,
+                                          1)):
+        """Decode over rows of `lens` tokens (by default ragged, 1 to 1024,
+        as a serving batch); beside it the contiguous kernel on the same
+        rows (the gathered view), whose bound counts the visible slots' K/V
+        and every slot's k_pos."""
+        kpool, vpool, kpos, tables, blocks, read = pools(KV, hd, lens)
+        q = rn(len(lens), H, hd)
         qp = torch.tensor([n - 1 for n in lens], dtype=torch.int32,
                           device=dev)
-        blocks = int((tables >= 0).sum())
         a = (q, kpool, vpool, qp, kpos, tables)
-        blk_bytes = bs * KV * hd * 2 * 2 + bs * 4
         cases.append((
             "paged_decode_attention", f"{label}{blocks}",
             lambda a=a: ops.paged_decode_attention(*a),
             lambda a=a: ref.paged_decode_attention_ref(*a),
             lambda a=a: ref.paged_decode_attention_ref(*f32(*a)),
-            None, blocks * blk_bytes + nbytes(q, qp, tables, q),
+            None, read + nbytes(q, qp, q), 4 * hd * H * sum(lens), "bf16"))
+        k, v, kp = ref.paged_view(kpool, vpool, kpos, tables)
+        c = (q, k, v, qp, kp)
+        cases.append((
+            "decode_attention", f"{label}{blocks} contiguous, same rows",
+            lambda c=c: ops.decode_attention(*c),
+            lambda c=c: ref.decode_attention_ref(*c),
+            lambda c=c: ref.decode_attention_ref(*f32(*c)),
+            None, sum(lens) * KV * hd * 2 * 2 + nbytes(q, qp, kp, q),
             4 * hd * H * sum(lens), "bf16"))
+
+    def paged_chunk(Tq, H, KV, hd, label):
+        """A chunk of Tq queries ending at position 496 (or Tq) through the
+        block table of a row whose blocks hold positions up to it (the
+        flash cases' row, paged)."""
+        end = max(496, Tq)
+        kpool, vpool, kpos, tables, blocks, read = pools(KV, hd, [end])
+        q = rn(1, Tq, H, hd)
+        qp = torch.arange(end - Tq, end, dtype=torch.int32, device=dev)[None]
+        n_vis = sum(min(p + 1, end) for p in range(end - Tq, end))
+        a = (q, kpool, vpool, qp, kpos, tables)
+        cases.append((
+            "paged_flash_attention", label,
+            lambda a=a: ops.paged_flash_attention(*a),
+            lambda a=a: ref.paged_flash_attention_ref(*a),
+            lambda a=a: ref.paged_flash_attention_ref(*f32(*a)),
+            None, read + nbytes(q, qp, q), 4 * hd * H * n_vis, "bf16"))
 
     def flash(Tq, H, KV, hd, label):
         """A chunk of Tq queries ending at position 496 (or Tq) against a
@@ -305,8 +373,12 @@ def kernel_cases(dev):
     decode(8, 1024, 32, 8, 128, "B=8 S=1024 fill=33-512",
            fill=[33, 100, 160, 240, 301, 384, 450, 512])
     paged(32, 8, 128, "B=8 blocks=")
+    paged(32, 8, 128, "B=8 fill=33-512 blocks=",
+          lens=[33, 100, 160, 240, 301, 384, 450, 512])
+    paged(32, 8, 128, "B=8 S=1024 blocks=", lens=[1024] * 8)
     for Tq in (16, 500):
         flash(Tq, 32, 8, 128, f"Tq={Tq} Tk=1024")
+        paged_chunk(Tq, 32, 8, 128, f"Tq={Tq} MB=64 bs=16")
     # recurrentgemma-9b: hd 256, 16 query heads on one kv head
     decode(8, 1024, 16, 1, 256, "B=8 S=1024 hd=256")
     decode(8, 2048, 16, 1, 256, "B=8 S=2048 window=2048 hd=256",
@@ -314,10 +386,13 @@ def kernel_cases(dev):
     paged(16, 1, 256, "B=8 hd=256 blocks=")
     for Tq in (16, 500):
         flash(Tq, 16, 1, 256, f"Tq={Tq} Tk=1024 hd=256")
+        paged_chunk(Tq, 16, 1, 256, f"Tq={Tq} MB=64 bs=16 hd=256")
 
+    # RMSNorm at d 4096: a decode step's rows and a long prefill's; the
+    # fused add's library call is the add then the norm
     d = 4096
     for rows in (8, 4096):
-        x, w = rn(rows, d), rn(d) * 0.1
+        x, y, w = rn(rows, d), rn(rows, d), rn(d) * 0.1
         w1 = 1.0 + w
         cases.append((
             "rmsnorm", f"rows={rows} d={d}",
@@ -326,6 +401,14 @@ def kernel_cases(dev):
             lambda x=x, w=w: ref.rmsnorm_ref(x.float(), w.float()),
             lambda x=x, w1=w1: F.rms_norm(x, (d,), weight=w1, eps=1e-6),
             nbytes(x, w, x), 4 * rows * d, "bf16"))
+        cases.append((
+            "add_rmsnorm", f"rows={rows} d={d}",
+            lambda x=x, y=y, w=w: ops.add_rmsnorm(x, y, w),
+            lambda x=x, y=y, w=w: ref.add_rmsnorm_ref(x, y, w),
+            lambda x=x, y=y, w=w: ref.add_rmsnorm_ref(*f32(x, y, w)),
+            lambda x=x, y=y, w1=w1: F.rms_norm(x + y, (d,), weight=w1,
+                                               eps=1e-6),
+            nbytes(x, y, w, x, x), 5 * rows * d, "bf16"))
 
     # mamba2-2.7b: 80 heads of P 64, N 128; the serving chunk (Q 16) and
     # the config's (two chunks of 256). mamba2-like magnitudes: dt in
@@ -374,12 +457,18 @@ KERNELS = {
         "src/repro/kernels/decode_attention.py:83", "B=8 S=1024"),
     "paged_decode_attention": (
         "cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "src/repro/kernels/decode_attention.py:139", None),
+        "src/repro/kernels/decode_attention.py:139", "B=8 blocks=241"),
     "flash_attention": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:61", "Tq=16 Tk=1024"),
+    "paged_flash_attention": (
+        "cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:61", "Tq=16 MB=64 bs=16"),
     "rmsnorm": (
-        "triton", "src/repro_torch/kernels/rmsnorm.py",
+        "cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm.py:25", "rows=8 d=4096"),
+    "add_rmsnorm": (
+        "cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "src/repro/kernels/rmsnorm.py:25", "rows=8 d=4096"),
     "ssd_intra": (
         "cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -400,6 +489,9 @@ def run_kernels(dev):
         torch.cuda.synchronize()
         want = plain32()
         err = max_err(got, want)
+        if name == "add_rmsnorm" and not torch.equal(got[0], plain()[0]):
+            raise AssertionError(f"add_rmsnorm {label}: the sum is not "
+                                 f"bit for bit x + y")
         fp32 = (got[0] if isinstance(got, tuple) else got).dtype \
             == torch.float32
         b_ms, b_by = bound(n_bytes, n_ops, peak)
@@ -410,6 +502,8 @@ def run_kernels(dev):
                  library_ms=time_ms(lib, flush) if lib else None,
                  bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=n_ops,
                  peak=f"{peak} {PEAK_FLOPS[peak] / 1e12} TFLOP/s")
+        if name in ("rmsnorm", "add_rmsnorm"):
+            r.update(host_us=host_us(kern), library_host_us=host_us(lib))
         emit("kernels", **r)
         results.append(r)
     return results
@@ -483,7 +577,7 @@ def run_serve(arch: str, paged: bool):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    n_req, path = FAMILIES[arch]
+    n_req, path, attends, (fused, plain) = FAMILIES[arch]
     args = serve.build_parser().parse_args(
         SERVE_ARGS + ["--arch", arch] + (["--paged"] if paged else []))
     vocab = get_config(args.arch, args.variant).vocab_size
@@ -509,10 +603,20 @@ def run_serve(arch: str, paged: bool):
     if eng.state_only and (s["preemptions"] != 0 or not allocator_full):
         raise AssertionError(f"{name}: a state-only family preempted "
                              f"({s['preemptions']}) or leaked blocks")
-    decode = "paged_decode_attention" if paged else "decode_attention"
-    for k in path + ((decode,) if arch != "mamba2-2.7b" else ()):
+    for k in path + (ATTENTION[paged] if attends else ()):
         if launches[k] <= 0:
             raise AssertionError(f"{name}: kernel {k} never launched")
+    other = [k for k in ATTENTION[not paged] if launches[k]]
+    if other:
+        raise AssertionError(f"{name}: the other layout's attention kernels "
+                             f"launched: {other}")
+    forwards = launches["rmsnorm"] // plain
+    if (launches["rmsnorm"], launches["add_rmsnorm"]) != (
+            plain * forwards, fused * forwards):
+        raise AssertionError(
+            f"{name}: norm launches {launches['add_rmsnorm']} fused + "
+            f"{launches['rmsnorm']} plain are not {fused} + {plain} a "
+            f"forward")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -549,10 +653,13 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
     spills = [r for r in ptxas if r["kernel"].startswith("mma_")
               and (r["spill_stores"] or r["spill_loads"])]
-    if spills or not any(r["kernel"].startswith("mma_attention_kernel")
-                         for r in ptxas):
+    mma = [r["kernel"] for r in ptxas
+           if r["kernel"].startswith("mma_attention_kernel")]
+    if spills or not any(k.endswith(", true>") for k in mma) \
+            or not any(k.endswith(", false>") for k in mma):
         raise AssertionError(f"bf16 tensor-core attention kernels spill "
-                             f"(or were not built): {spills}")
+                             f"(or the paged or contiguous ones were not "
+                             f"built): {spills}")
 
     kres = run_kernels(dev)
     refs = [run_reference(dev, arch) for arch in REFERENCE]
@@ -576,14 +683,16 @@ def main() -> int:
     summary = []
     for name, (route, source, replaces, case) in KERNELS.items():
         rows = [r for r in kres if r["name"] == name]
-        main_row = next(r for r in rows if case is None or r["case"] == case)
+        main_row = next(r for r in rows if r["case"] == case)
         summary.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"], case=main_row["case"]))
+            library_ms=main_row["library_ms"], case=main_row["case"],
+            **{k: main_row[k] for k in ("host_us", "library_host_us")
+               if k in main_row}))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "ptxas": ptxas, "kernels": kres, "summary": summary,

@@ -2,9 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.bench.split_sweep --splits 1 2 4 8 16
 
-For every bf16 contiguous-decode and prefill case of `chip_smoke.py`, at
-the split count `split.num_splits` picks ("auto") and at each forced
-count (capped at the key tiles): the CUDA-event time of the whole call
+For every bf16 attention case of `chip_smoke.py` (contiguous and paged
+decode, contiguous and paged prefill chunks), at the split count
+`split.num_splits` picks ("auto") and at each forced count (capped at the
+key tiles): the CUDA-event time of the whole call
 (`chip_smoke.time_ms`: median of 30, L2 flushed before each) and the
 profiler's device time of the split pass and of the combine pass. First
 two yardsticks of that timing: a call that does almost nothing (a 4-byte
@@ -69,7 +70,8 @@ def main(argv=None) -> int:
                           "ms": chip_smoke.time_ms(fn, flush)}), flush=True)
     cases = [(name, label, kern) for name, label, kern, *_ in
              chip_smoke.kernel_cases(dev)
-             if name in ("decode_attention", "flash_attention")]
+             if name in ("decode_attention", "paged_decode_attention",
+                         "flash_attention", "paged_flash_attention")]
     auto = split.num_splits
     try:
         for force in [None] + args.splits:

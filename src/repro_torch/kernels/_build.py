@@ -25,20 +25,29 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: ctypes signatures of every C entry, by library name
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "decode_attention": {
         # dtype, q, k, v, q_pos, k_pos, out, part_o, part_ml,
         # B, H, KV, hd, S, window, n_splits, stream
         "decode_attention": [_I] + [_P] * 8 + [_I] * 7 + [_P],
-        # dtype, q, k_pool, v_pool, q_pos, kpos_pool, tables, out,
-        # B, H, KV, hd, block_size, MB, window, stream
-        "paged_decode_attention": [_I] + [_P] * 7 + [_I] * 7 + [_P],
+        # dtype, q, k_pool, v_pool, q_pos, kpos_pool, tables, out, part_o,
+        # part_ml, B, H, KV, hd, block_size, MB, window, n_splits, stream
+        "paged_decode_attention": [_I] + [_P] * 9 + [_I] * 8 + [_P],
     },
     "flash_attention": {
         # dtype, q, k, v, q_pos, k_pos, out, part_o, part_ml,
         # B, Tq, Tk, H, KV, hd, window, causal, n_splits, stream
         "flash_attention": [_I] + [_P] * 8 + [_I] * 9 + [_P],
+        # q, k_pool, v_pool, q_pos, kpos_pool, tables, out, part_o, part_ml,
+        # B, Tq, H, KV, hd, block_size, MB, window, causal, n_splits, stream
+        "paged_flash_attention": [_P] * 9 + [_I] * 10 + [_P],
+    },
+    "rmsnorm": {
+        # dtype, x, w, out, rows, d, eps, stream
+        "rmsnorm": [_I] + [_P] * 3 + [_I] * 2 + [_F, _P],
+        # dtype, x, y, w, sum_out, out, rows, d, eps, stream
+        "add_rmsnorm": [_I] + [_P] * 5 + [_I] * 2 + [_F, _P],
     },
     "ssd_scan": {
         # xdt, cum_a, Br, Cr, cb scratch, y, s, Z, Q, H, P, N, stream
@@ -148,15 +157,22 @@ def require(cond: bool, msg: str) -> None:
 def cuda_args(*tensors: torch.Tensor, dtype=None) -> List[int]:
     """Check that every tensor is a contiguous CUDA tensor (of `dtype`,
     and 16-byte aligned for the kernels' vector loads, if `dtype` is
-    given) and return their data pointers."""
+    given) and return their data pointers. (The messages are formatted
+    only on failure: this runs at every launch.)"""
+    ptrs = []
     for t in tensors:
-        require(t.is_cuda, "kernel operand must be a CUDA tensor")
-        require(t.is_contiguous(), "kernel operand must be contiguous")
-        require(dtype is None or (t.dtype == dtype and t.data_ptr() % 16 == 0),
-                f"kernel operand must be a 16-byte aligned {dtype} tensor, "
-                f"got {t.dtype}")
-    return [t.data_ptr() for t in tensors]
+        p = t.data_ptr()
+        if not (t.is_cuda and t.is_contiguous()):
+            raise ValueError("kernel operand must be a contiguous CUDA tensor")
+        if dtype is not None and (t.dtype != dtype or p % 16):
+            raise ValueError(f"kernel operand must be a 16-byte aligned "
+                             f"{dtype} tensor, got {t.dtype}")
+        ptrs.append(p)
+    return ptrs
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream, as a raw pointer. (The
+    private binding skips building a `torch.cuda.Stream`: 0.10 against
+    5.7 us a call, `bench/norm_host.py` on an H100 host.)"""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

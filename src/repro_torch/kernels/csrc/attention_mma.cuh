@@ -1,7 +1,8 @@
 // Tensor-core attention for bf16 inputs on Hopper (sm_90a), shared by the
-// contiguous flash-decode kernel (decode_attention.cu: Tq = 1) and the
-// prefill flash-attention kernel (flash_attention.cu), with the combine
-// pass of the key-axis split that both use.
+// flash-decode kernels (decode_attention.cu: Tq = 1, contiguous and paged)
+// and the prefill flash-attention kernels (flash_attention.cu: chunks over
+// a contiguous row or through the block table), with the combine pass of
+// the key-axis split that all of them use.
 //
 // Bound: decode by the bytes of K and V (4*hd operations per query head and
 // key, far below the card's operations-per-byte line); a 16-token serving
@@ -45,6 +46,18 @@
 // exp2(m_i - max_i m_i) and divides by the weighted sum of l. A row that no
 // split saw a key of (m = -1e30 and l = 0 everywhere) comes out exactly 0.
 //
+// Paged (PAGED = true). k/v are the pools (NB, bs, KV, HD), k_pos the
+// pool-wide (NB, bs) position map, and tables (B, MB) the block tables;
+// Tk = MB * bs logical slots, and logical slot s of row b is physical slot
+// tables[b, s / bs] * bs + s % bs. The walk changes only where addresses
+// are formed: when a chunk's k_pos are staged, each slot's physical index
+// (-1 where the table entry is < 0) is staged beside it in shared memory,
+// its k_pos is read through it (-1 for an unallocated slot), and the tile
+// loads read each 16-byte chunk row from its own physical slot, zero-
+// filled where the index is -1 (nothing is read). So any bs works, a
+// 64-key tile spans 64 / bs blocks, and the tile flags, the skip, the
+// ring and the split are the contiguous kernel's.
+//
 // Semantics (the port's, ROADMAP Queue B): masked scores -1e30 and
 // probability exactly 0, denominator clamped at 1e-30, absolute positions
 // with -1 for an empty slot, query head h reads kv head h // G, visibility
@@ -76,11 +89,14 @@ struct MmaTile {
   // that two blocks fit an SM at head_dim 128
   static constexpr int STAGES = WK == 1 ? 2 : 3;
   // K and V of STAGES tiles (reused by the WK warps' merge), the Q rows,
-  // a chunk of k_pos, its per-tile flags, the per-warp query ranges
+  // a chunk of k_pos, its per-tile flags, the per-warp query ranges; paged,
+  // also the chunk's physical slot indices
   static constexpr size_t SMEM =
       2 * STAGES * (size_t)BYTES + (size_t)BM * HD * 2 +
       sizeof(int) * (kMmaKposChunk + kMmaKposChunk / BN + 4);
-  static_assert(SMEM <= 232448, "shared memory over the per-block opt-in");
+  static constexpr size_t SMEM_PAGED = SMEM + sizeof(int) * kMmaKposChunk;
+  static_assert(SMEM_PAGED <= 232448,
+                "shared memory over the per-block opt-in");
   static_assert(WK == 1 || 2 * STAGES * (size_t)BYTES >=
                                sizeof(float) * (WK * 16 * (HD + 3) + 32),
                 "the merge of the key warps fits in the K/V stages");
@@ -152,18 +168,20 @@ __device__ __forceinline__ bool mma_visible(int kp, int qp, int causal,
 }
 
 // q/out: (B, Tq, H, HD); k/v: (B, Tk, KV, HD); q_pos: (B, Tq); k_pos:
-// (B, Tk). part_o: (n_splits, B*Tq*H, HD) fp32, part_ml: (n_splits,
-// B*Tq*H) of (m, l); both unused with one split.
+// (B, Tk). Paged: k/v (NB, bs, KV, HD), k_pos (NB, bs), tables (B, Tk /
+// bs); else tables and bs are unused. part_o: (n_splits, B*Tq*H, HD) fp32,
+// part_ml: (n_splits, B*Tq*H) of (m, l); both unused with one split.
 // Grid (n_splits, row tiles, B*KV) of 128 threads. Warp w takes rows
 // (w % (4/WK)) * 16 + [0, 16) of the block and keys (w / (4/WK)) * KW +
 // [0, KW) of each tile.
-template <int HD, int WK>
+template <int HD, int WK, bool PAGED>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const int* __restrict__ q_pos,
                      const int* __restrict__ k_pos,
+                     const int* __restrict__ tables, int bs,
                      __nv_bfloat16* __restrict__ out,
                      float* __restrict__ part_o, float2* __restrict__ part_ml,
                      int Tq, int Tk, int H, int KV, int window, int causal) {
@@ -187,6 +205,7 @@ mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
                                        BM * HD * 2);
   int* flags = kpos_s + kMmaKposChunk;  // a visible slot in tile i of chunk
   int* qrange = flags + CT;             // [max, min] query position, 2 warps
+  int* phys_s = qrange + 4;             // paged: physical slot of each k_pos
 
   for (int c = tid; c < BM * CH; c += kMmaThreads) {
     const int r = c / CH, ch = c - r * CH, gr = row0 + r;
@@ -204,14 +223,23 @@ mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_tiles = (Tk + BN - 1) / BN;
   const int t_begin = (int)((long long)split * n_tiles / n_splits);
   const int t_end = (int)((long long)(split + 1) * n_tiles / n_splits);
-  // k_pos of the chunk of tiles from c0, every load in flight at once
-  int kp[KPT];
+  // k_pos of the chunk of tiles from c0, every load in flight at once;
+  // paged, through the block table (ph: the physical slot, -1 where the
+  // table entry is < 0)
+  int kp[KPT], ph[KPT];
   auto load_kpos = [&](int c0) {
     const int s_end = min(min(t_end, c0 + CT) * BN, Tk);
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
       const int s = c0 * BN + tid + i * kMmaThreads;
-      kp[i] = s < s_end ? k_pos[(size_t)b * Tk + s] : -1;
+      if (PAGED) {
+        const int blk = s < s_end ? tables[(size_t)b * (Tk / bs) + s / bs]
+                                  : -1;
+        ph[i] = blk >= 0 ? blk * bs + s % bs : -1;
+        kp[i] = ph[i] >= 0 ? k_pos[ph[i]] : -1;
+      } else {
+        kp[i] = s < s_end ? k_pos[(size_t)b * Tk + s] : -1;
+      }
     }
   };
   load_kpos(t_begin);
@@ -239,12 +267,46 @@ mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
   const size_t kv_stride = (size_t)KV * HD;
 
-  auto load_tile = [&](int t, int st) {
+  // 16-byte chunks a thread copies of a K (and of a V) tile; paged, their
+  // physical slots are read from shared memory ahead of the copies, NP at a
+  // time (cp.async's memory clobber would otherwise order each read after
+  // the copy before it; 4 at head_dim 256 for the registers)
+  constexpr int NI = (BN * CH + kMmaThreads - 1) / kMmaThreads;
+  constexpr int NP = NI < (HD >= 256 ? 4 : 8) ? NI : (HD >= 256 ? 4 : 8);
+  static_assert(NI % NP == 0, "whole batches of physical slots");
+  // tile t of the chunk from c0 into stage st; paged, each key row from
+  // its own physical slot
+  auto load_tile = [&](int t, int st, int c0) {
+    const uint32_t sk = s_base + 2 * st * T::BYTES, sv = sk + T::BYTES;
+    if (PAGED) {
+#pragma unroll
+      for (int i0 = 0; i0 < NI; i0 += NP) {
+        int p[NP];
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          const int c = tid + (i0 + j) * kMmaThreads;
+          p[j] = BN * CH % kMmaThreads == 0 || c < BN * CH
+                     ? phys_s[(t - c0) * BN + c / CH] : -1;
+        }
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          const int c = tid + (i0 + j) * kMmaThreads;
+          if (BN * CH % kMmaThreads == 0 || c < BN * CH) {
+            const int r = c / CH, ch = c - r * CH;
+            const bool ok = p[j] >= 0;
+            const size_t off =
+                ok ? (size_t)p[j] * kv_stride + (size_t)kvh * HD + ch * 8 : 0;
+            cp_async16(sk + swz<HD>(r, ch), k + off, ok);
+            cp_async16(sv + swz<HD>(r, ch), v + off, ok);
+          }
+        }
+      }
+      return;
+    }
     const size_t base =
         ((size_t)b * Tk + (size_t)t * BN) * kv_stride + (size_t)kvh * HD;
-    const uint32_t sk = s_base + 2 * st * T::BYTES, sv = sk + T::BYTES;
 #pragma unroll
-    for (int i = 0; i < (BN * CH + kMmaThreads - 1) / kMmaThreads; ++i) {
+    for (int i = 0; i < NI; ++i) {
       const int c = tid + i * kMmaThreads;
       if (BN * CH % kMmaThreads == 0 || c < BN * CH) {
         const int r = c / CH, ch = c - r * CH;
@@ -272,7 +334,10 @@ mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
       load_kpos(c0);
     }
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) kpos_s[tid + i * kMmaThreads] = kp[i];
+    for (int i = 0; i < KPT; ++i) {
+      kpos_s[tid + i * kMmaThreads] = kp[i];
+      if (PAGED) phys_s[tid + i * kMmaThreads] = ph[i];
+    }
     if (tid < CT) flags[tid] = 0;
     __syncthreads();
     const int qmax = max(qrange[0], qrange[2]);
@@ -295,7 +360,7 @@ mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < T::STAGES - 1; ++i) {
       if (tl < c1) {
-        load_tile(tl, ld_st);
+        load_tile(tl, ld_st, c0);
         ld_st = ld_st + 1 == T::STAGES ? 0 : ld_st + 1;
         tl = next_visible(tl + 1);
       }
@@ -303,7 +368,7 @@ mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
     }
     while (t < c1) {
       if (tl < c1) {
-        load_tile(tl, ld_st);
+        load_tile(tl, ld_st, c0);
         ld_st = ld_st + 1 == T::STAGES ? 0 : ld_st + 1;
         tl = next_visible(tl + 1);
       }
@@ -526,27 +591,29 @@ mma_combine_kernel(const float* __restrict__ part_o,
   dst[1] = __floats2bfloat162_rn(a2 * inv, a3 * inv);
 }
 
-template <int HD, int WK>
+template <int HD, int WK, bool PAGED>
 int mma_launch(const void* q, const void* k, const void* v, const void* q_pos,
-               const void* k_pos, void* out, void* part_o, void* part_ml,
-               int B, int Tq, int Tk, int H, int KV, int window, int causal,
-               int n_splits, cudaStream_t stream) {
+               const void* k_pos, const void* tables, int bs, void* out,
+               void* part_o, void* part_ml, int B, int Tq, int Tk, int H,
+               int KV, int window, int causal, int n_splits,
+               cudaStream_t stream) {
   using T = MmaTile<HD, WK>;
+  constexpr size_t smem = PAGED ? T::SMEM_PAGED : T::SMEM;
   static bool smem_set = false;
-  auto kern = mma_attention_kernel<HD, WK>;
+  auto kern = mma_attention_kernel<HD, WK, PAGED>;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
   const int M = Tq * (H / KV);
-  kern<<<dim3(n_splits, (M + T::BM - 1) / T::BM, B * KV), kMmaThreads,
-         T::SMEM, stream>>>(
+  kern<<<dim3(n_splits, (M + T::BM - 1) / T::BM, B * KV), kMmaThreads, smem,
+         stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const int*)q_pos, (const int*)k_pos,
-      (__nv_bfloat16*)out, (float*)part_o, (float2*)part_ml, Tq, Tk, H, KV,
-      window, causal);
+      (const int*)tables, bs, (__nv_bfloat16*)out, (float*)part_o,
+      (float2*)part_ml, Tq, Tk, H, KV, window, causal);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return (int)err;
   const int rows = B * Tq * H;
@@ -557,27 +624,33 @@ int mma_launch(const void* q, const void* k, const void* v, const void* q_pos,
   return (int)cudaGetLastError();
 }
 
-// The bf16 path of both attention entries: head_dim in {16, ..., 256}.
-// Returns cudaGetLastError() after the last launch.
+// The bf16 path of every attention entry: head_dim in {16, ..., 256}.
+// With `tables` (B, Tk / bs) the keys are read through the block table
+// (k/v/k_pos are the pools); with nullptr, k/v/k_pos are contiguous rows
+// and bs is unused. Returns cudaGetLastError() after the last launch.
 inline int mma_attention(int hd, const void* q, const void* k, const void* v,
-                         const void* q_pos, const void* k_pos, void* out,
-                         void* part_o, void* part_ml, int B, int Tq, int Tk,
-                         int H, int KV, int window, int causal, int n_splits,
-                         void* stream) {
+                         const void* q_pos, const void* k_pos,
+                         const void* tables, int bs, void* out, void* part_o,
+                         void* part_ml, int B, int Tq, int Tk, int H, int KV,
+                         int window, int causal, int n_splits, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || KV <= 0 || H % KV || n_splits < 1 ||
-      (n_splits > 1 && (part_o == nullptr || part_ml == nullptr)))
+      (n_splits > 1 && (part_o == nullptr || part_ml == nullptr)) ||
+      (tables != nullptr && (bs <= 0 || Tk % bs)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   // rows of a (batch row, kv head) that fit one warp: 4 warps split keys
   const bool one_warp = Tq * (H / KV) <= 16;
-#define REPRO_MMA_CASE(HD_)                                                  \
-  case HD_:                                                                  \
-    return one_warp ? mma_launch<HD_, 4>(q, k, v, q_pos, k_pos, out, part_o, \
-                                         part_ml, B, Tq, Tk, H, KV, window,  \
-                                         causal, n_splits, s)                \
-                    : mma_launch<HD_, 1>(q, k, v, q_pos, k_pos, out, part_o, \
-                                         part_ml, B, Tq, Tk, H, KV, window,  \
-                                         causal, n_splits, s);
+  const bool paged = tables != nullptr;
+#define REPRO_MMA_LAUNCH(HD_, WK_)                                           \
+  (paged ? mma_launch<HD_, WK_, true>(q, k, v, q_pos, k_pos, tables, bs,     \
+                                      out, part_o, part_ml, B, Tq, Tk, H,    \
+                                      KV, window, causal, n_splits, s)       \
+         : mma_launch<HD_, WK_, false>(q, k, v, q_pos, k_pos, tables, bs,    \
+                                       out, part_o, part_ml, B, Tq, Tk, H,   \
+                                       KV, window, causal, n_splits, s))
+#define REPRO_MMA_CASE(HD_) \
+  case HD_:                 \
+    return one_warp ? REPRO_MMA_LAUNCH(HD_, 4) : REPRO_MMA_LAUNCH(HD_, 1);
   switch (hd) {
     REPRO_MMA_CASE(16)
     REPRO_MMA_CASE(32)
@@ -587,6 +660,7 @@ inline int mma_attention(int hd, const void* q, const void* k, const void* v,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_MMA_CASE
+#undef REPRO_MMA_LAUNCH
 }
 
 }  // namespace

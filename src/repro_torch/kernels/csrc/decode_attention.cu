@@ -11,23 +11,27 @@
 // in flight and read nothing twice.
 //
 // Which dtype takes which path:
-// * contiguous, bf16 (the serving dtype): the tensor-core kernel of
-//   attention_mma.cuh as the Tq = 1 case. A block packs the G query heads
-//   of one kv head as rows (padded to 16 with zero rows; the block's 4
-//   warps split each key tile), reads the row's K/V once in bf16 tiles
+// * bf16 (the serving dtype), contiguous and paged: the tensor-core kernel
+//   of attention_mma.cuh as the Tq = 1 case. A block packs the G query
+//   heads of one kv head as rows (padded to 16 with zero rows; the block's
+//   4 warps split each key tile), reads the row's K/V once in bf16 tiles
 //   loaded with cp.async two ahead of the one in use, skips a tile whose
 //   slots are all invisible after reading only its k_pos, and splits the
 //   key axis across blocks (flash-decoding) when the (B, KV) grid is under
 //   half a wave; the combine pass and the split count (`kernels/split.py`)
-//   are shared with the prefill kernel.
-// * contiguous, fp32, and paged in both dtypes: `decode_kernel` below, one
-//   block per (B, KV) on CUDA cores in fp32 (mma.sync in TF32 would not hold
-//   the fp32 model tests' 1e-4). It loops over KV tiles staged in shared
-//   memory as fp32: 64 contiguous slots with the ragged tail masked, or one
-//   paged block of `block_size` slots found through tables[b, s]; a table
-//   entry < 0 contributes nothing and its physical block is never read.
-//   Each thread issues all of its 16-byte loads of a tile before it
-//   converts and stores any, so a tile's loads are in flight together.
+//   are shared with the prefill kernel. Paged, the same kernel walks the
+//   block table: each key row of a 64-key tile is loaded from its own
+//   physical slot (a tile spans 64 / bs blocks), and a slot whose table
+//   entry is < 0 reads as empty and is never read.
+// * fp32 (the on-card model tests), contiguous and paged: `decode_kernel`
+//   below, one block per (B, KV) on CUDA cores in fp32 (mma.sync in TF32
+//   would not hold the fp32 model tests' 1e-4). It loops over KV tiles
+//   staged in shared memory as fp32: 64 contiguous slots with the ragged
+//   tail masked, or one paged block of `block_size` <= 64 slots found
+//   through tables[b, s]; a table entry < 0 contributes nothing and its
+//   physical block is never read. Each thread issues all of its 16-byte
+//   loads of a tile before it converts and stores any, so a tile's loads
+//   are in flight together.
 //
 // Both paths: masked keys take the score -1e30 and the probability exactly
 // 0, and the denominator is clamped at 1e-30, so a row with no visible key
@@ -38,8 +42,6 @@
 namespace {
 
 using repro::kNegInf;
-using repro::store;
-using repro::to_f;
 using repro::warp_max;
 using repro::warp_sum;
 
@@ -58,12 +60,12 @@ size_t smem_bytes(int G, int hd) {
 // Contiguous: k/v are (B, S, KV, HD), k_pos is (B, S), `span` = S.
 // Paged: k/v are (NB, bs, KV, HD), k_pos is (NB, bs), tables is
 // (B, n_tiles), `span` = bs. q and out are (B, H, HD); q_pos is (B,).
-template <typename T, bool PAGED, int HD>
+template <bool PAGED, int HD>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ q_pos,
+decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ q_pos,
               const int* __restrict__ k_pos, const int* __restrict__ tables,
-              T* __restrict__ out, int H, int KV, int span, int n_tiles,
+              float* __restrict__ out, int H, int KV, int span, int n_tiles,
               int window) {
   constexpr int ld = HD + 1;  // padded key rows: conflict-free column reads
   const int b = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
@@ -80,13 +82,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int* valid = reinterpret_cast<int*>(As + G);
 
   const int qp = q_pos[b];
-  T* o = out + ((size_t)b * H + (size_t)kvh * G) * HD;
+  float* o = out + ((size_t)b * H + (size_t)kvh * G) * HD;
   if (qp < 0) {  // padding row: no key can be visible
-    for (int i = tid; i < GD; i += kThreads) store(o + i, 0.f);
+    for (int i = tid; i < GD; i += kThreads) o[i] = 0.f;
     return;
   }
-  const T* qb = q + ((size_t)b * H + (size_t)kvh * G) * HD;
-  for (int i = tid; i < GD; i += kThreads) Qs[i] = to_f(qb[i]);
+  const float* qb = q + ((size_t)b * H + (size_t)kvh * G) * HD;
+  for (int i = tid; i < GD; i += kThreads) Qs[i] = qb[i];
   for (int g = tid; g < G; g += kThreads) { Ms[g] = kNegInf; Ls[g] = 0.f; }
   constexpr int kMaxAcc = max_acc(HD);
   float acc[kMaxAcc];
@@ -108,7 +110,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       tok0 = (size_t)b * span + (size_t)t * kTile;
     }
     __syncthreads();  // the previous tile's shared reads are done
-    repro::load_tiles<T, HD, kTile, kThreads>(
+    repro::load_tiles<float, HD, kTile, kThreads>(
         k + tok0 * tok_stride + (size_t)kvh * HD,
         v + tok0 * tok_stride + (size_t)kvh * HD, tok_stride, n, Ks, ld, Vs,
         HD, tid);
@@ -169,27 +171,27 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kMaxAcc; ++r) {
     const int i = tid + r * kThreads;
-    if (i < GD) store(o + i, acc[r] / fmaxf(Ls[i / HD], 1e-30f));
+    if (i < GD) o[i] = acc[r] / fmaxf(Ls[i / HD], 1e-30f);
   }
 }
 
-template <typename T, bool PAGED, int HD>
+template <bool PAGED, int HD>
 int launch(const void* q, const void* k, const void* v, const void* q_pos,
            const void* k_pos, const void* tables, void* out, int B, int H,
            int KV, int span, int n_tiles, int window, void* stream) {
-  auto kern = decode_kernel<T, PAGED, HD>;
+  auto kern = decode_kernel<PAGED, HD>;
   const size_t smem = smem_bytes(H / KV, HD);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(B, KV), kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)q_pos,
-      (const int*)k_pos, (const int*)tables, (T*)out, H, KV, span, n_tiles,
-      window);
+      (const float*)q, (const float*)k, (const float*)v, (const int*)q_pos,
+      (const int*)k_pos, (const int*)tables, (float*)out, H, KV, span,
+      n_tiles, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool PAGED>
+template <bool PAGED>
 int dispatch(int hd, const void* q, const void* k, const void* v,
              const void* q_pos, const void* k_pos, const void* tables,
              void* out, int B, int H, int KV, int span, int n_tiles,
@@ -200,8 +202,8 @@ int dispatch(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
 #define REPRO_DECODE_CASE(HD_)                                              \
   case HD_:                                                                 \
-    return launch<T, PAGED, HD_>(q, k, v, q_pos, k_pos, tables, out, B, H,  \
-                                 KV, span, n_tiles, window, stream);
+    return launch<PAGED, HD_>(q, k, v, q_pos, k_pos, tables, out, B, H, KV, \
+                              span, n_tiles, window, stream);
     REPRO_DECODE_CASE(16)
     REPRO_DECODE_CASE(32)
     REPRO_DECODE_CASE(64)
@@ -217,9 +219,9 @@ int dispatch(int hd, const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 128, 256}. Every entry
 // returns cudaGetLastError() after its last launch.
 //
-// Contiguous: bf16 goes to the tensor-core kernel, with n_splits key ranges
-// and, when n_splits > 1, the scratch part_o (n_splits, B*H, hd) fp32 and
-// part_ml (n_splits, B*H, 2) fp32 for the combine pass; fp32 goes to
+// bf16 goes to the tensor-core kernel, with n_splits key ranges and, when
+// n_splits > 1, the scratch part_o (n_splits, B*H, hd) fp32 and part_ml
+// (n_splits, B*H, 2) fp32 for the combine pass; fp32 goes to
 // `decode_kernel` and ignores the three.
 extern "C" int decode_attention(int dtype, const void* q, const void* k,
                                 const void* v, const void* q_pos,
@@ -228,29 +230,34 @@ extern "C" int decode_attention(int dtype, const void* q, const void* k,
                                 int S, int window, int n_splits,
                                 void* stream) {
   if (dtype == 1)
-    return repro::mma_attention(hd, q, k, v, q_pos, k_pos, out, part_o,
-                                part_ml, B, 1, S, H, KV, window, 1, n_splits,
-                                stream);
+    return repro::mma_attention(hd, q, k, v, q_pos, k_pos, nullptr, 0, out,
+                                part_o, part_ml, B, 1, S, H, KV, window, 1,
+                                n_splits, stream);
   if (dtype == 0)
-    return dispatch<float, false>(hd, q, k, v, q_pos, k_pos, nullptr, out, B,
+    return dispatch<false>(hd, q, k, v, q_pos, k_pos, nullptr, out, B,
                                   H, KV, S, (S + kTile - 1) / kTile, window,
                                   stream);
   return (int)cudaErrorInvalidValue;
 }
 
+// Paged: k/v_pool (NB, block_size, KV, hd), kpos_pool (NB, block_size),
+// tables (B, MB); the logical row is MB * block_size slots.
 extern "C" int paged_decode_attention(int dtype, const void* q,
                                       const void* k_pool, const void* v_pool,
                                       const void* q_pos, const void* kpos_pool,
-                                      const void* tables, void* out, int B,
+                                      const void* tables, void* out,
+                                      void* part_o, void* part_ml, int B,
                                       int H, int KV, int hd, int block_size,
-                                      int MB, int window, void* stream) {
+                                      int MB, int window, int n_splits,
+                                      void* stream) {
+  if (dtype == 1)
+    return repro::mma_attention(hd, q, k_pool, v_pool, q_pos, kpos_pool,
+                                tables, block_size, out, part_o, part_ml, B,
+                                1, MB * block_size, H, KV, window, 1,
+                                n_splits, stream);
   if (dtype == 0)
-    return dispatch<float, true>(hd, q, k_pool, v_pool, q_pos, kpos_pool,
+    return dispatch<true>(hd, q, k_pool, v_pool, q_pos, kpos_pool,
                                  tables, out, B, H, KV, block_size, MB, window,
                                  stream);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16, true>(hd, q, k_pool, v_pool, q_pos,
-                                         kpos_pool, tables, out, B, H, KV,
-                                         block_size, MB, window, stream);
   return (int)cudaErrorInvalidValue;
 }

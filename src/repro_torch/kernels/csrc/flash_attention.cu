@@ -1,5 +1,7 @@
 // Causal / non-causal flash attention for Hopper (sm_90a): the prefill
-// (chunk of T > 1 queries) attention of the serving path.
+// (chunk of T > 1 queries) attention of the serving path, over a
+// contiguous cache row (`flash_attention`) or through the paged pools and
+// a block table (`paged_flash_attention`, bf16).
 //
 // Replaces the Pallas kernel `flash_attention_kernel` of
 // src/repro/kernels/flash_attention.py.
@@ -19,7 +21,10 @@
 //   ahead of the one in use; a tile no row can see is skipped after
 //   reading its k_pos; the key axis is split across blocks when the grid
 //   is under half a wave, with the combine pass and split count
-//   (`kernels/split.py`) shared with the contiguous decode kernel.
+//   (`kernels/split.py`) shared with the decode kernels. A paged chunk
+//   runs the same kernel through the block table: each key row of a tile
+//   is loaded from its own physical slot of the pools, so nothing is
+//   gathered first.
 // * fp32: `flash_kernel` below, on CUDA cores in fp32 (mma.sync in TF32
 //   would not hold the fp32 model tests' 1e-4). Grid (ceil(Tq/64), H, B):
 //   one block owns 64 query rows of one head and loops over K/V tiles of
@@ -226,11 +231,31 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   if (KV <= 0 || H % KV || Tq <= 0 || Tk <= 0 || hd < 32)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return repro::mma_attention(hd, q, k, v, q_pos, k_pos, out, part_o,
-                                part_ml, B, Tq, Tk, H, KV, window, causal,
-                                n_splits, stream);
+    return repro::mma_attention(hd, q, k, v, q_pos, k_pos, nullptr, 0, out,
+                                part_o, part_ml, B, Tq, Tk, H, KV, window,
+                                causal, n_splits, stream);
   if (dtype == 0)
     return dispatch_fp32(hd, q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV,
                          window, causal, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 only: q/out (B, Tq, H, hd); k/v_pool (NB, block_size, KV, hd);
+// kpos_pool (NB, block_size); tables (B, MB), -1 = unallocated; the logical
+// row is MB * block_size slots. Scratch and n_splits as `flash_attention`.
+// (fp32 inputs gather the paged view in the wrapper and take
+// `flash_attention`.)
+extern "C" int paged_flash_attention(const void* q, const void* k_pool,
+                                     const void* v_pool, const void* q_pos,
+                                     const void* kpos_pool, const void* tables,
+                                     void* out, void* part_o, void* part_ml,
+                                     int B, int Tq, int H, int KV, int hd,
+                                     int block_size, int MB, int window,
+                                     int causal, int n_splits, void* stream) {
+  if (KV <= 0 || H % KV || Tq <= 0 || MB <= 0 || hd < 32)
+    return (int)cudaErrorInvalidValue;
+  return repro::mma_attention(hd, q, k_pool, v_pool, q_pos, kpos_pool, tables,
+                              block_size, out, part_o, part_ml, B, Tq,
+                              MB * block_size, H, KV, window, causal,
+                              n_splits, stream);
 }

@@ -7,16 +7,18 @@ package; `ref.decode_attention_ref` / `ref.paged_decode_attention_ref` are
 their plain versions. CUDA tensors only: `ops` dispatches CPU tensors to
 the plain versions.
 
-Both are bound by the bytes of K and V. Contiguous decode in bf16 (the
-serving dtype) runs the tensor-core kernel of `csrc/attention_mma.cuh` as
-its Tq = 1 case: the G query heads of a kv head are packed as mma rows, so
-K/V are read once for all of them, in bf16 tiles loaded with cp.async two
-ahead of the one in use; a tile whose slots are all invisible is skipped
-after reading its k_pos; and the key axis is split across blocks when the
-(B, KV) grid is under half a wave, with the count from
-`split.num_splits` and the combine pass that the prefill kernel shares.
-Contiguous decode in fp32 and paged decode in both dtypes run the
-CUDA-core fp32 kernel, one block per (B, KV).
+Both are bound by the bytes of K and V. In bf16 (the serving dtype) both
+run the tensor-core kernel of `csrc/attention_mma.cuh` as its Tq = 1 case:
+the G query heads of a kv head are packed as mma rows, so K/V are read
+once for all of them, in bf16 tiles loaded with cp.async two ahead of the
+one in use; a tile whose slots are all invisible is skipped after reading
+its k_pos; and the key axis is split across blocks when the (B, KV) grid
+is under half a wave, with the count from `split.num_splits` and the
+combine pass that the prefill kernel shares. Paged, the kernel walks the
+block table (`split.paged_slots` is its walk, written out): each key row
+of a tile is read from its own physical slot, so any block size works.
+fp32 runs the CUDA-core fp32 kernel, one block per (B, KV), whose paged
+walk takes one block of at most TILE slots a tile.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.kernels import _build, split
 
-#: slots per contiguous tile, and the largest paged block the kernel takes
+#: slots per tile of the fp32 kernel, and the largest paged block it takes
 TILE = 64
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
@@ -73,15 +75,18 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, q_pos, kpos_pool, tables,
                    and tuple(kpos_pool.shape) == (NB, bs)
                    and tables.shape[0] == B and q_pos.shape == (B,),
                    "paged_decode_attention: inconsistent shapes")
-    _build.require(bs <= TILE, f"block_size {bs} > {TILE}")
+    _build.require(q.dtype == torch.bfloat16 or bs <= TILE,
+                   f"fp32 paged decode: block_size {bs} > {TILE}")
     q_pos = q_pos.to(torch.int32).contiguous()
     kpos_pool = kpos_pool.to(torch.int32).contiguous()
     tables = tables.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     ptrs = _build.cuda_args(q, k_pool, v_pool, dtype=q.dtype) \
         + _build.cuda_args(q_pos, kpos_pool, tables, out)
+    n_splits, scratch = split.plan(q, B, KV, H // KV, MB * bs, hd, B * H)
     lib = _build.library("decode_attention")
     _build.check(lib.paged_decode_attention(
-        _build.DTYPE_CODE[q.dtype], *ptrs, B, H, KV, hd, bs, MB, window,
-        _build.stream()), "paged_decode_attention")
+        _build.DTYPE_CODE[q.dtype], *ptrs, *split.pointers(scratch), B, H,
+        KV, hd, bs, MB, window, n_splits, _build.stream()),
+        "paged_decode_attention")
     return out

@@ -12,15 +12,18 @@ from typing import Dict
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   paged_decode_attention_cuda)
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 paged_flash_attention_cuda)
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
 from repro_torch.kernels.ssd_scan import ssd_intra_cuda
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0,
-                            "flash_attention": 0, "rmsnorm": 0,
-                            "ssd_intra": 0, "rglru_scan": 0}
+                            "flash_attention": 0,
+                            "paged_flash_attention": 0, "rmsnorm": 0,
+                            "add_rmsnorm": 0, "ssd_intra": 0,
+                            "rglru_scan": 0}
 
 
 def reset_launches() -> None:
@@ -61,11 +64,35 @@ def flash_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
     return out
 
 
+def paged_flash_attention(q, k_pool, v_pool, q_pos, kpos_pool, tables, *,
+                          window: int = 0, causal: bool = True):
+    """A chunk's flash attention through the paged KV pools + block tables
+    (DESIGN §9): q (B, Tq, H, hd) -> (B, Tq, H, hd)."""
+    if not q.is_cuda:
+        return ref.paged_flash_attention_ref(q, k_pool, v_pool, q_pos,
+                                             kpos_pool, tables, window=window,
+                                             causal=causal)
+    out = paged_flash_attention_cuda(q, k_pool, v_pool, q_pos, kpos_pool,
+                                     tables, window=window, causal=causal)
+    LAUNCHES["paged_flash_attention"] += 1
+    return out
+
+
 def rmsnorm(x, w, *, eps: float = 1e-6):
     if not x.is_cuda:
         return ref.rmsnorm_ref(x, w, eps=eps)
     out = rmsnorm_cuda(x, w, eps=eps)
     LAUNCHES["rmsnorm"] += 1
+    return out
+
+
+def add_rmsnorm(x, y, w, *, eps: float = 1e-6):
+    """(x + y, rmsnorm(x + y)): the residual add fused into the norm that
+    reads it; the sum is x + y in x's dtype, bit for bit."""
+    if not x.is_cuda:
+        return ref.add_rmsnorm_ref(x, y, w, eps=eps)
+    out = add_rmsnorm_cuda(x, y, w, eps=eps)
+    LAUNCHES["add_rmsnorm"] += 1
     return out
 
 

@@ -97,12 +97,30 @@ def flash_attention_ref(q, k, v, q_pos, k_pos, *, window: int = 0,
     return out.reshape(B, Tq, H, hd).to(q.dtype)
 
 
+def paged_flash_attention_ref(q, k_pool, v_pool, q_pos, kpos_pool, tables,
+                              *, window: int = 0, causal: bool = True):
+    """Gather-then-attend version of the paged chunk kernel (DESIGN §9).
+
+    q: (B, Tq, H, hd); k/v_pool: (NB, bs, KV, hd); q_pos: (B, Tq);
+    kpos_pool: (NB, bs); tables: (B, MB), -1 = unallocated."""
+    k, v, kpos = paged_view(k_pool, v_pool, kpos_pool, tables)
+    return flash_attention_ref(q, k, v, q_pos, kpos, window=window,
+                               causal=causal)
+
+
 def rmsnorm_ref(x, w, *, eps: float = 1e-6):
     """x * rsqrt(mean(x^2) + eps) * (1 + w), in fp32, cast to x.dtype."""
     x32 = x.float()
     ms = (x32 * x32).mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(ms + eps) * (1.0 + w.float())
     return y.to(x.dtype)
+
+
+def add_rmsnorm_ref(x, y, w, *, eps: float = 1e-6):
+    """(s, rmsnorm(s)) with s = x + y in x's dtype: the residual add and the
+    norm that reads it, the norm taken of the rounded s."""
+    s = x + y
+    return s, rmsnorm_ref(s, w, eps=eps)
 
 
 def ssd_intra_ref(xdt, cum_a, Br, Cr):

@@ -1,15 +1,17 @@
-"""Fused RMSNorm for Hopper in Triton: `x * rsqrt(mean(x^2) + eps) * (1 + w)`
-in fp32, stored in x's dtype. It replaces the Pallas kernel `rmsnorm_kernel`
-of the JAX package; `ref.rmsnorm_ref` is its plain version.
+"""Launchers of the hand-written Hopper RMSNorm kernels (`csrc/rmsnorm.cu`):
+`x * rsqrt(mean(x^2) + eps) * (1 + w)` in fp32, stored in x's dtype, and
+the same norm fused with the residual add before it (`s = x + y` in x's
+dtype, then the norm of the rounded `s`). They replace the Pallas kernel
+`rmsnorm_kernel` of the JAX package; `ref.rmsnorm_ref` /
+`ref.add_rmsnorm_ref` are their plain versions. CUDA tensors only: `ops`
+dispatches CPU tensors to the plain versions.
 
-Bound: device-memory bytes. The work is one row reduction plus an
-elementwise scale, so the kernel reads each row once and writes it once;
-one program per row holds the whole row (BLOCK = next power of two >= d)
-in registers. There are no tensor cores to reach and no shared-memory
-pipeline to build, which is why Triton serves as well as CUDA here.
-
-`triton` is imported on the first launch, never when this module is
-imported: the module must import on machines without it.
+Bound: device-memory bytes, and at a decode step's 8 rows the launch
+itself. A block holds whole rows in registers (16-byte loads, all issued
+before the reduction), takes the sum of squares by warp shuffles and one
+shared-memory step, keeps the weight for all its rows, and the grid is
+capped at the SMs' resident blocks. The fused add saves the residual
+add's own launch and one read and write of the residual stream.
 """
 from __future__ import annotations
 
@@ -17,40 +19,54 @@ import torch
 
 from repro_torch.kernels import _build
 
-tl = None      # triton.language, bound on the first launch (see _kernel)
-_KERNEL = None
+THREADS, MAX_LOADS = 256, 8  # a block's threads; loads a thread holds a row
 
 
-def _rmsnorm_rows(X, W, Y, D, eps, BLOCK: "tl.constexpr"):
-    row = tl.program_id(0)
-    cols = tl.arange(0, BLOCK)
-    mask = cols < D
-    x = tl.load(X + row * D + cols, mask=mask, other=0.0).to(tl.float32)
-    w = tl.load(W + cols, mask=mask, other=0.0).to(tl.float32)
-    ms = tl.sum(x * x, axis=0) / D
-    y = x * tl.rsqrt(ms + eps) * (1.0 + w)
-    tl.store(Y + row * D + cols, y.to(Y.dtype.element_ty), mask=mask)
+def max_width(element_size: int, d: int) -> int:
+    """The widest row the kernel holds: 16-byte loads when d fills them,
+    one element a load otherwise."""
+    vec = 16 // element_size
+    return THREADS * MAX_LOADS * (vec if d % vec == 0 else 1)
 
 
-def _kernel():
-    """JIT-wrap `_rmsnorm_rows` on first use. Its body resolves `tl` through
-    this module's globals, which Triton reads when it compiles."""
-    global tl, _KERNEL
-    if _KERNEL is None:
-        import triton
-        import triton.language as tl
-        _KERNEL = triton.jit(_rmsnorm_rows)
-    return _KERNEL
+def _width(x, w) -> int:
+    """d, after the checks. The messages are formatted only on failure:
+    the norms launch some 80 times a forward, and the launch is host-bound
+    at the decode shape."""
+    d = x.shape[-1]
+    if (x.dtype not in _build.DTYPE_CODE or w.shape != (d,)
+            or w.dtype != x.dtype
+            or not 0 < d <= max_width(x.element_size(), d)):
+        raise ValueError(f"rmsnorm: x {tuple(x.shape)} {x.dtype}, weight "
+                         f"{tuple(w.shape)} {w.dtype}: one dtype (fp32 or "
+                         f"bf16), weight (d,), d <= "
+                         f"{max_width(x.element_size(), d)}")
+    return d
 
 
 def rmsnorm_cuda(x, w, *, eps: float = 1e-6):
     """x: (..., d) CUDA tensor; w: (d,). Returns rms_norm(x) * (1 + w)."""
-    d = x.shape[-1]
-    _build.require(tuple(w.shape) == (d,), f"weight {tuple(w.shape)} != ({d},)")
-    x2 = x.reshape(-1, d).contiguous()
-    _build.cuda_args(x2, w)
-    out = torch.empty_like(x2)
-    block = 1 << (d - 1).bit_length()
-    _kernel()[(x2.shape[0],)](x2, w, out, d, eps, BLOCK=block,
-                              num_warps=8 if block >= 2048 else 4)
-    return out.reshape(x.shape)
+    d = _width(x, w)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ptrs = _build.cuda_args(x, w, out, dtype=x.dtype)
+    _build.check(_build.library("rmsnorm").rmsnorm(
+        _build.DTYPE_CODE[x.dtype], *ptrs, x.numel() // d, d, eps,
+        _build.stream()), "rmsnorm")
+    return out
+
+
+def add_rmsnorm_cuda(x, y, w, *, eps: float = 1e-6):
+    """x, y: (..., d) CUDA tensors of one dtype; w: (d,). Returns
+    (s, rms_norm(s) * (1 + w)) with s = x + y in x's dtype."""
+    if x.shape != y.shape or x.dtype != y.dtype:
+        raise ValueError(f"add_rmsnorm: {tuple(x.shape)} {x.dtype} vs "
+                         f"{tuple(y.shape)} {y.dtype}")
+    d = _width(x, w)
+    x, y = x.contiguous(), y.contiguous()
+    s, out = torch.empty_like(x), torch.empty_like(x)
+    ptrs = _build.cuda_args(x, y, w, s, out, dtype=x.dtype)
+    _build.check(_build.library("rmsnorm").add_rmsnorm(
+        _build.DTYPE_CODE[x.dtype], *ptrs, x.numel() // d, d, eps,
+        _build.stream()), "add_rmsnorm")
+    return s, out

@@ -8,7 +8,8 @@ grid of B * KV * row_tiles blocks: 4 to 64 at the serving shapes, on a card
 of 132 SMs. Where that grid is under half a wave, the key tiles are cut
 into `n_splits` contiguous ranges, each taken by its own block, and a
 combine pass merges their partial (m, l, O). `num_splits` picks the count;
-`split_ranges` is the kernel's own cut, written out for the tests.
+`split_ranges` is the kernel's own cut, and `paged_slots` its walk of a
+block table (paged decode and paged chunks), written out for the tests.
 """
 from __future__ import annotations
 
@@ -47,6 +48,17 @@ def split_ranges(key_tiles: int, n_splits: int) -> List[Tuple[int, int]]:
     """Key tiles [begin, end) of each split, as the kernel cuts them."""
     return [(s * key_tiles // n_splits, (s + 1) * key_tiles // n_splits)
             for s in range(n_splits)]
+
+
+def paged_slots(tables: torch.Tensor, block_size: int) -> torch.Tensor:
+    """The kernel's block-table walk: logical slot s of row b (of
+    MB * block_size) is physical slot tables[b, s // bs] * bs + s % bs of
+    the pools, or -1 where the table entry is < 0 (the slot reads as empty
+    and its K/V are never read). tables: (B, MB) -> (B, MB * bs) int64."""
+    B, MB = tables.shape
+    s = torch.arange(MB * block_size, device=tables.device)
+    blk = tables.long()[:, s // block_size]
+    return torch.where(blk >= 0, blk * block_size + s % block_size, -1)
 
 
 @lru_cache(maxsize=None)

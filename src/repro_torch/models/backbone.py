@@ -121,8 +121,10 @@ def layer_params(stacked: Params, i: int) -> Params:
             for k, v in stacked.items()}
 
 
-def logits_head(p, x, cfg: ModelConfig):
-    h = L.rms_norm(x, p["ln_f"], cfg.rms_eps)
+def logits_head(p, x, pending, cfg: ModelConfig):
+    """Logits of the residual stream x plus the last layer's `pending`
+    branch output (added inside the final norm)."""
+    _, h = _norm_in(x, pending, p["ln_f"], cfg)
     wout = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
     return (h @ wout).float()
 
@@ -221,8 +223,24 @@ def _write_index(positions, cache: Cache, tables) -> L.WriteIndex:
     return widx
 
 
-def _attn_layer(lp, x, positions, cache, i, widx, cfg, window, tables):
-    h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+def _norm_in(x, pending, w, cfg: ModelConfig):
+    """(x + pending, its RMSNorm): the residual add of the previous branch
+    output fused into the norm that reads it. Only the model's first norm
+    has no branch output pending, and takes the plain norm of x."""
+    if pending is None:
+        return x, L.rms_norm(x, w, cfg.rms_eps)
+    return L.add_rms_norm(x, pending, w, cfg.rms_eps)
+
+
+# Each layer takes the residual stream x and the previous branch output
+# not yet added to it (`pending`, None before the first layer), and
+# returns both for the next, so that every residual add happens inside the
+# norm that reads it: a layer's ln1, its ln2, or the final ln_f.
+
+
+def _attn_layer(lp, x, pending, positions, cache, i, widx, cfg, window,
+                tables):
+    x, h = _norm_in(x, pending, lp["ln1"], cfg)
     if tables is None:
         a = L.self_attention_cached(lp["attn"], h, positions, cache["k"][i],
                                     cache["v"][i], cache["pos"], widx, cfg,
@@ -231,9 +249,8 @@ def _attn_layer(lp, x, positions, cache, i, widx, cfg, window, tables):
         a = L.self_attention_paged(lp["attn"], h, positions, cache["k"][i],
                                    cache["v"][i], cache["pos"], tables, widx,
                                    cfg, window=window)
-    x = x + a
-    h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
-    return x + L.mlp(lp["mlp"], h)
+    x, h = L.add_rms_norm(x, a, lp["ln2"], cfg.rms_eps)
+    return x, L.mlp(lp["mlp"], h)
 
 
 class _State:
@@ -263,26 +280,25 @@ class _State:
                                        torch.where(keep, new, old))
 
 
-def _ssm_layer(lp, x, cfg, st: _State, i, decode):
+def _ssm_layer(lp, x, pending, cfg, st: _State, i, decode):
     conv0, ssm0 = st.get("conv", i), st.get("ssm", i)
-    h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+    x, h = _norm_in(x, pending, lp["ln1"], cfg)
     y, (conv1, ssm1) = S.mamba2_block(lp["mixer"], h, cfg, conv_state=conv0,
                                       ssm_state=ssm0, decode=decode)
     st.put("conv", i, conv0, conv1)
     st.put("ssm", i, ssm0, ssm1)
-    return x + y
+    return x, y
 
 
-def _rec_layer(lp, x, cfg, st: _State, i, decode):
+def _rec_layer(lp, x, pending, cfg, st: _State, i, decode):
     conv0, rec0 = st.get("conv", i), st.get("rec", i)
-    h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+    x, h = _norm_in(x, pending, lp["ln1"], cfg)
     y, (conv1, rec1) = R.rglru_block(lp["rec"], h, cfg, conv_state=conv0,
                                      rec_state=rec0, decode=decode)
     st.put("conv", i, conv0, conv1)
     st.put("rec", i, rec0, rec1)
-    x = x + y
-    h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
-    return x + L.mlp(lp["mlp"], h)
+    x, h = L.add_rms_norm(x, y, lp["ln2"], cfg.rms_eps)
+    return x, L.mlp(lp["mlp"], h)
 
 
 def forward_cached(p: Params, tokens, positions, cache: Cache,
@@ -310,26 +326,27 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     win = window_of(cfg)
     widx = _write_index(positions, cache, tables) if "k" in cache else None
     st = _State(cache, rows if tables is not None else None)
+    y = None  # the branch output pending for the next norm
     if cfg.family == ArchFamily.DENSE:
         for i in range(cfg.num_layers):
-            x = _attn_layer(layer_params(p["layers"], i), x, positions, cache,
-                            i, widx, cfg, win, tables)
+            x, y = _attn_layer(layer_params(p["layers"], i), x, y, positions,
+                               cache, i, widx, cfg, win, tables)
     elif cfg.family == ArchFamily.SSM:
         for i in range(cfg.num_layers):
-            x = _ssm_layer(layer_params(p["layers"], i), x, cfg, st, i,
-                           decode)
+            x, y = _ssm_layer(layer_params(p["layers"], i), x, y, cfg, st, i,
+                              decode)
     else:
         i_att = i_rec = 0
         for kind in cfg.layer_kinds():
             if kind == "attention":
-                x = _attn_layer(layer_params(p["att_layers"], i_att), x,
-                                positions, cache, i_att, widx, cfg, win,
-                                tables)
+                x, y = _attn_layer(layer_params(p["att_layers"], i_att), x, y,
+                                   positions, cache, i_att, widx, cfg, win,
+                                   tables)
                 i_att += 1
             else:
-                x = _rec_layer(layer_params(p["rec_layers"], i_rec), x, cfg,
-                               st, i_rec, decode)
+                x, y = _rec_layer(layer_params(p["rec_layers"], i_rec), x, y,
+                                  cfg, st, i_rec, decode)
                 i_rec += 1
     if last_only:
-        x = x[:, -1:]
-    return logits_head(p, x, cfg), cache
+        x, y = x[:, -1:], y[:, -1:]
+    return logits_head(p, x, y, cfg), cache

@@ -23,7 +23,6 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import paged_view
 
 
 class ParamInit:
@@ -89,6 +88,12 @@ def out_scale(cfg: ModelConfig) -> float:
 def rms_norm(x, w, eps: float = 1e-6):
     """x * rsqrt(mean(x^2) + eps) * (1 + w) — the RMSNorm kernel."""
     return ops.rmsnorm(x, w, eps=eps)
+
+
+def add_rms_norm(x, y, w, eps: float = 1e-6):
+    """(x + y, rms_norm(x + y)) — the residual add fused into the RMSNorm
+    kernel that reads it; the sum is bit for bit `x + y`."""
+    return ops.add_rmsnorm(x, y, w, eps=eps)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -197,8 +202,8 @@ def self_attention_paged(p, x, positions, pool_k, pool_v, pool_pos, tables,
     pool_k/v: (NB, bs, KV, hd), written in place at `widx`
     (`paged_write_index`); pool_pos: (NB, bs), already holding this chunk's
     positions; tables: (B, MB) physical block ids (-1 = unallocated).
-    Decode walks the block table in the paged flash-decode kernel; a chunk
-    attends over the gathered per-request view."""
+    Decode and chunks both walk the block table in the kernels (paged
+    flash decode, paged flash attention); nothing is gathered first."""
     B, T, _ = x.shape
     q, k, v = attention_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -211,6 +216,7 @@ def self_attention_paged(p, x, positions, pool_k, pool_v, pool_pos, tables,
                                          positions[:, 0], pool_pos, tables,
                                          window=window).reshape(B, 1, -1)
     else:
-        kview, vview, kpos = paged_view(pool_k, pool_v, pool_pos, tables)
-        out = attend(q, kview, vview, positions, kpos, window=window)
+        out = ops.paged_flash_attention(q, pool_k, pool_v, positions,
+                                        pool_pos, tables, window=window,
+                                        causal=True).reshape(B, T, -1)
     return out @ p["wo"]

@@ -31,6 +31,32 @@ def _paged_case(rng):
     return q, kp, vp, q_pos, kpos, tables
 
 
+def _paged_pools(rng, lens, bs, MB, KV, hd, holes=()):
+    """Paged pools holding len(lens) rows: row b's tokens sit at positions
+    [0, lens[b]) in shuffled physical blocks of bs slots; its table entries
+    are -1 past its last block and at the (row, block) pairs in `holes`
+    (whose positions then read as empty); one block that no table names
+    holds stale positions, which must stay invisible. Returns k/v pools
+    (NB, bs, KV, hd), kpos (NB, bs), tables (B, MB)."""
+    B = len(lens)
+    NB = sum(-(-n // bs) for n in lens) + 3
+    perm = rng.permutation(NB)
+    tables = np.full((B, MB), -1, np.int32)
+    kpos = np.full((NB, bs), -1, np.int32)
+    used = 0
+    for b, n in enumerate(lens):
+        for j in range(-(-n // bs)):
+            if (b, j) in holes:
+                continue
+            tables[b, j] = perm[used]
+            pos = j * bs + np.arange(bs)
+            kpos[perm[used]] = np.where(pos < n, pos, -1)
+            used += 1
+    kpos[perm[used]] = np.arange(bs)
+    kp, vp = rng.randn(2, NB, bs, KV, hd)
+    return kp, vp, kpos, tables
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -100,7 +126,7 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, rows):
 @pytest.mark.cuda
 @pytest.mark.parametrize("paged", [False, True])
 def test_model_on_card_matches_cpu(cuda, paged):
-    """Reduced granite in fp32: chunked prefill + decode through the four
+    """Reduced granite in fp32: chunked prefill + decode through the
     kernels on the card gives the CPU plain path's logits."""
     from repro_torch.config.registry import get_config
     from repro_torch.models.model import build_model
@@ -134,7 +160,8 @@ def test_model_on_card_matches_cpu(cuda, paged):
         outs.append(torch.cat(seq, 1))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
     used = ("paged_decode_attention" if paged else "decode_attention",
-            "flash_attention", "rmsnorm")
+            "paged_flash_attention" if paged else "flash_attention",
+            "rmsnorm", "add_rmsnorm")
     assert all(ops.LAUNCHES[k] > 0 for k in used), ops.LAUNCHES
 
 
@@ -381,7 +408,143 @@ def test_stateful_model_on_card_matches_cpu(cuda, arch, paged):
             seq.append(lg.cpu())
         outs.append(torch.cat(seq, 1))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
-    used = ["rmsnorm", "ssd_intra"] if arch == "mamba2-2.7b" else \
-        ["rmsnorm", "rglru_scan", "flash_attention",
+    used = ["rmsnorm", "add_rmsnorm", "ssd_intra"] \
+        if arch == "mamba2-2.7b" else \
+        ["rmsnorm", "add_rmsnorm", "rglru_scan",
+         "paged_flash_attention" if paged else "flash_attention",
          "paged_decode_attention" if paged else "decode_attention"]
     assert all(ops.LAUNCHES[k] > 0 for k in used), ops.LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# paged attention on the tensor-core kernel (bf16): the block-table walk for
+# decode (Tq = 1) and for chunks, against the fp32 plain versions at
+# atol = rtol = 2e-2
+
+
+def _paged_bf16(dev, rng, Tq, H, KV, hd, bs, lens, q_ends, window=0,
+                holes=()):
+    """Rows of `lens` tokens in the pools (MB blocks of bs, the table
+    rounded up to whole 64-key tiles plus one); each row's Tq queries end
+    at q_ends[b] (-1: a padding row, every query at position -1)."""
+    MB = -(-max(lens) // bs) + 64 // bs
+    kp, vp, kpos, tables = _paged_pools(rng, lens, bs, MB, KV, hd, holes)
+    B = len(lens)
+    qp = np.stack([np.arange(e - Tq, e) if e >= 0 else np.full(Tq, -1)
+                   for e in q_ends]).astype(np.int32)
+    q = rng.randn(B, Tq, H, hd)
+    args = _on(dev, q, kp, vp, qp, kpos, tables)
+    f32 = [a.float() for a in args[:3]] + args[3:]
+    if Tq == 1:
+        got = ops.paged_decode_attention(args[0][:, 0], *args[1:3],
+                                         args[3][:, 0], *args[4:],
+                                         window=window)[:, None]
+        want = ref.paged_decode_attention_ref(f32[0][:, 0], *f32[1:3],
+                                              f32[3][:, 0], *f32[4:],
+                                              window=window)[:, None]
+        assert ops.LAUNCHES["paged_decode_attention"] == 1
+    else:
+        got = ops.paged_flash_attention(*args, window=window)
+        want = ref.paged_flash_attention_ref(*f32, window=window)
+        assert ops.LAUNCHES["paged_flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("G", [1, 4, 16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_paged_decode_bf16_on_card(cuda, hd, G, bs, window):
+    """Rows of 700, 351 and 41 tokens (ragged last blocks; a -1 hole in the
+    middle of the first row's table) and a padding row with no visible
+    key, which comes out exactly 0."""
+    lens = [700, 351, 41, 5]
+    got = _paged_bf16(cuda, np.random.RandomState(5), 1, 2 * G, 2, hd, bs,
+                      lens, [700, 351, 41, -1], window=window,
+                      holes={(0, 3)})
+    assert bool((got[3] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("Tq", [2, 16, 17, 63, 500])
+def test_paged_flash_bf16_chunk_lengths_on_card(cuda, Tq, window):
+    """Chunks of Tq tokens (G 4 heads each) through the block table: one
+    ends at 600 in a row filled to it, one starts its row (blocks of 16,
+    a hole in the middle of its table)."""
+    _paged_bf16(cuda, np.random.RandomState(6), Tq, 8, 2, 128, 16,
+                [600, max(Tq, 40)], [600, max(Tq, 40)], window=window,
+                holes={(1, 1)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_splits", [1, 2, 4, 8])
+def test_paged_decode_bf16_forced_splits_on_card(cuda, monkeypatch,
+                                                 n_splits):
+    """A ragged serving batch (1 to 1024 tokens a row, granite's heads) at
+    each forced split count: splits that own only empty slots of a short
+    row, and the combine pass, leave the result unchanged."""
+    from repro_torch.kernels import split
+
+    monkeypatch.setattr(split, "num_splits",
+                        lambda B, KV, rt, kt, sms: min(n_splits, kt))
+    lens = [1024, 1000, 777, 512, 301, 160, 33, 1]
+    _paged_bf16(cuda, np.random.RandomState(7), 1, 32, 8, 128, 16, lens,
+                lens)
+
+
+@pytest.mark.cuda
+def test_paged_decode_bf16_matches_contiguous_kernel_on_card(cuda):
+    """The paged walk and the contiguous kernel on the same rows (the
+    gathered view) give the same bf16 output up to summation order."""
+    rng = np.random.RandomState(8)
+    lens = [1024, 300, 17]
+    kp, vp, kpos, tables = _paged_pools(rng, lens, 16, 64, 8, 128)
+    q = rng.randn(3, 32, 128)
+    qp = np.array(lens, np.int32) - 1
+    args = _on(cuda, q, kp, vp, qp, kpos, tables)
+    paged = ops.paged_decode_attention(*args)
+    k, v, kposv = ref.paged_view(*args[1:3], args[4], args[5])
+    contiguous = ops.decode_attention(args[0], k, v, args[3], kposv)
+    torch.testing.assert_close(paged.float(), contiguous.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm in CUDA C++, with and without the fused residual add
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2560, 4096, 5120])
+@pytest.mark.parametrize("rows", [1, 8, 4096])
+def test_add_rmsnorm_bf16_on_card(cuda, rows, d):
+    """The fused sum is bit for bit PyTorch's bf16 `x + y`; both norms are
+    within 2e-2 of the fp32 plain version of the norm of that sum."""
+    rng = np.random.RandomState(9)
+    x, y, w = _on(cuda, rng.randn(rows, d), rng.randn(rows, d),
+                  rng.randn(d) * 0.1)
+    s, h = ops.add_rmsnorm(x, y, w)
+    assert torch.equal(s, x + y)
+    want = ref.rmsnorm_ref(s.float(), w.float())
+    torch.testing.assert_close(h.float(), want, rtol=2e-2, atol=2e-2)
+    h1 = ops.rmsnorm(s, w)
+    torch.testing.assert_close(h1.float(), want, rtol=2e-2, atol=2e-2)
+    assert ops.LAUNCHES["add_rmsnorm"] == 1 and ops.LAUNCHES["rmsnorm"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [130, 4096, 5120])
+def test_add_rmsnorm_fp32_on_card(cuda, d):
+    """fp32, as the on-card model tests run it, at a width that takes one
+    element a load (130) and two that take 16-byte loads."""
+    rng = np.random.RandomState(10)
+    x, y, w = _on(cuda, rng.randn(5, 3, d), rng.randn(5, 3, d),
+                  rng.randn(d) * 0.1, dtype=torch.float32)
+    s, h = ops.add_rmsnorm(x, y, w)
+    assert torch.equal(s, x + y)
+    torch.testing.assert_close(h, ref.rmsnorm_ref(x + y, w), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
+                               rtol=1e-5, atol=1e-5)
