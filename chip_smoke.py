@@ -9,8 +9,10 @@ Phases, one JSON line each:
 2. build     nvcc builds every CUDA kernel of the port (one process per
              source, all at once). Registers and spill bytes per kernel
              instantiation, from ptxas; a spill in a bf16 tensor-core
-             attention kernel (contiguous or paged) fails, and so does a
-             build without the paged instantiations.
+             attention kernel (contiguous or paged) or in any SSD kernel
+             fails, and so does a build without the paged instantiations
+             or an SSD library whose SASS (cuobjdump) holds no TF32
+             tensor-core instruction (HMMA.1688.F32.TF32).
 3. kernels   each of the 8 kernel entries against its plain PyTorch version
              on the card at the serving path's shapes (the attention
              kernels and RMSNorm in bf16 against the fp32 plain version, the
@@ -178,8 +180,7 @@ def max_err(got, want) -> float:
 
 #: the port's kernel entry functions, as they appear in mangled names
 KERNEL_NAMES = ("mma_attention_kernel", "mma_combine_kernel", "decode_kernel",
-                "flash_kernel", "rmsnorm_kernel", "cb_kernel", "intra_kernel",
-                "scan_kernel")
+                "flash_kernel", "rmsnorm_kernel", "ssd_kernel", "scan_kernel")
 
 
 def _label(mangled: str) -> str:
@@ -217,6 +218,20 @@ def ptxas_table(logs):
         r["stack"], r["spill_stores"], r["spill_loads"] = spills.get(
             r.pop("mangled"), (0, 0, 0))
     return rows
+
+
+def tf32_hmma_count(lib: str) -> int:
+    """TF32 tensor-core instructions (HMMA.1688.F32.TF32) in the SASS of
+    `build/kernels/lib<lib>.so`, by cuobjdump from the CUDA toolkit."""
+    import shutil
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "--dump-sass", str(_build._lib_path(lib))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sass.count("HMMA.1688.F32.TF32")
 
 
 # ---------------------------------------------------------------------------
@@ -410,11 +425,11 @@ def kernel_cases(dev):
                                                eps=1e-6),
             nbytes(x, y, w, x, x), 5 * rows * d, "bf16"))
 
-    # mamba2-2.7b: 80 heads of P 64, N 128; the serving chunk (Q 16) and
-    # the config's (two chunks of 256). mamba2-like magnitudes: dt in
+    # mamba2-2.7b: 80 heads of P 64, N 128; the serving chunk (Q 16), two
+    # lanes' ragged last chunks (Q 7) and the config's (two chunks of 256). mamba2-like magnitudes: dt in
     # [1e-3, 1e-1], A in [-80, -1], so the decays lie in (0, 1]
     H, P, N = 80, 64, 128
-    for B, nc, Q in ((1, 1, 16), (1, 2, 256)):
+    for B, nc, Q in ((1, 1, 16), (2, 1, 7), (1, 2, 256)):
         dt = torch.rand((B, nc, Q, H), generator=g, device=dev) * 0.099 \
             + 0.001
         A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
@@ -650,16 +665,22 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     ptxas = ptxas_table(logs)
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
-    spills = [r for r in ptxas if r["kernel"].startswith("mma_")
-              and (r["spill_stores"] or r["spill_loads"])]
+    hmma = tf32_hmma_count("ssd_scan")
+    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
+         ssd_tf32_hmma=hmma)
+    spills = [r for r in ptxas if (r["kernel"].startswith("mma_")
+                                   or r["lib"] == "ssd_scan")
+              and (r["spill_stores"] or r["spill_loads"] or r["stack"])]
     mma = [r["kernel"] for r in ptxas
            if r["kernel"].startswith("mma_attention_kernel")]
     if spills or not any(k.endswith(", true>") for k in mma) \
             or not any(k.endswith(", false>") for k in mma):
-        raise AssertionError(f"bf16 tensor-core attention kernels spill "
+        raise AssertionError(f"tensor-core attention or SSD kernels spill "
                              f"(or the paged or contiguous ones were not "
                              f"built): {spills}")
+    if hmma == 0:
+        raise AssertionError("the SSD kernel has no TF32 tensor-core "
+                             "instruction in its SASS")
 
     kres = run_kernels(dev)
     refs = [run_reference(dev, arch) for arch in REFERENCE]

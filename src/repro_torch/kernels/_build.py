@@ -50,8 +50,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "add_rmsnorm": [_I] + [_P] * 5 + [_I] * 2 + [_F, _P],
     },
     "ssd_scan": {
-        # xdt, cum_a, Br, Cr, cb scratch, y, s, Z, Q, H, P, N, stream
-        "ssd_intra": [_P] * 7 + [_I] * 5 + [_P],
+        # xdt, cum_a, Br, Cr, y, s, Z, Q, H, P, N, stream
+        "ssd_intra": [_P] * 6 + [_I] * 5 + [_P],
     },
     "rglru_scan": {
         # a, bx, h0, y, hT, B, T, W, stream

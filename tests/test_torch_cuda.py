@@ -172,10 +172,12 @@ def _close_normwise(got, want, tol=1e-4):
     assert err <= tol * float(want.abs().max()), err
 
 
-def _ssd_inputs(rng, B, nc, Q, H, P, N):
-    """mamba2-like magnitudes: dt in [1e-3, 1e-1], A in [-H, -1]."""
-    dt = rng.uniform(1e-3, 1e-1, (B, nc, Q, H))
-    A = -np.arange(1, H + 1)
+def _ssd_inputs(rng, B, nc, Q, H, P, N, dt=None, a_max=None):
+    """mamba2-like magnitudes: dt in [1e-3, 1e-1] (or fixed at `dt`), A
+    from -1 down to -H (or -a_max)."""
+    dt = rng.uniform(1e-3, 1e-1, (B, nc, Q, H)) if dt is None \
+        else np.full((B, nc, Q, H), dt)
+    A = -np.linspace(1, a_max or H, H)
     xdt = rng.randn(B, nc, Q, H, P) * dt[..., None]
     cum_a = np.cumsum(dt * A, axis=2)
     Br, Cr = rng.randn(2, B, nc, Q, N)
@@ -187,6 +189,11 @@ def _ssd_inputs(rng, B, nc, Q, H, P, N):
     (1, 1, 16, 80, 64, 128),     # the serving chunk of mamba2-2.7b
     (1, 2, 256, 80, 64, 128),    # the config's chunk
     (2, 3, 40, 4, 32, 16),       # ragged tiles, reduced widths
+    (1, 1, 1, 80, 64, 128),      # a one-token chunk
+    (2, 1, 7, 80, 64, 128),      # the ragged last lane chunk, two lanes
+    (2, 1, 16, 80, 64, 128),     # two full lane chunks
+    (1, 1, 100, 80, 64, 128),    # a ragged prompt in one chunk
+    (2, 2, 37, 3, 24, 40),       # odd widths: the 4-byte staging path
 ])
 def test_ssd_intra_kernel_matches_plain_on_card(cuda, B, nc, Q, H, P, N):
     args = _on(cuda, *_ssd_inputs(np.random.RandomState(0), B, nc, Q, H, P,
@@ -196,6 +203,36 @@ def test_ssd_intra_kernel_matches_plain_on_card(cuda, B, nc, Q, H, P, N):
     assert ops.LAUNCHES["ssd_intra"] == 1
     _close_normwise(y, yr)
     _close_normwise(s, sr)
+
+
+@pytest.mark.cuda
+def test_ssd_intra_kernel_strong_decay_on_card(cuda):
+    """dt 0.1 and A down to -80 at Q 256: cum_a reaches -2048, so most
+    decays underflow to 0; masked and padded entries must stay 0, never
+    inf * 0."""
+    args = _on(cuda, *_ssd_inputs(np.random.RandomState(1), 1, 2, 256, 80,
+                                  64, 128, dt=0.1, a_max=80),
+               dtype=torch.float32)
+    y, s = ops.ssd_intra(*args)
+    yr, sr = ref.ssd_intra_ref(*args)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    _close_normwise(y, yr)
+    _close_normwise(s, sr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [7, 256])
+def test_ssd_intra_is_one_device_kernel(cuda, Q):
+    """One call runs exactly one device kernel (no C.B^T pass, no scratch
+    fill), counted by torch.profiler."""
+    from repro_torch.bench.ssd_sweep import device_kernels
+
+    args = _on(cuda, *_ssd_inputs(np.random.RandomState(0), 1, 2, Q, 80, 64,
+                                  128), dtype=torch.float32)
+    names = device_kernels(lambda: ops.ssd_intra(*args), calls=10)
+    # ten calls, one kernel each (the profiler may miss a record or two)
+    assert 8 <= len(names) <= 10 and all("ssd_kernel" in n for n in names), \
+        names
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
-from test_torch_cuda import _paged_case
+from test_torch_cuda import _paged_case, _ssd_inputs
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -202,6 +202,8 @@ def test_rmsnorm_plain_matches_jax(shape, br, dtype):
     (2, 3, 16, 4, 8, 12),
     (1, 1, 64, 2, 32, 16),
     (2, 4, 8, 8, 16, 8),
+    (1, 2, 1, 3, 12, 20),     # one-token chunks; P, N not multiples of 8
+    (2, 1, 7, 4, 20, 36),     # the ragged last lane chunk of two lanes
 ])
 def test_ssd_intra_plain_matches_jax(B, nc, Q, H, P, N, dtype):
     """The sweep of tests/test_kernels.py; inputs of `dtype` (the Pallas
@@ -217,6 +219,82 @@ def test_ssd_intra_plain_matches_jax(B, nc, Q, H, P, N, dtype):
                  jops.ssd_intra(jx, jc, jb, jr)):
         np.testing.assert_allclose(f32(y), f32(want[0]), rtol=2e-5, atol=2e-5)
         np.testing.assert_allclose(f32(s), f32(want[1]), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", ["shapes", "Q", "dtype", "cpu"])
+def test_ssd_intra_launcher_checks_before_the_card(case):
+    """The launcher refuses what the kernel does not take before any
+    pointer reaches the card: mismatched shapes, Q over 256, a non-fp32
+    operand, and (the last check) a tensor that is not on the card."""
+    from repro_torch.kernels.ssd_scan import ssd_intra_cuda
+
+    Q = 257 if case == "Q" else 16
+    args = [torch.zeros(s) for s in ((1, 1, Q, 4, 8), (1, 1, Q, 4),
+                                      (1, 1, Q, 16), (1, 1, Q, 16))]
+    if case == "shapes":
+        args[3] = torch.zeros(1, 1, Q, 8)
+    if case == "dtype":
+        args[1] = args[1].double()
+    match = "CUDA tensor" if case == "cpu" else "ssd_intra"
+    with pytest.raises(ValueError, match=match):
+        ssd_intra_cuda(*args)
+
+
+def _tf32(x, rna=True):
+    """x rounded to TF32 (10 mantissa bits): to nearest with ties away from
+    zero, as cvt.rna.tf32.f32, or truncated, as the tensor core reads an
+    operand whose 13 low bits are not zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000 if rna else bits) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, split):
+    """a @ b as the tensor cores take it: products of TF32 operands, summed
+    exactly (float64; the fp32 accumulation adds ~1e-7). One pass rounds
+    both operands; the kernel's 3xTF32 split takes big = tf32(x), small =
+    x - big (read truncated) and sums a_s b_b + a_b b_s + a_b b_b."""
+    if not split:
+        return (_tf32(a).double() @ _tf32(b).double()).float()
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(a.float() - ab, False), _tf32(b.float() - bb, False)
+    return (as_.double() @ bb.double() + ab.double() @ bs.double()
+            + ab.double() @ bb.double()).float()
+
+
+def _ssd_intra_tf32(xdt, cum_a, Br, Cr, split):
+    """The SSD term with its three products (C.B^T, W X, (X o d)^T B) taken
+    as `_mm_tf32` takes them; W = CB o exp(ca_i - ca_j) on j <= i."""
+    Q = xdt.shape[2]
+    ca = cum_a.permute(0, 1, 3, 2)                       # (B, nc, H, Q)
+    X = xdt.permute(0, 1, 3, 2, 4)                       # (B, nc, H, Q, P)
+    cb = _mm_tf32(Cr, Br.transpose(-1, -2), split)       # (B, nc, Q, Q)
+    tri = torch.ones(Q, Q, dtype=torch.bool).tril()
+    L = torch.where(tri, torch.exp(ca[..., :, None] - ca[..., None, :]),
+                    0.0)
+    y = _mm_tf32(cb[:, :, None] * L, X, split).permute(0, 1, 3, 2, 4)
+    xd = X * torch.exp(ca[..., -1:] - ca)[..., None]
+    s = _mm_tf32(xd.transpose(-1, -2), Br[:, :, None], split)
+    return y, s
+
+
+@pytest.mark.parametrize("Q", [16, 256])
+def test_ssd_intra_3xtf32_holds_fp32_tolerance(Q):
+    """Why the SSD kernel takes its tensor-core products with the 3xTF32
+    split and its tolerance stays at 1e-4 x max|plain|: at mamba2-2.7b's
+    widths and magnitudes (chip_smoke's inputs), the split lands two orders
+    of magnitude inside that tolerance; one TF32 pass misses it."""
+    args = [torch.from_numpy(a.astype(np.float32)) for a in
+            _ssd_inputs(np.random.RandomState(0), 1, 1, Q, 80, 64, 128)]
+    plain = ref.ssd_intra_ref(*args)
+
+    def share(got):
+        return [float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(got, plain)]
+
+    split, single = share(_ssd_intra_tf32(*args, True)), \
+        share(_ssd_intra_tf32(*args, False))
+    assert max(split) <= 1e-6, split
+    assert min(single) > 1e-4, single
 
 
 # ---------------------------------------------------------------------------
