@@ -8,15 +8,17 @@ Phases, one JSON line each:
              versions; TF32 off for fp32 products.
 2. build     nvcc builds every CUDA kernel of the port (one process per
              source, all at once). Registers and spill bytes per kernel
-             instantiation, from ptxas; a spill in a bf16 tensor-core
-             attention kernel (contiguous or paged) or in any SSD kernel
-             fails, and so does a build without the paged instantiations
-             or an SSD library whose SASS (cuobjdump) holds no TF32
-             tensor-core instruction (HMMA.1688.F32.TF32).
-3. kernels   each of the 8 kernel entries against its plain PyTorch version
+             instantiation, from ptxas; a spill or a stack frame in a bf16
+             tensor-core attention kernel (contiguous or paged), in any SSD
+             kernel or in any RG-LRU kernel fails, and so does a build
+             without the paged instantiations or an SSD library whose SASS
+             (cuobjdump) holds no TF32 tensor-core instruction
+             (HMMA.1688.F32.TF32).
+3. kernels   each of the 9 kernel entries against its plain PyTorch version
              on the card at the serving path's shapes (the attention
-             kernels and RMSNorm in bf16 against the fp32 plain version, the
-             SSD and RG-LRU kernels in fp32 against their fp32 plain
+             kernels, RMSNorm and the gated RG-LRU recurrence in bf16
+             against the fp32 plain version, the SSD term, the RG-LRU scan
+             and one gated case in fp32 against their fp32 plain
              versions), with CUDA-event timings (median of 30 runs after
              warm-up, L2 flushed before each run) of the kernel, its plain
              version and the nearest PyTorch library call, and the least
@@ -30,13 +32,18 @@ Phases, one JSON line each:
              the contiguous chunk cases. The fused add + RMSNorm's sum must
              be bit for bit `x + y`. The norms' rows also carry host_us,
              the wall time per launch of 1000 back-to-back launches, for
-             the kernel and for its library call.
+             the kernel and for its library call; the RG-LRU rows for the
+             kernel and its plain version, and the gated rows the device
+             and host time of the eager chain the model ran before (the
+             gates op by op, then the scan kernel).
 4. reference per family, full width with depth cut to one layer pattern
              (granite-3-8b 2 layers, mamba2-2.7b 2, recurrentgemma-9b 3):
              the kernels' path on the card in bf16 against the plain path
              on the CPU in fp32 with the same weights, over a prefill and a
              few decode steps (mamba2 and recurrentgemma prefill 300 tokens:
-             two SSD chunks, the second padded).
+             two SSD chunks, the second padded); recurrentgemma's prefill
+             and decode steps launch the gated RG-LRU kernel once a
+             recurrent layer and the plain scan kernel never.
 5. serve_<arch>_contiguous / serve_<arch>_paged
              the engine at full width and depth (random weights from seed
              0) through `repro_torch.launch.serve.run`, for granite-3-8b
@@ -50,7 +57,10 @@ Phases, one JSON line each:
              launch); contiguous runs launch no paged kernel; every
              forward launches the fused add + RMSNorm and the plain RMSNorm
              its family's number of times (granite 80 + 1, mamba2 64 + 65,
-             recurrentgemma 76 + 1).
+             recurrentgemma 76 + 1), and recurrentgemma launches the gated
+             RG-LRU kernel 26 times a forward and the plain scan kernel
+             never (it is the TPU kernel's direct counterpart, checked in
+             the kernels phase only).
 
 Then the card's name and power limit, the `{"kernels": [...]}` summary,
 and as the last line `{"ok": true, "device": {...}}`. Any failure raises:
@@ -92,14 +102,20 @@ SERVE_ARGS = ["--variant", "full", "--policy", "memory", "--b-max", "8",
 PROMPT_LO, PROMPT_HI = 32, 480
 #: arch -> (requests served, kernels its main path must launch in both
 #: layouts, whether it attends (the layout's decode and chunk kernels are
-#: then added), (fused add + RMSNorm, plain RMSNorm) launches per forward)
+#: then added), (fused add + RMSNorm, plain RMSNorm) launches per forward,
+#: other kernels' launches per forward, prefill chunks and decode steps
+#: alike)
 FAMILIES = {
-    "granite-3-8b": (12, ("rmsnorm", "add_rmsnorm"), True, (80, 1)),
+    "granite-3-8b": (12, ("rmsnorm", "add_rmsnorm"), True, (80, 1), {}),
     "mamba2-2.7b": (8, ("ssd_intra", "rmsnorm", "add_rmsnorm"), False,
-                    (64, 65)),
-    "recurrentgemma-9b": (8, ("rglru_scan", "rmsnorm", "add_rmsnorm"), True,
-                          (76, 1)),
+                    (64, 65), {}),
+    "recurrentgemma-9b": (8, ("rglru_gated_scan", "rmsnorm", "add_rmsnorm"),
+                          True, (76, 1),
+                          {"rglru_gated_scan": 26, "rglru_scan": 0}),
 }
+#: kernels no serve run launches: the TPU kernel's direct counterpart,
+#: which the model's gated entry replaced on the path
+OFF_PATH = ("rglru_scan",)
 #: attention kernels by layout (paged?): (decode, chunk)
 ATTENTION = {False: ("decode_attention", "flash_attention"),
              True: ("paged_decode_attention", "paged_flash_attention")}
@@ -180,7 +196,7 @@ def max_err(got, want) -> float:
 
 #: the port's kernel entry functions, as they appear in mangled names
 KERNEL_NAMES = ("mma_attention_kernel", "mma_combine_kernel", "decode_kernel",
-                "flash_kernel", "rmsnorm_kernel", "ssd_kernel", "scan_kernel")
+                "flash_kernel", "rmsnorm_kernel", "ssd_kernel", "rglru_kernel")
 
 
 def _label(mangled: str) -> str:
@@ -240,11 +256,13 @@ def tf32_hmma_count(lib: str) -> int:
 
 def kernel_cases(dev):
     """(kernel, label, kernel call, plain call, fp32 plain call, library
-    call or None, bytes, operations, peak) at the serving path's shapes:
-    granite-3-8b's attention (32 heads on 8 kv heads of 128) and
-    recurrentgemma-9b's (16 heads on 1 kv head of 256), RMSNorm at d 4096,
-    the SSD term at mamba2-2.7b's widths and the RG-LRU scan at width 4096."""
+    call or None, bytes, operations, peak[, extra calls to time by name])
+    at the serving path's shapes: granite-3-8b's attention (32 heads on 8
+    kv heads of 128) and recurrentgemma-9b's (16 heads on 1 kv head of
+    256), RMSNorm at d 4096, the SSD term at mamba2-2.7b's widths and the
+    RG-LRU recurrence at width 4096 (with ragged widths of 1000)."""
     import torch.nn.functional as F
+    from repro_torch.bench.rglru_sweep import gated_inputs
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -448,10 +466,10 @@ def kernel_cases(dev):
             lambda a=a: ref.ssd_intra_ref(*a),
             None, nbytes(*a) + y_bytes, n_ops, "tf32"))
 
-    # recurrentgemma-9b: lru width 4096; two lanes of a serving chunk and
-    # one long prefill
-    W = 4096
-    for B, T in ((2, 16), (1, 512)):
+    # recurrentgemma-9b: lru width 4096; two lanes of a serving chunk, one
+    # long prefill, and ragged widths at T 1 and T 37
+    for B, T, W in ((2, 16, 4096), (1, 512, 4096), (3, 1, 1000),
+                    (2, 37, 1000)):
         a_ = torch.rand((B, T, W), generator=g, device=dev) * 0.5 + 0.5
         bx = rn(B, T, W, dtype=torch.float32)
         h0 = rn(B, W, dtype=torch.float32)
@@ -462,7 +480,40 @@ def kernel_cases(dev):
             lambda a=a: ref.rglru_scan_ref(*a),
             lambda a=a: ref.rglru_scan_ref(*a),
             None, nbytes(*a) + nbytes(bx, h0), 2 * B * T * W, "fp32"))
+    # the gated recurrence: two lanes of a serving chunk, a decode step at
+    # b_max 8 and a long prefill in bf16, and one fp32 case; gate
+    # pre-activations of unit scale, Lambda as the model initialises it
+    for B, T, dtype in ((2, 16, bf), (8, 1, bf), (1, 512, bf),
+                        (2, 16, torch.float32)):
+        a = gated_inputs(B, T, g, dev, dtype)
+        cases.append((
+            "rglru_gated_scan",
+            f"B={B} T={T} W=4096 {'bf16' if dtype == bf else 'fp32'}",
+            lambda a=a: ops.rglru_gated_scan(*a),
+            lambda a=a: ref.rglru_gated_scan_ref(*a),
+            lambda a=a: ref.rglru_gated_scan_ref(*f32(*a)),
+            None, nbytes(*a) + nbytes(a[0], a[6]), 15 * B * T * 4096, "fp32",
+            {"chain": lambda a=a: eager_gated_scan(*a)}))
     return cases
+
+
+def eager_gated_scan(ga, gi, x, lam, b_a, b_i, h0, scan=None):
+    """The gated recurrence as the model ran it before the gated kernel:
+    the gates op by op, then the scan kernel (or `scan`; one step of eager
+    arithmetic at T 1, as its decode did), then the cast: some twenty
+    launches."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
+    r = torch.sigmoid(ga.float() + b_a)
+    i = torch.sigmoid(gi.float() + b_i)
+    a = torch.exp(-8.0 * F.softplus(lam.float()) * r)
+    bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * x.float())
+    if x.shape[1] == 1:
+        h = a[:, 0] * h0 + bx[:, 0]
+        return h[:, None].to(x.dtype), h
+    y, hT = (scan or ops.rglru_scan)(a, bx, h0)
+    return y.to(x.dtype), hT
 
 
 #: kernel -> (route, source, the TPU kernel it replaces, main-path case)
@@ -492,14 +543,17 @@ KERNELS = {
     "rglru_scan": (
         "cuda", "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "src/repro/kernels/rglru_scan.py:31", "B=2 T=16 W=4096"),
+    "rglru_gated_scan": (
+        "cuda", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan.py:31", "B=2 T=16 W=4096 bf16"),
 }
 
 
 def run_kernels(dev):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     results = []
-    for name, label, kern, plain, plain32, lib, n_bytes, n_ops, peak in \
-            kernel_cases(dev):
+    for name, label, kern, plain, plain32, lib, n_bytes, n_ops, peak, \
+            *extra in kernel_cases(dev):
         got = kern()
         torch.cuda.synchronize()
         want = plain32()
@@ -519,6 +573,13 @@ def run_kernels(dev):
                  peak=f"{peak} {PEAK_FLOPS[peak] / 1e12} TFLOP/s")
         if name in ("rmsnorm", "add_rmsnorm"):
             r.update(host_us=host_us(kern), library_host_us=host_us(lib))
+        if name.startswith("rglru"):
+            # the plain versions loop over T in Python: fewer calls
+            r.update(host_us=host_us(kern),
+                     plain_host_us=host_us(plain, n=50, warmup=3))
+        for key, fn in (extra[0] if extra else {}).items():
+            r.update({f"{key}_ms": time_ms(fn, flush),
+                      f"{key}_host_us": host_us(fn)})
         emit("kernels", **r)
         results.append(r)
     return results
@@ -537,6 +598,7 @@ def run_reference(dev, arch: str):
     card) against the plain path (fp32, CPU) with the same weights."""
     import dataclasses
     from repro_torch.config.registry import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
 
     layers, T, n_dec = REFERENCE[arch]
@@ -554,6 +616,7 @@ def run_reference(dev, arch: str):
                          generator=torch.Generator().manual_seed(0))
     pos = torch.arange(T + n_dec, dtype=torch.int32)[None]
     outs = []
+    ops.reset_launches()
     for model, p, d in ((m, params, dev), (m_cpu, p_cpu, "cpu")):
         cache = model.init_cache(1, 2 * T, prefill_chunk=T)
         lg, cache = model.prefill(p, toks[:, :T].to(d), pos[:, :T].to(d),
@@ -565,14 +628,20 @@ def run_reference(dev, arch: str):
             seq.append(lg[0])
         outs.append(torch.stack(seq).float().cpu())
     got, want = outs
+    launches = {k: n for k, n in ops.LAUNCHES.items() if n}
     if got.shape != (n_dec + 1, cfg.vocab_size) or not bool(
             torch.isfinite(got).all()):
         raise AssertionError(f"bad logits: shape {tuple(got.shape)}")
+    n_rec = cfg.layer_kinds().count("recurrent")
+    if n_rec and (launches.get("rglru_gated_scan") != n_rec * (1 + n_dec)
+                  or "rglru_scan" in launches):
+        raise AssertionError(f"{arch}: the gated RG-LRU kernel is not the "
+                             f"recurrence of every forward: {launches}")
     rel = float((got - want).abs().max() / want.abs().max())
     same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
     emit("reference", arch=arch, layers=layers, d_model=cfg.d_model,
          prefill_tokens=T, rel_max_err=rel, tol=5e-2,
-         argmax_agreement=same)
+         argmax_agreement=same, launches=launches)
     if rel > 5e-2:
         raise AssertionError(f"{arch}: kernel path vs fp32 plain path: "
                              f"rel err {rel}")
@@ -592,7 +661,7 @@ def run_serve(arch: str, paged: bool):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    n_req, path, attends, (fused, plain) = FAMILIES[arch]
+    n_req, path, attends, (fused, plain), per_forward = FAMILIES[arch]
     args = serve.build_parser().parse_args(
         SERVE_ARGS + ["--arch", arch] + (["--paged"] if paged else []))
     vocab = get_config(args.arch, args.variant).vocab_size
@@ -632,6 +701,11 @@ def run_serve(arch: str, paged: bool):
             f"{name}: norm launches {launches['add_rmsnorm']} fused + "
             f"{launches['rmsnorm']} plain are not {fused} + {plain} a "
             f"forward")
+    for k, n in per_forward.items():
+        if launches[k] != n * forwards:
+            raise AssertionError(f"{name}: {launches[k]} launches of {k} "
+                                 f"in {forwards} forwards, not {n} a "
+                                 f"forward")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -669,13 +743,14 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
          ssd_tf32_hmma=hmma)
     spills = [r for r in ptxas if (r["kernel"].startswith("mma_")
-                                   or r["lib"] == "ssd_scan")
+                                   or r["lib"] in ("ssd_scan", "rglru_scan"))
               and (r["spill_stores"] or r["spill_loads"] or r["stack"])]
     mma = [r["kernel"] for r in ptxas
            if r["kernel"].startswith("mma_attention_kernel")]
     if spills or not any(k.endswith(", true>") for k in mma) \
             or not any(k.endswith(", false>") for k in mma):
-        raise AssertionError(f"tensor-core attention or SSD kernels spill "
+        raise AssertionError(f"tensor-core attention, SSD or RG-LRU kernels "
+                             f"spill or have a stack frame "
                              f"(or the paged or contiguous ones were not "
                              f"built): {spills}")
     if hmma == 0:
@@ -698,8 +773,9 @@ def main() -> int:
             raise AssertionError(f"{arch}: structural counters differ "
                                  f"between cache layouts: {diff}")
         serves[arch] = layouts
-    if any(n <= 0 for n in launches.values()):
-        raise AssertionError(f"a kernel never launched: {launches}")
+    if any((n > 0) == (k in OFF_PATH) for k, n in launches.items()):
+        raise AssertionError(f"a path kernel never launched, or an "
+                             f"off-path one did: {launches}")
 
     summary = []
     for name, (route, source, replaces, case) in KERNELS.items():
@@ -712,8 +788,9 @@ def main() -> int:
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], case=main_row["case"],
-            **{k: main_row[k] for k in ("host_us", "library_host_us")
-               if k in main_row}))
+            **{k: main_row[k] for k in ("host_us", "library_host_us",
+                                        "plain_host_us", "chain_ms",
+                                        "chain_host_us") if k in main_row}))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "ptxas": ptxas, "kernels": kres, "summary": summary,

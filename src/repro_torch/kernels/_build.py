@@ -54,8 +54,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "ssd_intra": [_P] * 6 + [_I] * 5 + [_P],
     },
     "rglru_scan": {
-        # a, bx, h0, y, hT, B, T, W, stream
-        "rglru_scan": [_P] * 5 + [_I] * 3 + [_P],
+        # a, bx, h0, y, hT, B, T, W, vec, lane groups, segments, steps a
+        # segment, carry groups, stream
+        "rglru_scan": [_P] * 5 + [_I] * 8 + [_P],
+        # dtype, ga, gi, x, lam, b_a, b_i, h0, y, hT, B, T, W, vec, lane
+        # groups, segments, steps a segment, carry groups, stream
+        "rglru_gated_scan": [_I] + [_P] * 9 + [_I] * 8 + [_P],
+        # gated
+        "rglru_max_steps": [_I],
     },
 }
 

@@ -14,7 +14,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   paged_decode_attention_cuda)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  paged_flash_attention_cuda)
-from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+from repro_torch.kernels.rglru_scan import (rglru_gated_scan_cuda,
+                                            rglru_scan_cuda)
 from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
 from repro_torch.kernels.ssd_scan import ssd_intra_cuda
 
@@ -23,7 +24,7 @@ LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "flash_attention": 0,
                             "paged_flash_attention": 0, "rmsnorm": 0,
                             "add_rmsnorm": 0, "ssd_intra": 0,
-                            "rglru_scan": 0}
+                            "rglru_scan": 0, "rglru_gated_scan": 0}
 
 
 def reset_launches() -> None:
@@ -114,4 +115,15 @@ def rglru_scan(a, bx, h0):
         return ref.rglru_scan_ref(a, bx, h0)
     out = rglru_scan_cuda(a, bx, h0)
     LAUNCHES["rglru_scan"] += 1
+    return out
+
+
+def rglru_gated_scan(ga, gi, x, lam, b_a, b_i, h0):
+    """RecurrentGemma's gated recurrence, the gates and the scan in one
+    launch: ga/gi/x (B, T, W) in the working dtype, lam/b_a/b_i (W,) and
+    h0 (B, W) fp32 -> (y (B, T, W) in x's dtype, h_T (B, W) fp32)."""
+    if not x.is_cuda:
+        return ref.rglru_gated_scan_ref(ga, gi, x, lam, b_a, b_i, h0)
+    out = rglru_gated_scan_cuda(ga, gi, x, lam, b_a, b_i, h0)
+    LAUNCHES["rglru_gated_scan"] += 1
     return out

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels: the CPU path and the
 yardstick every Hopper kernel is held against on the card.
 
-The SSD intra-chunk term and the RG-LRU scan compute in fp32, as the JAX
+The SSD intra-chunk term and the RG-LRU recurrence compute in fp32, as the JAX
 package's `kernels/ref.py` does. Attention semantics shared with the
 kernels (and, on every row with a visible key, with the JAX package):
 
@@ -17,8 +17,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+#: RecurrentGemma's c in a_t = exp(-c softplus(Lambda) r_t)
+RGLRU_C = 8.0
 
 
 def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -155,3 +158,22 @@ def rglru_scan_ref(a, bx, h0):
         h = a[:, t].float() * h + bx[:, t].float()
         out.append(h)
     return torch.stack(out, dim=1), h
+
+
+def rglru_gated_scan_ref(ga, gi, x, lam, b_a, b_i, h0):
+    """RecurrentGemma's gated recurrence after its two gate products
+    (ga = x @ w_a, gi = x @ w_i), op by op in fp32:
+
+        r = sigmoid(ga + b_a), i = sigmoid(gi + b_i)
+        a = exp(-c softplus(lam) r)
+        h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 1e-9)) (i_t x_t)
+
+    ga/gi/x: (B, T, W); lam/b_a/b_i: (W,) fp32; h0: (B, W) fp32. Returns
+    (y (B, T, W) in x's dtype, h_T (B, W) fp32). T = 1 is a decode step."""
+    r = torch.sigmoid(ga.float() + b_a)
+    i = torch.sigmoid(gi.float() + b_i)
+    a = torch.exp(-RGLRU_C * F.softplus(lam.float()) * r)      # (B,T,W)
+    # sqrt(1 - a^2) keeps the state's variance
+    bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * x.float())
+    h_all, h_last = rglru_scan_ref(a, bx, h0)
+    return h_all.to(x.dtype), h_last

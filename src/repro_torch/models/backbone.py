@@ -290,11 +290,11 @@ def _ssm_layer(lp, x, pending, cfg, st: _State, i, decode):
     return x, y
 
 
-def _rec_layer(lp, x, pending, cfg, st: _State, i, decode):
+def _rec_layer(lp, x, pending, cfg, st: _State, i):
     conv0, rec0 = st.get("conv", i), st.get("rec", i)
     x, h = _norm_in(x, pending, lp["ln1"], cfg)
     y, (conv1, rec1) = R.rglru_block(lp["rec"], h, cfg, conv_state=conv0,
-                                     rec_state=rec0, decode=decode)
+                                     rec_state=rec0)
     st.put("conv", i, conv0, conv1)
     st.put("rec", i, rec0, rec1)
     x, h = L.add_rms_norm(x, y, lp["ln2"], cfg.rms_eps)
@@ -345,7 +345,7 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
                 i_att += 1
             else:
                 x, y = _rec_layer(layer_params(p["rec_layers"], i_rec), x, y,
-                                  cfg, st, i_rec, decode)
+                                  cfg, st, i_rec)
                 i_rec += 1
     if last_only:
         x, y = x[:, -1:], y[:, -1:]

@@ -4,9 +4,10 @@ port of the JAX package's `models/rglru.py`.
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
     a_t = exp(-c * softplus(Lambda) * sigmoid(r_t)),  c = 8
 
-Prefill runs the recurrence through `ops.rglru_scan` (the scan kernel on the
-card, its plain version on the CPU); decode is one step. The recurrent state
-is fp32 whatever the working dtype.
+The gates and the recurrence run in one call of `ops.rglru_gated_scan` (one
+kernel launch on the card, its plain version on the CPU), in prefill and in
+decode alike: a decode step is T = 1. Only the two gate products stay
+outside it. The recurrent state is fp32 whatever the working dtype.
 """
 from __future__ import annotations
 
@@ -15,10 +16,9 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import RGLRU_C as _C
 from repro_torch.models.layers import ParamInit, out_scale
 from repro_torch.models.ssm import causal_conv
-
-_C = 8.0
 
 
 def init_rglru_block(init: ParamInit, cfg: ModelConfig, n: int):
@@ -42,26 +42,18 @@ def init_rglru_block(init: ParamInit, cfg: ModelConfig, n: int):
     return p
 
 
-def rglru_core(p, x, *, h0=None, decode: bool = False):
-    """x: (B, T, W) post-conv activations. Returns (y in x's dtype,
-    h_T in fp32)."""
-    r = torch.sigmoid((x @ p["w_a"]).float() + p["b_a"])
-    i = torch.sigmoid((x @ p["w_i"]).float() + p["b_i"])
-    a = torch.exp(-_C * F.softplus(p["lam"].float()) * r)      # (B,T,W)
-    # sqrt(1 - a^2) keeps the state's variance
-    bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * x.float())
+def rglru_core(p, x, *, h0=None):
+    """x: (B, T, W) post-conv activations, T = 1 for a decode step; h0:
+    (B, W) fp32 state or None (zeros). Returns (y in x's dtype, h_T in
+    fp32)."""
     if h0 is None:
-        h0 = bx.new_zeros(bx[:, 0].shape)
-    if decode:
-        h = a[:, 0] * h0 + bx[:, 0]
-        return h[:, None].to(x.dtype), h
-    h_all, h_last = ops.rglru_scan(a.contiguous(), bx.contiguous(),
-                                   h0.float().contiguous())
-    return h_all.to(x.dtype), h_last
+        h0 = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
+                         device=x.device)
+    return ops.rglru_gated_scan(x @ p["w_a"], x @ p["w_i"], x, p["lam"],
+                                p["b_a"], p["b_i"], h0.contiguous())
 
 
-def rglru_block(p, u, cfg: ModelConfig, *, conv_state=None, rec_state=None,
-                decode: bool = False):
+def rglru_block(p, u, cfg: ModelConfig, *, conv_state=None, rec_state=None):
     """The RecurrentGemma recurrent block. u: (B, T, d).
 
     Returns (out (B, T, d), (conv_state, rec_state)). The GeLU of the gate
@@ -70,5 +62,5 @@ def rglru_block(p, u, cfg: ModelConfig, *, conv_state=None, rec_state=None,
                   approximate="tanh").to(u.dtype)
     x = u @ p["w_x"]
     x, conv_state = causal_conv(x, p["conv_w"], p["conv_b"], conv_state)
-    y, rec_state = rglru_core(p, x, h0=rec_state, decode=decode)
+    y, rec_state = rglru_core(p, x, h0=rec_state)
     return (y * gate) @ p["w_out"], (conv_state, rec_state)

@@ -236,8 +236,12 @@ def test_ssd_intra_is_one_device_kernel(cuda, Q):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,W", [(2, 16, 4096), (1, 512, 4096),
-                                   (3, 37, 1000)])
+@pytest.mark.parametrize("B,T,W", [
+    (2, 16, 4096), (1, 512, 4096), (3, 37, 1000),   # the serving widths
+    (3, 1, 4096), (2, 7, 1000), (1, 64, 100),       # short T, ragged tiles
+    (1, 1000, 4096), (2, 1000, 100),                # T walked in tiles
+    (3, 16, 101), (1, 37, 6),                       # W % 4 != 0: 1-lane path
+])
 def test_rglru_scan_kernel_matches_plain_on_card(cuda, B, T, W):
     rng = np.random.RandomState(0)
     a, bx, h0 = _on(cuda, rng.uniform(0.5, 1.0, (B, T, W)),
@@ -247,6 +251,91 @@ def test_rglru_scan_kernel_matches_plain_on_card(cuda, B, T, W):
     assert ops.LAUNCHES["rglru_scan"] == 1
     _close_normwise(y, yr)
     _close_normwise(hT, hTr)
+    assert torch.equal(hT, y[:, -1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [16, 512])
+@pytest.mark.parametrize("kind", ["strong", "near_one"])
+def test_rglru_scan_kernel_decay_extremes_on_card(cuda, kind, T):
+    """a in [0, 0.05] with a quarter of the lanes at exactly 0 (h_t = bx_t
+    there, no 0 x inf), and a in [0.99, 1) from an h0 a hundred times bx."""
+    rng = np.random.RandomState(1)
+    B, W = 2, 4096
+    if kind == "strong":
+        an = rng.uniform(0, 0.05, (B, T, W))
+        an[..., ::4] = 0.0
+    else:
+        an = rng.uniform(0.99, 1.0, (B, T, W))
+    a, bx, h0 = _on(cuda, an, rng.randn(B, T, W),
+                    rng.randn(B, W) * (100 if kind == "near_one" else 1),
+                    dtype=torch.float32)
+    y, hT = ops.rglru_scan(a, bx, h0)
+    yr, hTr = ref.rglru_scan_ref(a, bx, h0)
+    assert bool(torch.isfinite(y).all())
+    _close_normwise(y, yr)
+    _close_normwise(hT, hTr)
+    if kind == "strong":
+        assert torch.equal(y[..., ::4], bx[..., ::4])
+
+
+def _gated_inputs(rng, B, T, W):
+    """Gate pre-activations and x of unit scale, Lambda as the model
+    initialises it, small biases, a unit-scale h0."""
+    u = rng.uniform(0.9 ** 2, 0.999 ** 2, W)
+    return (rng.randn(B, T, W), rng.randn(B, T, W), rng.randn(B, T, W),
+            np.log(np.expm1(-np.log(u) / 8.0)), rng.randn(W) * 0.1,
+            rng.randn(W) * 0.1, rng.randn(B, W))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,W", [
+    (2, 16, 4096), (8, 1, 4096), (1, 512, 4096),    # chunk, decode, prefill
+    (3, 37, 1000), (2, 7, 100), (2, 5, 101),        # ragged; 1-lane path
+])
+def test_rglru_gated_scan_matches_plain_on_card(cuda, B, T, W, dtype):
+    """fp32 against the plain version within 1e-4 x max|plain|; bf16
+    against the fp32 plain version at atol = rtol = 2e-2 (h_T, fp32
+    either way, within 1e-4 x max|plain|)."""
+    args = _on(cuda, *_gated_inputs(np.random.RandomState(0), B, T, W),
+               dtype=torch.float32)
+    if dtype == "bfloat16":
+        args[:3] = [t.bfloat16() for t in args[:3]]
+    y, hT = ops.rglru_gated_scan(*args)
+    yr, hTr = ref.rglru_gated_scan_ref(*[t.float() for t in args])
+    assert ops.LAUNCHES["rglru_gated_scan"] == 1
+    assert y.dtype == args[2].dtype and hT.dtype == torch.float32
+    if dtype == "float32":
+        _close_normwise(y, yr)
+    else:
+        torch.testing.assert_close(y.float(), yr, rtol=2e-2, atol=2e-2)
+    _close_normwise(hT, hTr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,T", [("scan", 16), ("scan", 512),
+                                     ("gated", 1), ("gated", 16),
+                                     ("gated", 512)])
+def test_rglru_entries_are_one_device_kernel(cuda, entry, T):
+    """One call runs exactly one device kernel, counted by torch.profiler
+    (the gated entry: no gate op, no temporary, no cast launched)."""
+    from repro_torch.bench.ssd_sweep import device_kernels
+
+    rng = np.random.RandomState(0)
+    B, W = 2, 4096
+    if entry == "scan":
+        args = _on(cuda, rng.uniform(0.5, 1.0, (B, T, W)),
+                   rng.randn(B, T, W), rng.randn(B, W), dtype=torch.float32)
+        fn = lambda: ops.rglru_scan(*args)  # noqa: E731
+    else:
+        args = _on(cuda, *_gated_inputs(rng, B, T, W), dtype=torch.float32)
+        args[:3] = [t.bfloat16() for t in args[:3]]
+        fn = lambda: ops.rglru_gated_scan(*args)  # noqa: E731
+    names = device_kernels(fn, calls=10)
+    # ten calls, one kernel each (the profiler may miss a record or two)
+    assert 8 <= len(names) <= 10 and all("rglru_kernel" in n
+                                         for n in names), names
 
 
 @pytest.mark.cuda
@@ -447,10 +536,11 @@ def test_stateful_model_on_card_matches_cpu(cuda, arch, paged):
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
     used = ["rmsnorm", "add_rmsnorm", "ssd_intra"] \
         if arch == "mamba2-2.7b" else \
-        ["rmsnorm", "add_rmsnorm", "rglru_scan",
+        ["rmsnorm", "add_rmsnorm", "rglru_gated_scan",
          "paged_flash_attention" if paged else "flash_attention",
          "paged_decode_attention" if paged else "decode_attention"]
     assert all(ops.LAUNCHES[k] > 0 for k in used), ops.LAUNCHES
+    assert ops.LAUNCHES["rglru_scan"] == 0, ops.LAUNCHES
 
 
 # ---------------------------------------------------------------------------
