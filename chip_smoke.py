@@ -35,7 +35,12 @@ Phases, one JSON line each:
              the kernel and for its library call; the RG-LRU rows for the
              kernel and its plain version, and the gated rows the device
              and host time of the eager chain the model ran before (the
-             gates op by op, then the scan kernel).
+             gates op by op, then the scan kernel). The launch-floor cases
+             (RMSNorm and the fused add 8 x 4096, decode B 8 S 1024, gated
+             RG-LRU B 8 T 1) also carry graph_ms: 100 launches captured in
+             one CUDA graph, replay time / 100, beside stream_ms, the same
+             100 launches queued eagerly behind a spin kernel (warm L2 in
+             both).
 4. reference per family, full width with depth cut to one layer pattern
              (granite-3-8b 2 layers, mamba2-2.7b 2, recurrentgemma-9b 3):
              the kernels' path on the card in bf16 against the plain path
@@ -46,7 +51,10 @@ Phases, one JSON line each:
              recurrent layer and the plain scan kernel never.
 5. serve_<arch>_contiguous / serve_<arch>_paged
              the engine at full width and depth (random weights from seed
-             0) through `repro_torch.launch.serve.run`, for granite-3-8b
+             0) through `repro_torch.launch.serve.build_engine`, its CUDA
+             graphs captured by `Engine.warmup` (every decode bucket and
+             full-chunk lane shape; tail chunks at first use), for
+             granite-3-8b
              (12 requests), mamba2-2.7b and recurrentgemma-9b (8 each):
              prompts of 32-480 tokens, 32 new tokens, chunked prefill on 2
              lanes, policy `memory`, each path's kernel launches counted.
@@ -60,7 +68,27 @@ Phases, one JSON line each:
              recurrentgemma 76 + 1), and recurrentgemma launches the gated
              RG-LRU kernel 26 times a forward and the plain scan kernel
              never (it is the TPU kernel's direct counterpart, checked in
-             the kernels phase only).
+             the kernels phase only). Every step is a graph replay, which
+             adds the launches its capture recorded. Each line carries
+             step_host_s_mean, step_device_s_mean (the readback wait, the
+             TBT sample), their sum (the interval's wall time), build_s
+             (model, engine, warmup) and the graph counts.
+6. graphs_<arch>_<layout>
+             on each serve run's engine: decode at bucket 8 and a lane's
+             full chunk, from random cache contents and inputs, replayed
+             and run eagerly: logits and cache bit for bit equal; the
+             graph count, capture seconds and the shared pool's bytes.
+7. serve_granite-3-8b_contiguous_eager
+             granite's contiguous run again with every step eager
+             (`cuda_graphs=False`): the graph run's tokens and structural
+             counters, and the host time the graphs took away.
+8. profile   last (a process that has run the tracer launches slower
+             after it), on a fresh granite contiguous engine: 8 requests
+             are promoted, then one decode interval at bucket 8 runs
+             under `torch.profiler` (trace in chiprun_out/): its CUDA
+             runtime calls, the blocking ones before the readback (none
+             may be) and H2D copies from pageable memory (none may be),
+             and the device's busy share of the interval.
 
 Then the card's name and power limit, the `{"kernels": [...]}` summary,
 and as the last line `{"ok": true, "device": {...}}`. Any failure raises:
@@ -121,6 +149,8 @@ ATTENTION = {False: ("decode_attention", "flash_attention"),
              True: ("paged_decode_attention", "paged_flash_attention")}
 STRUCTURAL = ("decode_steps", "mean_batch", "admitted", "preemptions",
               "prefill_tokens", "finished")
+#: the serve run whose decode interval is traced, and served again eager
+PROFILED = ("granite-3-8b", "contiguous")
 
 
 def emit(phase: str, **fields) -> None:
@@ -162,6 +192,48 @@ def host_us(fn, n: int = 1000, warmup: int = 50) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / n * 1e6
+
+
+def graph_ms(fn, n: int = 100, reps: int = 20):
+    """(graph_ms, stream_ms): device ms a launch of `fn` when n launches
+    are captured in one CUDA graph and replayed (median of `reps` replays
+    by CUDA events, over n), and when the same n launches are queued
+    eagerly behind a spin kernel (host gaps hidden). The L2 is warm in
+    both: the launches reread the same operands."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for s, e in pairs:
+        s.record()
+        graph.replay()
+        e.record()
+    torch.cuda.synchronize()
+    replay = statistics.median(s.elapsed_time(e) for s, e in pairs) / n
+    del graph
+    eager = []
+    for _ in range(3):
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        torch.cuda._sleep(200_000_000)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        eager.append(s.elapsed_time(e) / n)
+    return replay, statistics.median(eager)
 
 
 def nbytes(*tensors) -> int:
@@ -516,6 +588,11 @@ def eager_gated_scan(ga, gi, x, lam, b_a, b_i, h0, scan=None):
     return y.to(x.dtype), hT
 
 
+#: launch-floor cases also timed as 100 launches in one CUDA graph
+GRAPH_CASES = {("rmsnorm", "rows=8 d=4096"), ("add_rmsnorm", "rows=8 d=4096"),
+               ("decode_attention", "B=8 S=1024"),
+               ("rglru_gated_scan", "B=8 T=1 W=4096 bf16")}
+
 #: kernel -> (route, source, the TPU kernel it replaces, main-path case)
 KERNELS = {
     "decode_attention": (
@@ -580,6 +657,8 @@ def run_kernels(dev):
         for key, fn in (extra[0] if extra else {}).items():
             r.update({f"{key}_ms": time_ms(fn, flush),
                       f"{key}_host_us": host_us(fn)})
+        if (name, label) in GRAPH_CASES:
+            r["graph_ms"], r["stream_ms"] = graph_ms(kern)
         emit("kernels", **r)
         results.append(r)
     return results
@@ -655,32 +734,56 @@ def run_reference(dev, arch: str):
 # phase 5: serving
 
 
-def run_serve(arch: str, paged: bool):
+def serve_prompts(arch: str):
     import numpy as np
     from repro_torch.config.registry import get_config
+
+    vocab = get_config(arch, "full").vocab_size
+    rng = np.random.RandomState(0)
+    return [list(map(int, rng.randint(0, vocab, size=rng.randint(
+        PROMPT_LO, PROMPT_HI + 1)))) for _ in range(FAMILIES[arch][0])]
+
+
+def run_serve(arch: str, paged: bool, cuda_graphs: bool = True):
+    """Serve the family's prompts through `launch.serve.build_engine` (its
+    graphs captured by `warmup` first) and check the run. Returns (the
+    emitted fields, the engine, the requests' output tokens)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     n_req, path, attends, (fused, plain), per_forward = FAMILIES[arch]
     args = serve.build_parser().parse_args(
         SERVE_ARGS + ["--arch", arch] + (["--paged"] if paged else []))
-    vocab = get_config(args.arch, args.variant).vocab_size
-    rng = np.random.RandomState(0)
-    prompts = [list(map(int, rng.randint(0, vocab, size=rng.randint(
-        PROMPT_LO, PROMPT_HI + 1)))) for _ in range(n_req)]
+    t0 = time.perf_counter()
+    eng = serve.build_engine(args, cuda_graphs=cuda_graphs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    warm = eng.graphs.stats()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    eng = serve.run(args, prompts)
+    handles = [eng.submit(p) for p in serve_prompts(arch)]
+    eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     s = eng.summary()
     allocator_full = eng.blocks.free_blocks == eng.blocks.num_blocks
-    name = f"serve_{arch}_{'paged' if paged else 'contiguous'}"
-    emit(name, summary=s, launches=launches, wall_s=wall,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         tokens_out=eng.total_decoded, allocator_full=allocator_full)
+    name = f"serve_{arch}_{'paged' if paged else 'contiguous'}" \
+        + ("" if cuda_graphs else "_eager")
+    n_int = len(eng.step_host_trace)
+    caught = eng.graphs.capture_s - warm["capture_s"]
+    fields = dict(summary=s, launches=launches, build_s=build_s,
+                  serve_s=wall, intervals=n_int,
+                  step_host_s_mean_without_captures=(
+                      sum(eng.step_host_trace) - caught) / max(n_int, 1),
+                  interval_s_mean=s["step_host_s_mean"]
+                  + s["step_device_s_mean"],
+                  graphs_at_warmup=warm, graphs=eng.graphs.stats(),
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  tokens_out=eng.total_decoded,
+                  allocator_full=allocator_full)
+    emit(name, **fields)
     if s["finished"] != n_req:
         raise AssertionError(f"{name}: {s['finished']} of {n_req} "
                              f"requests finished")
@@ -706,10 +809,187 @@ def run_serve(arch: str, paged: bool):
             raise AssertionError(f"{name}: {launches[k]} launches of {k} "
                                  f"in {forwards} forwards, not {n} a "
                                  f"forward")
+    if cuda_graphs and (not eng.graphs.enabled or any(
+            st.graph is None for st in eng.graphs.steps.values())):
+        raise AssertionError(f"{name}: a step ran without its graph")
+    return fields, eng, [h.output_tokens for h in handles]
+
+
+def fill_cache(eng, seed: int) -> None:
+    """Random K/V, positions and state wherever a request could look (the
+    paged spare block's positions stay empty, the sentinel state zero)."""
+    from repro_torch.models.backbone import STATE_KEYS
+
+    g = torch.Generator(device=eng.device).manual_seed(seed)
+    for k, v in eng.cache.items():
+        if k == "pos":
+            v.copy_(torch.randint(-1, eng.max_context, v.shape, generator=g,
+                                  device=eng.device, dtype=v.dtype))
+            if eng.paged:
+                v[-1] = -1
+        else:
+            v.normal_(generator=g)
+            if eng.paged and k in STATE_KEYS:
+                v[:, eng.n_slots] = 0
+
+
+def run_graph_check(eng, name: str):
+    """Replay against eager run of the same step, bit for bit, from the
+    same cache and inputs: decode at bucket 8 and a lane's full chunk, on
+    random cache contents and inputs (distinct blocks and state slots)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    lane = ("chunk", 1, eng.prefill_chunk, -1 if eng.paged else eng.max_slots)
+    checks = []
+    for key in (("decode", 8), lane):
+        st = eng.graphs.steps[key]
+        fill_cache(eng, seed=len(checks))
+        rows, T = st.inputs["tokens"].shape
+        starts = rng.randint(T, eng.max_context - 2 * T, size=rows)
+        host = {"tokens": rng.randint(0, eng.cfg.vocab_size, (rows, T)),
+                "positions": starts[:, None] + np.arange(T)}
+        if eng.paged:
+            per = eng.max_blocks
+            host["block_table"] = rng.permutation(
+                eng.mem.num_blocks)[:rows * per].reshape(rows, per)
+            host["slots"] = rng.permutation(eng.n_slots)[:rows]
+        for k, v in host.items():
+            eng._stage(st, k, v.astype(np.int64))
+        start = {k: v.clone() for k, v in eng.cache.items()}
+        want = st.run(eager=True).clone()
+        want_cache = {k: v.clone() for k, v in eng.cache.items()}
+        for k, v in start.items():
+            eng.cache[k].copy_(v)
+        del start
+        got = st.run().clone()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        cache_same = all(bool(torch.equal(v, want_cache[k]))
+                         for k, v in eng.cache.items())
+        del want_cache
+        launch_us, device_ms = replay_times(st)
+        checks.append(dict(key=list(key), logits_bit_equal=same,
+                           cache_bit_equal=cache_same,
+                           finite=bool(torch.isfinite(got).all()),
+                           max_abs_diff=float((got - want).abs().max()),
+                           replay_launch_us=launch_us,
+                           replay_device_ms=device_ms))
+    emit(f"graphs_{name}", checks=checks, **eng.graphs.stats())
+    bad = [c for c in checks if not (c["logits_bit_equal"]
+                                     and c["cache_bit_equal"]
+                                     and c["finite"])]
+    if bad:
+        raise AssertionError(f"{name}: replay differs from eager: {bad}")
+    return dict(checks=checks, **eng.graphs.stats())
+
+
+def replay_times(st, reps: int = 10):
+    """(host µs of `graph.replay()` with the device idle, device ms of one
+    replay by CUDA events): medians over `reps` replays."""
+    host, dev = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        t0 = time.perf_counter()
+        st.graph.replay()
+        host.append((time.perf_counter() - t0) * 1e6)
+        e.record()
+        torch.cuda.synchronize()
+        dev.append(s.elapsed_time(e))
+    return statistics.median(host), statistics.median(dev)
+
+
+#: CUDA runtime calls that block the host on the device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D",
+              "cudaMemset")
+
+
+def trace_interval(path: Path):
+    """From a chrome trace holding one `interval` annotation: the CUDA
+    runtime calls in it, the blocking ones before the last (the readback's
+    wait), pageable copies, and the share of the interval's wall time the
+    device was busy (union of kernel, memcpy and memset spans)."""
+    ev = json.loads(path.read_text())["traceEvents"]
+    iv = next(e for e in ev if e.get("name") == "interval"
+              and e.get("cat") == "user_annotation")
+    t0, t1 = iv["ts"], iv["ts"] + iv["dur"]
+    rt = sorted((e for e in ev if e.get("cat") in ("cuda_runtime",
+                                                   "cuda_driver")
+                 and t0 <= e.get("ts", -1) <= t1), key=lambda e: e["ts"])
+    names = [e["name"] for e in rt]
+    syncs = [i for i, n in enumerate(names) if n in SYNC_CALLS]
+    gpu = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in ev
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and t0 <= e.get("ts", -1) <= t1)
+    busy, end = 0.0, t0
+    for a, b in gpu:
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            busy += b - a
+            end = b
+    counts = {}
+    for n in names:
+        counts[n] = counts.get(n, 0) + 1
+    return dict(
+        wall_us=iv["dur"], runtime_calls=counts, traced=bool(rt),
+        device_events=len(gpu),
+        syncs_before_readback=[names[i] for i in syncs[:-1]],
+        readback=names[syncs[-1]] if syncs else None,
+        pageable_copies=sum(1 for e in ev if e.get("cat") == "gpu_memcpy"
+                            and "HtoD (Pageable" in e.get("name", "")
+                            and t0 <= e.get("ts", -1) <= t1),
+        device_busy_share=busy / iv["dur"] if gpu else None)
+
+
+def run_profile(arch: str, paged: bool):
+    """One decode interval at bucket 8 under `torch.profiler`, on a fresh
+    engine of the serve runs' configuration: 8 requests of one 16-token
+    chunk each are prefilled and promoted, then pure decode intervals run,
+    the second of them traced. (Last of the script's phases: a process
+    that has run the tracer launches slower after it.)"""
+    import numpy as np
+    from repro_torch.launch import serve
+
+    eng = serve.build_engine(serve.build_parser().parse_args(
+        SERVE_ARGS + ["--arch", arch] + (["--paged"] if paged else [])))
+    rng = np.random.RandomState(1)
+    for _ in range(8):
+        eng.submit(list(map(int, rng.randint(0, eng.cfg.vocab_size,
+                                             size=16))), max_new_tokens=200)
+    for _ in range(2000):
+        if not (eng.waiting or eng.prefilling):
+            break
+        eng.step()
+    if len(eng.active) != 8:
+        raise AssertionError(f"profile: {len(eng.active)} active, not 8")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / f"trace_{arch}_decode_interval.json"
+    # a traced interval after one traced and dropped (the tracer's start-up)
+    with torch.profiler.profile(
+            activities=acts,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(str(path))) \
+            as prof:
+        for _ in range(2):
+            with torch.profiler.record_function("interval"):
+                eng.step()
+            prof.step()
+    t = trace_interval(path)
+    emit("profile", arch=arch, bucket=8, trace=str(path.relative_to(ROOT)),
+         **t)
+    if t["syncs_before_readback"] or t["pageable_copies"]:
+        raise AssertionError(f"profile: the decode interval synchronises "
+                             f"before its readback: {t}")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return s, launches
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -759,14 +1039,21 @@ def main() -> int:
 
     kres = run_kernels(dev)
     refs = [run_reference(dev, arch) for arch in REFERENCE]
-    serves, launches = {}, {}
+    serves, runs, launches, graphs, outputs = {}, {}, {}, {}, {}
     for arch in FAMILIES:
         layouts = {}
         for paged in (False, True):
-            s, ln = run_serve(arch, paged)
-            layouts["paged" if paged else "contiguous"] = s
-            for k, n in ln.items():
+            layout = "paged" if paged else "contiguous"
+            fields, eng, outputs[arch, layout] = run_serve(arch, paged)
+            layouts[layout] = fields["summary"]
+            runs[f"{arch}_{layout}"] = fields
+            for k, n in fields["launches"].items():
                 launches[k] = launches.get(k, 0) + n
+            graphs[f"{arch}_{layout}"] = run_graph_check(
+                eng, f"{arch}_{layout}")
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
         s_c, s_p = layouts["contiguous"], layouts["paged"]
         diff = {k: (s_c[k], s_p[k]) for k in STRUCTURAL if s_c[k] != s_p[k]}
         if diff:
@@ -776,6 +1063,20 @@ def main() -> int:
     if any((n > 0) == (k in OFF_PATH) for k, n in launches.items()):
         raise AssertionError(f"a path kernel never launched, or an "
                              f"off-path one did: {launches}")
+    # the same run with every step eager: the same tokens and counters,
+    # and the host time the graphs took away
+    arch, layout = PROFILED
+    eager, eng, toks = run_serve(arch, layout == "paged", cuda_graphs=False)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff = {k: (serves[arch][layout][k], eager["summary"][k])
+            for k in STRUCTURAL
+            if serves[arch][layout][k] != eager["summary"][k]}
+    if toks != outputs[arch, layout] or diff:
+        raise AssertionError(f"{arch} {layout}: the eager run's tokens or "
+                             f"counters differ from the graph run's: {diff}")
+    profile = run_profile(arch, layout == "paged")
 
     summary = []
     for name, (route, source, replaces, case) in KERNELS.items():
@@ -790,11 +1091,16 @@ def main() -> int:
             library_ms=main_row["library_ms"], case=main_row["case"],
             **{k: main_row[k] for k in ("host_us", "library_host_us",
                                         "plain_host_us", "chain_ms",
-                                        "chain_host_us") if k in main_row}))
+                                        "chain_host_us") if k in main_row},
+            **next(({"graph_ms": r["graph_ms"], "stream_ms": r["stream_ms"],
+                     "graph_case": r["case"]} for r in rows
+                    if "graph_ms" in r), {})))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "ptxas": ptxas, "kernels": kres, "summary": summary,
-         "reference": refs, "serve": serves, "launches": launches},
+         "reference": refs, "serve": runs, "launches": launches,
+         "graphs": graphs, "profile": profile,
+         "serve_eager": {f"{arch}_{layout}": eager}},
         indent=1))
     print(card)
     print(json.dumps({"kernels": summary}))

@@ -148,10 +148,10 @@ def serve_config(args) -> ServeConfig:
                        mesh_shape=args.mesh or ())
 
 
-def run(args, prompts: Optional[Sequence[List[int]]] = None):
-    """Build the model and engine the flags describe, submit `prompts`
-    (default: --requests random prompts of 4-23 tokens from --seed, as the
-    JAX CLI draws them) and serve them to completion. Returns the engine."""
+def build_engine(args, cuda_graphs: Optional[bool] = None):
+    """The model (random weights from --seed) and the engine the flags
+    describe, its step graphs captured on the card (`Engine.warmup`).
+    `cuda_graphs=False` runs the steps eagerly on the card."""
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine, check_ported
 
@@ -162,13 +162,25 @@ def run(args, prompts: Optional[Sequence[List[int]]] = None):
     cfg = get_config(args.arch, args.variant)
     model = build_model(cfg, dtype=torch.float32 if args.variant == "reduced"
                         else torch.bfloat16, device=args.device)
-    params = model.init(args.seed)
-    eng = Engine(model, params, serve, max_context=args.max_context,
-                 buckets=serve.batch_buckets, prefill_chunk=16,
-                 seed=args.seed, device=args.device)
+    eng = Engine(model, model.init(args.seed), serve,
+                 max_context=args.max_context, buckets=serve.batch_buckets,
+                 prefill_chunk=16, seed=args.seed, device=args.device,
+                 cuda_graphs=cuda_graphs)
+    if eng.graphs.enabled:
+        # every decode bucket and full-chunk lane shape before any request
+        eng.warmup()
+    return eng
+
+
+def run(args, prompts: Optional[Sequence[List[int]]] = None,
+        cuda_graphs: Optional[bool] = None):
+    """`build_engine`, then submit `prompts` (default: --requests random
+    prompts of 4-23 tokens from --seed, as the JAX CLI draws them) and
+    serve them to completion. Returns the engine."""
+    eng = build_engine(args, cuda_graphs)
     if prompts is None:
         rng = np.random.RandomState(args.seed)
-        prompts = [list(map(int, rng.randint(0, cfg.vocab_size,
+        prompts = [list(map(int, rng.randint(0, eng.cfg.vocab_size,
                                              size=rng.randint(4, 24))))
                    for _ in range(args.requests)]
     for p in prompts:

@@ -10,7 +10,9 @@ length 1).
 Layer params are stacked on a leading L axis, in the JAX package's nested
 layout, so both packages can run the same weights. Attention caches store
 absolute positions per slot (-1 = empty); padding tokens carry position -1
-and never write K/V. Per-request state (SSM `conv`/`ssm`, RG-LRU
+and change no visible slot (the write index has one shape per chunk shape:
+a padding token writes a slot's own value back, or the paged pools' spare
+block). Per-request state (SSM `conv`/`ssm`, RG-LRU
 `conv`/`rec`) has one row per cache slot on axis 1. Caches are updated in
 place.
 """
@@ -175,9 +177,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_context: int, dtype=None,
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      dtype=None, device="cpu", n_slots: int = 0) -> Cache:
     """Physically paged serving cache (DESIGN §9): K/V in
-    (layers, num_blocks, block_size, KV, hd) pools shared by every request
-    and indexed through per-request block tables; `pos` is the pool-wide
-    (num_blocks, block_size) absolute-position map (-1 = empty slot).
+    (layers, num_blocks + 1, block_size, KV, hd) pools shared by every
+    request and indexed through per-request block tables; `pos` is the
+    pool-wide (num_blocks + 1, block_size) absolute-position map (-1 =
+    empty slot). Block `num_blocks` is the spare: no table names it, and
+    padding tokens and tokens of unallocated blocks write there, so the
+    write index keeps one shape (`layers.paged_write_index`).
 
     Per-request state stays per slot, pinned to a request for its life:
     `n_slots` rows plus row `n_slots`, the padding sentinel, which reads
@@ -187,11 +192,11 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     c: Cache = {}
     n_att, _ = layer_counts(cfg)
     if n_att:
-        shape = (n_att, num_blocks, block_size, cfg.num_kv_heads,
+        shape = (n_att, num_blocks + 1, block_size, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         c["k"] = torch.zeros(shape, dtype=dt, device=device)
         c["v"] = torch.zeros(shape, dtype=dt, device=device)
-        c["pos"] = torch.full((num_blocks, block_size), -1,
+        c["pos"] = torch.full((num_blocks + 1, block_size), -1,
                               dtype=torch.int32, device=device)
     c.update(_state_cache(cfg, n_slots + 1, dt, device))
     return c
@@ -214,12 +219,14 @@ def _write_index(positions, cache: Cache, tables) -> L.WriteIndex:
     holds this chunk (as the JAX package does)."""
     if tables is None:
         widx = L.cache_write_index(positions, cache["k"].shape[2])
-        rows, toks, slots = widx
-        cache["pos"][rows, slots] = positions[rows, toks]
+        L.cache_put(cache["pos"], widx, positions)
     else:
-        widx = L.paged_write_index(positions, tables, cache["k"].shape[2])
-        rows, toks, flat = widx
-        cache["pos"].view(-1)[flat] = positions[rows, toks]
+        # the pools' last block is the spare that takes invisible writes
+        widx = L.paged_write_index(positions, tables, cache["k"].shape[2],
+                                   spare=cache["k"].shape[1] - 1)
+        flat, real = widx
+        cache["pos"].view(-1)[flat] = torch.where(real, positions, -1).to(
+            cache["pos"].dtype)
     return widx
 
 

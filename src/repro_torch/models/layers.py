@@ -146,27 +146,60 @@ def mlp(p, x):
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
-WriteIndex = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+#: a write index: (B, T) tensors of one fixed shape per chunk shape, built
+#: on the device with no host sync, so a step that uses it can be captured
+#: in a CUDA graph. Contiguous: (rows, slots, real); paged: (flat, real).
+WriteIndex = Tuple[torch.Tensor, ...]
+
+_NO_REAL = -(1 << 30)
 
 
 def cache_write_index(positions, S: int) -> WriteIndex:
-    """(row, token, slot) of every real token of a chunk in a contiguous
-    cache of S physical slots: slot = pos % S (the ring slot). Padding
-    tokens (pos < 0) are left out, so they never write the cache."""
-    rows, toks = (positions >= 0).nonzero(as_tuple=True)
-    return rows, toks, positions[rows, toks] % S
+    """(row, slot, real) of every token of a chunk in a contiguous cache of
+    S physical slots, each (B, T). A real token (pos >= 0) targets slot
+    pos % S (the ring slot). A padding token targets the slot its row's
+    positions would give it if they ran on through the chunk (row start +
+    t, mod S; an all-padding row starts at 0), and `cache_put` writes that
+    slot's own value back to it. A row's real tokens sit at consecutive
+    positions (a prefill chunk, a decode token), so with T <= S the row's
+    T targets are distinct: no call writes one slot twice."""
+    B, T = positions.shape
+    if T > S:
+        raise ValueError(f"a chunk of {T} tokens does not fit a cache row "
+                         f"of {S} slots")
+    t = torch.arange(T, dtype=positions.dtype, device=positions.device)
+    real = positions >= 0
+    start = torch.where(real, positions - t, _NO_REAL).amax(1, keepdim=True)
+    start = torch.where(start == _NO_REAL, 0, start)
+    slots = torch.where(real, positions, start + t) % S
+    rows = torch.arange(B, device=positions.device)[:, None].expand(B, T)
+    return rows, slots.to(torch.int64), real
 
 
-def paged_write_index(positions, tables, block_size: int) -> WriteIndex:
-    """(row, token, flat pool slot) of every real token of a chunk in the
-    paged pools: block tables[b, pos // bs], offset pos % bs (DESIGN §9).
-    Padding tokens and tokens whose block is unallocated are left out."""
+def cache_put(cache_x, widx: WriteIndex, val) -> None:
+    """cache_x[b, slot] = val[b, t] at every real token of `widx`
+    (`cache_write_index`), in place; a padding token writes its target
+    slot's own value back, so no visible slot changes. val: (B, T, ...)."""
+    rows, slots, real = widx
+    keep = real.view(real.shape + (1,) * (val.dim() - 2))
+    cache_x[rows, slots] = torch.where(keep, val.to(cache_x.dtype),
+                                       cache_x[rows, slots])
+
+
+def paged_write_index(positions, tables, block_size: int,
+                      spare: int) -> WriteIndex:
+    """(flat pool slot, real) of every token of a chunk in the paged pools,
+    each (B, T): block tables[b, pos // bs], offset pos % bs (DESIGN §9).
+    Padding tokens and tokens whose block is unallocated target the first
+    slot of block `spare`, which no table names (`init_paged_cache` keeps
+    it past the allocator's blocks); they store position -1 there."""
     MB = tables.shape[1]
     blk = (positions // block_size).clamp(0, MB - 1)
-    phys = tables.gather(1, blk.to(torch.int64))
-    rows, toks = ((positions >= 0) & (phys >= 0)).nonzero(as_tuple=True)
-    flat = phys[rows, toks] * block_size + positions[rows, toks] % block_size
-    return rows, toks, flat
+    phys = tables.gather(1, blk.to(torch.int64)).to(torch.int64)
+    real = (positions >= 0) & (phys >= 0)
+    flat = torch.where(real, phys * block_size + positions % block_size,
+                       spare * block_size)
+    return flat, real
 
 
 def self_attention_cached(p, x, positions, cache_k, cache_v, cache_pos,
@@ -180,9 +213,8 @@ def self_attention_cached(p, x, positions, cache_k, cache_v, cache_pos,
     q, k, v = attention_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    rows, toks, slots = widx
-    cache_k[rows, slots] = k[rows, toks]
-    cache_v[rows, slots] = v[rows, toks]
+    cache_put(cache_k, widx, k)
+    cache_put(cache_v, widx, v)
     out = attend(q, cache_k, cache_v, positions, cache_pos, window=window)
     return out @ p["wo"]
 
@@ -208,9 +240,9 @@ def self_attention_paged(p, x, positions, pool_k, pool_v, pool_pos, tables,
     q, k, v = attention_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    rows, toks, flat = widx
-    _pool_write(pool_k, flat, k[rows, toks])
-    _pool_write(pool_v, flat, v[rows, toks])
+    flat, _ = widx
+    _pool_write(pool_k, flat, k)
+    _pool_write(pool_v, flat, v)
     if T == 1:
         out = ops.paged_decode_attention(q[:, 0], pool_k, pool_v,
                                          positions[:, 0], pool_pos, tables,

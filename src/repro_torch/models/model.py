@@ -51,8 +51,10 @@ class Model(nn.Module):
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          n_slots: int = 0):
-        """Physically paged serving cache: block pools plus `n_slots` rows
-        of per-request state and the padding sentinel (DESIGN §9)."""
+        """Physically paged serving cache: block pools (and one spare
+        block past `num_blocks`, the target of invisible writes) plus
+        `n_slots` rows of per-request state and the padding sentinel
+        (DESIGN §9)."""
         return B.init_paged_cache(self.cfg, num_blocks, block_size,
                                   self.dtype, self.device, n_slots=n_slots)
 

@@ -1,9 +1,9 @@
 """Continuous-batching serving engine over the port's PyTorch model.
 
 Runs the same controller stack as the JAX package's engine (Telemetry ->
-Policy -> BlockManager, DESIGN §1) with eager prefill/decode steps on the
-card and wall-clock TBT feedback. Decode runs on the smallest batch bucket
->= the active requests (DESIGN §3), padding rows masked by position -1.
+Policy -> BlockManager, DESIGN §1). Decode runs on the smallest batch
+bucket >= the active requests (DESIGN §3), padding rows masked by
+position -1.
 
 PD fusion (DESIGN §6) runs `n_prefill_lanes` spare physical cache rows
 past the decode buckets; each interval the controller's chunk budget is
@@ -20,14 +20,20 @@ sentinel slot, which reads zeros and is never written. State-only families
 (no K/V: `mem.bytes_per_token == 0`) hold one block per request as an
 admission cap, never grow it, and never preempt.
 
-This slice is the synchronous loop (`overlap_depth=0`, DESIGN §14):
-every interval dispatches its steps and retires them before it returns,
-reading the tokens back once; a decode step's TBT sample is the
-interval's wall time. Prefix sharing, the swap tier, mesh serving
-and async overlap are not ported yet and raise when asked for.
+Every decode step and prefill chunk is a `graphs.Step` per shape key, the
+counterpart of the reference's `jax.jit` per shape: on the card the replay
+of a CUDA graph captured once (`warmup()` captures every decode bucket and
+full-chunk lane shape; tail chunks capture at first use), on the CPU the
+same function run eagerly. Step inputs are staged in pinned host memory and
+copied without blocking, so an interval holds one synchronisation: the
+retirement readback, whose wait is the interval's device time and a decode
+step's TBT sample, as in the reference. This slice is the synchronous loop
+(`overlap_depth=0`, DESIGN §14). Prefix sharing, the swap tier, mesh
+serving and async overlap are not ported yet and raise when asked for.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
@@ -42,6 +48,7 @@ from repro_torch.core.memory_model import MemoryModel
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.models.backbone import STATE_KEYS
 from repro_torch.models.model import Model, resolve_device
+from repro_torch.serving.graphs import Staging, Step, StepGraphs
 from repro_torch.serving.kv_cache import BlockManager
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import sample
@@ -83,7 +90,7 @@ class _StepRec:
     land once the step's results exist (DESIGN §14)."""
     dec: Optional[torch.Tensor] = None            # sampled decode tokens
     first: List[torch.Tensor] = dataclasses.field(default_factory=list)
-    probe: Optional[torch.Tensor] = None          # last dispatched logits
+    probe: Optional[torch.Tensor] = None          # last prefill's tokens
     #: (request, output index, life generation, "d"|"f", value row)
     patches: List[Tuple[Request, int, int, str, int]] = \
         dataclasses.field(default_factory=list)
@@ -103,7 +110,11 @@ class Engine:
                  max_context: int = 256,
                  buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64),
                  prefill_chunk: int = 32, seed: int = 0,
-                 temperature: float = 0.0, device=None):
+                 temperature: float = 0.0, device=None,
+                 cuda_graphs: Optional[bool] = None):
+        """`cuda_graphs`: run each step as a CUDA graph replay (default on
+        the card); False runs the same steps eagerly, as on the CPU, where
+        True raises."""
         check_ported(serve)
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -144,6 +155,9 @@ class Engine:
                                           prefill_chunk=prefill_chunk)
         self.tel = Telemetry()
         self.policy = make_policy(serve, self.mem)
+        self.graphs = StepGraphs(self.device, self.device.type == "cuda"
+                                 if cuda_graphs is None else cuda_graphs)
+        self._staging = Staging(self.device)
 
         self.waiting: List[Request] = []
         self.active: List[Request] = []          # compact: slot i = active[i]
@@ -183,9 +197,8 @@ class Engine:
         # rid -> life generation, bumped by _evict: retirement drops
         # patches recorded against an earlier (cleared) life
         self._gen: Dict[int, int] = {}
-        # per step(): device_s = the readback wait, host_s = the remainder
-        # (device work the host waited for at a stream sync inside the
-        # interval counts as host time)
+        # per step(): device_s = the readback wait (the interval's one
+        # sync), host_s = the remainder
         self.step_host_trace: List[float] = []
         self.step_device_trace: List[float] = []
 
@@ -219,15 +232,14 @@ class Engine:
         self._clear_state(r.slot)
 
     # -- paged-mode helpers (DESIGN §9) -------------------------------------------
-    def _tables_for(self, reqs, pad_to: int = 0) -> torch.Tensor:
-        """Block tables for a batch: row i holds request i's physical block
-        ids from the BlockManager, -1-padded."""
-        tbl = np.full((max(pad_to, len(reqs), 1), self.max_blocks), -1,
-                      np.int32)
+    def _block_tables(self, reqs, rows: int) -> np.ndarray:
+        """Host block tables for a step of `rows` rows: row i holds request
+        i's physical block ids from the BlockManager, -1-padded."""
+        tbl = np.full((rows, self.max_blocks), -1, np.int32)
         for i, r in enumerate(reqs):
             ids = self.blocks.table(r.rid)
             tbl[i, :len(ids)] = ids
-        return torch.from_numpy(tbl).to(self.device)
+        return tbl
 
     def _free_request(self, r: Request) -> None:
         """Release a request's blocks; in paged mode clear their pos-pool
@@ -238,16 +250,120 @@ class Engine:
         if not self.paged:
             return
         if freed and "pos" in self.cache:
-            self.cache["pos"][torch.tensor(freed, device=self.device)] = -1
+            ids = torch.empty(len(freed), dtype=torch.int64,
+                              device=self.device)
+            self._staging.copy(ids, np.fromiter(freed, np.int64, len(freed)))
+            self.cache["pos"][ids] = -1
         if r.slot >= 0:
             self._free_slots.append(r.slot)
             r.slot = -1
 
-    def _int32(self, rows) -> torch.Tensor:
-        return torch.tensor(rows, dtype=torch.int32, device=self.device)
+    # -- compiled steps (graphs.py) -----------------------------------------------
+    def _step(self, key: Tuple) -> Step:
+        """The step of shape key `key`, built (and on the card captured) at
+        first use: ("decode", bucket) or ("chunk", rows, take, cache row),
+        the cache row set only for a one-row contiguous chunk, which runs
+        on a view of that row (-1 otherwise)."""
+        st = self.graphs.steps.get(key)
+        if st is None:
+            st = self._build_step(key)
+            if self.graphs.enabled:
+                with self._state_kept(st):
+                    self.graphs.capture(st)
+            self.graphs.steps[key] = st
+        return st
 
-    def _slots(self, slots) -> torch.Tensor:
-        return torch.tensor(slots, dtype=torch.int64, device=self.device)
+    def _build_step(self, key: Tuple) -> Step:
+        """Static inputs holding an all-padding step (positions -1, empty
+        tables, the sentinel state slot, or the lane rows of a contiguous
+        multi-row chunk), which writes no visible slot, and the function
+        that runs the model on them at fixed cache addresses."""
+        decode = key[0] == "decode"
+        rows, take = (key[1], 1) if decode else key[1:3]
+        row = -1 if decode else key[3]
+        dev = self.device
+        inp = {"tokens": torch.zeros((rows, take), dtype=torch.int64,
+                                     device=dev),
+               "positions": torch.full((rows, take), -1, dtype=torch.int32,
+                                       device=dev)}
+        m, p = self.model, self.params
+        kept = None
+        if self.paged:
+            inp["block_table"] = torch.full((rows, self.max_blocks), -1,
+                                            dtype=torch.int32, device=dev)
+            inp["slots"] = torch.full((rows,), self.n_slots,
+                                      dtype=torch.int64, device=dev)
+
+            def fn(i):
+                return m(p, i["tokens"], i["positions"], self.cache,
+                         decode=decode, last_only=not decode,
+                         tables=i["block_table"], rows=i["slots"])[0][:, -1]
+        elif decode or row >= 0:
+            start = 0 if decode else row
+            kept = slice(start, start + rows)
+            view = self._rows_view(start, rows)
+
+            def fn(i):
+                return m(p, i["tokens"], i["positions"], view, decode=decode,
+                         last_only=not decode)[0][:, -1]
+        else:
+            # lane rows need not be adjacent: gather, run, scatter back
+            kept = slice(self.max_slots, self.max_slots + rows)
+            inp["slots"] = torch.arange(kept.start, kept.stop, device=dev)
+
+            def fn(i):
+                sub = cache_rows(self.cache, i["slots"])
+                logits, sub = m(p, i["tokens"], i["positions"], sub,
+                                last_only=True)
+                put_cache_rows(self.cache, i["slots"], sub)
+                return logits[:, -1]
+        return Step(key, inp, fn, cache_rows=kept)
+
+    @contextlib.contextmanager
+    def _state_kept(self, st: Step):
+        """Keep the per-request state of the contiguous rows `st` writes
+        across the eager runs that precede its capture: an all-padding step
+        writes no K/V or position, but the recurrent layers step every
+        row's state."""
+        rows = st.cache_rows
+        kept = {} if rows is None else {
+            k: self.cache[k][:, rows].clone() for k in STATE_KEYS
+            if k in self.cache}
+        yield
+        for k, v in kept.items():
+            self.cache[k][:, rows] = v
+
+    def _stage(self, st: Step, name: str, host: np.ndarray) -> None:
+        """Stage `host` into the step input `name`. Block tables and state
+        slots are copied again only when they changed since the step last
+        ran, as the reference caches its device tables per call site and
+        shape."""
+        if name in ("block_table", "slots"):
+            last = st.host.get(name)
+            if last is not None and np.array_equal(last, host):
+                return
+            st.host[name] = host
+        self._staging.copy(st.inputs[name], host)
+
+    def warmup(self) -> None:
+        """Build, and on the card capture, every decode bucket and every
+        full-chunk lane shape ahead of time (the reference's
+        `Engine.warmup`); tail chunks are captured at first use. The
+        all-padding steps change no visible cache slot."""
+        keys = [("decode", b) for b in self.buckets]
+        C = self.prefill_chunk
+        if self.paged:
+            groups = range(1, self.n_lanes + 1) \
+                if self.serve.chunked_prefill else (1,)
+            keys += [("chunk", g, C, -1) for g in groups]
+        elif self.serve.chunked_prefill:
+            keys += [("chunk", 1, C, self.max_slots + j)
+                     for j in range(self.n_lanes)]
+            keys += [("chunk", g, C, -1) for g in range(2, self.n_lanes + 1)]
+        else:
+            keys += [("chunk", 1, C, r) for r in range(self.max_slots)]
+        for key in keys:
+            self._step(key)
 
     # -- public API -------------------------------------------------------------
     def submit(self, prompt_tokens: List[int], max_new_tokens: int = 0,
@@ -336,7 +452,7 @@ class Engine:
             self._advance_prefill(budget, rec)
         if self.active:
             self._decode_once(rec)
-        device_s = self._retire(rec, t0) if rec.dispatched else 0.0
+        device_s = self._retire(rec) if rec.dispatched else 0.0
         host_s = (time.perf_counter() - t0) - device_s
         self.step_host_trace.append(host_s)
         self.step_device_trace.append(device_s)
@@ -367,28 +483,24 @@ class Engine:
 
     def _prefill_group(self, reqs: List[Request], take: int) -> torch.Tensor:
         """One prefill chunk of `take` tokens for each request (same-size
-        lane chunks batched into one call). Returns last-position logits
-        (len(reqs), V)."""
-        tt = torch.tensor([r.prompt_tokens[r.prefill_pos:r.prefill_pos + take]
-                           for r in reqs], device=self.device)
-        pos = self._int32([list(range(r.prefill_pos, r.prefill_pos + take))
-                            for r in reqs])
+        lane chunks batched into one step). Returns each row's greedy next
+        token (len(reqs),) on the device: the step's logits are consumed
+        here, before any other step runs (the graphs share one pool)."""
+        g = len(reqs)
+        row = reqs[0].slot if g == 1 and not self.paged else -1
+        st = self._step(("chunk", g, take, row))
+        self._stage(st, "tokens", np.array(
+            [r.prompt_tokens[r.prefill_pos:r.prefill_pos + take]
+             for r in reqs], np.int64))
+        start = np.fromiter((r.prefill_pos for r in reqs), np.int32, g)
+        self._stage(st, "positions",
+                    start[:, None] + np.arange(take, dtype=np.int32))
         if self.paged:
-            logits, _ = self.model.prefill_paged(
-                self.params, tt, pos, self._tables_for(reqs), self.cache,
-                rows=self._slots([r.slot for r in reqs]), last_only=True)
-        elif len(reqs) == 1:
-            logits, _ = self.model.prefill(
-                self.params, tt, pos, self._rows_view(reqs[0].slot, 1),
-                last_only=True)
-        else:
-            # lane rows need not be adjacent: gather, run, scatter back
-            rows = self._slots([r.slot for r in reqs])
-            sub = cache_rows(self.cache, rows)
-            logits, sub = self.model.prefill(self.params, tt, pos, sub,
-                                             last_only=True)
-            put_cache_rows(self.cache, rows, sub)
-        return logits[:, -1]
+            self._stage(st, "block_table", self._block_tables(reqs, g))
+        if "slots" in st.inputs:
+            self._stage(st, "slots", np.fromiter((r.slot for r in reqs),
+                                                 np.int64, g))
+        return st.run().argmax(-1)
 
     def _advance_prefill(self, budget_tokens: int, rec: _StepRec) -> None:
         """Advance up to n_prefill_lanes prefilling requests by one chunk
@@ -407,13 +519,13 @@ class Engine:
         groups: Dict[int, list] = {}
         for j, r, t in plan:
             groups.setdefault(t, []).append((j, r))
-        last_logits: Dict[int, torch.Tensor] = {}   # lane -> chunk logits
+        first_tok: Dict[int, torch.Tensor] = {}   # lane -> next token
         for take, entries in groups.items():
-            logits = self._prefill_group([r for _, r in entries], take)
+            toks = self._prefill_group([r for _, r in entries], take)
             rec.dispatched = True
-            rec.probe = logits
+            rec.probe = toks
             for i, (j, _) in enumerate(entries):
-                last_logits[j] = logits[i]
+                first_tok[j] = toks[i]
 
         rec.lane_tokens = {j: t for j, _, t in plan}
         for _, r, take in plan:
@@ -432,14 +544,14 @@ class Engine:
                 r.slot = dst
             r.lane = -1
             r.state = RequestState.RUNNING
-            self._emit_first(r, last_logits[j], rec, feed=True)
+            self._emit_first(r, first_tok[j], rec, feed=True)
             self.active.append(r)
 
-    def _emit_first(self, r: Request, last_logits: torch.Tensor,
-                    rec: _StepRec, feed: bool) -> None:
-        """The first token stays on the device until retirement; the decode
-        step of this same interval reads it from `_pending_tok`."""
-        tok = last_logits.argmax()
+    def _emit_first(self, r: Request, tok: torch.Tensor, rec: _StepRec,
+                    feed: bool) -> None:
+        """The first token (the prompt's greedy next token) stays on the
+        device until retirement; the decode step of this same interval
+        reads it from `_pending_tok`."""
         rec.patches.append((r, len(r.output_tokens), self._gen.get(r.rid, 0),
                             "f", len(rec.first)))
         rec.first.append(tok)
@@ -448,7 +560,7 @@ class Engine:
                            r.prefill_start_time))
         r.output_tokens.append(None)
         rec.dispatched = True
-        rec.probe = last_logits
+        rec.probe = tok
 
     # -- internals ---------------------------------------------------------------
     def _prefill_request(self, r: Request, rec: _StepRec):
@@ -460,15 +572,15 @@ class Engine:
             r.slot = len(self.active)
             self._clear_row(r.slot)
         r.state = RequestState.PREFILLING
-        last_logits = None
+        tok = None
         for start in range(0, r.prompt_len, self.prefill_chunk):
             r.prefill_pos = start
             take = min(self.prefill_chunk, r.prompt_len - start)
-            last_logits = self._prefill_group([r], take)[0]
+            tok = self._prefill_group([r], take)[0]
         r.prefill_pos = r.prompt_len
         r.state = RequestState.RUNNING
         # the synchronous path feeds no TTFT split (no chunked service)
-        self._emit_first(r, last_logits, rec, feed=False)
+        self._emit_first(r, tok, rec, feed=False)
         self.active.append(r)
 
     def _preempt_if_needed(self):
@@ -513,26 +625,33 @@ class Engine:
         n = len(self.active)
         ge = [b for b in self.buckets if b >= n]
         bucket = min(ge) if ge else self.max_slots
-        toks = [0 if r.output_tokens[-1] is None else r.output_tokens[-1]
-                for r in self.active] + [0] * (bucket - n)
-        pend = [(i, self._pending_tok[r.rid]) for i, r in
-                enumerate(self.active) if r.output_tokens[-1] is None]
+        st = self._step(("decode", bucket))
+        toks = np.zeros((bucket, 1), np.int64)
         # the pending token sits at absolute position context_len - 1
-        lens = [r.context_len - 1 for r in self.active] + [-1] * (bucket - n)
-        tt = torch.tensor(toks, device=self.device)
+        lens = np.full((bucket, 1), -1, np.int32)
+        pend = []    # rows whose input is a first token still on the device
+        for i, r in enumerate(self.active):
+            if r.output_tokens[-1] is None:
+                pend.append(i)
+            else:
+                toks[i, 0] = r.output_tokens[-1]
+            lens[i, 0] = r.context_len - 1
+        self._stage(st, "tokens", toks)
+        self._stage(st, "positions", lens)
         if pend:
-            tt[[i for i, _ in pend]] = torch.stack([v for _, v in pend])
-        ll = self._int32(lens)
+            idx = torch.empty(len(pend), dtype=torch.int64,
+                              device=self.device)
+            self._staging.copy(idx, np.fromiter(pend, np.int64, len(pend)))
+            st.inputs["tokens"].view(-1).index_copy_(0, idx, torch.stack(
+                [self._pending_tok[self.active[i].rid] for i in pend]))
         if self.paged:
+            self._stage(st, "block_table",
+                        self._block_tables(self.active, bucket))
             # padding rows read the sentinel slot n_slots (zeros)
-            rows = self._slots([r.slot for r in self.active]
-                               + [self.n_slots] * (bucket - n))
-            logits, _ = self.model.decode_step_paged(
-                self.params, tt, ll, self._tables_for(self.active, bucket),
-                self.cache, rows=rows)
-        else:
-            logits, _ = self.model.decode_step(self.params, tt, ll,
-                                               self._rows_view(0, bucket))
+            slots = np.full(bucket, self.n_slots, np.int64)
+            slots[:n] = [r.slot for r in self.active]
+            self._stage(st, "slots", slots)
+        logits = st.run()
         sampled = sample(logits[:n], self.generator, self.temperature)
         rec.dec = sampled
         rec.n_decode = n
@@ -569,25 +688,25 @@ class Engine:
             if r in self.active:
                 self._evict(self.active.index(r), r)
 
-    def _retire(self, rec: _StepRec, t_start: float) -> float:
+    def _retire(self, rec: _StepRec) -> float:
         """Read the interval's tokens back in ONE transfer, patch the output
         placeholders, then apply the interval's telemetry feeds. Returns
-        the readback wait in seconds (the interval's device-side share).
+        the readback wait in seconds.
 
-        The TBT sample is the interval's whole wall time, from `t_start`
-        to the readback: the eager loop's host-to-device copies and write
-        index (`nonzero`) synchronise the stream inside the interval, so
-        the final readback wait alone misses most of the device time, and
-        in this synchronous loop each decoding request waits the whole
-        interval for its next token."""
+        The readback is the interval's one synchronisation (its steps are
+        graph replays, its inputs staged without blocking), so its wait is
+        the device time the host could not hide, and that wait is a decode
+        step's TBT sample, as in the reference's `_retire_step`. After it,
+        every copy the interval staged has completed and the staging arena
+        is rewound."""
         toks = ([rec.dec] if rec.dec is not None else []) \
             + [t.reshape(1) for t in rec.first]
         t0 = time.perf_counter()
         vals = torch.cat(toks).tolist() if toks \
             else rec.probe.reshape(-1)[:1].tolist()
-        t1 = time.perf_counter()
-        dev_s = t1 - t0
-        dt_ms = (t1 - t_start) * 1e3
+        dev_s = time.perf_counter() - t0
+        self._staging.rewind()
+        dt_ms = dev_s * 1e3
         now = self._now()
         n_dec = rec.dec.shape[0] if rec.dec is not None else 0
         for r, idx, gen, kind, k in rec.patches:

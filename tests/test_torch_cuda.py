@@ -675,3 +675,147 @@ def test_add_rmsnorm_fp32_on_card(cuda, d):
                                atol=1e-5)
     torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
                                rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the compiled serving step: CUDA graph replays against eager runs of the
+# same steps, reduced models of the three families in both cache layouts
+
+GRAPH_FAMILIES = ("granite-3-8b", "mamba2-2.7b", "recurrentgemma-9b")
+GRAPH_COUNTERS = ("decode_steps", "mean_batch", "admitted", "preemptions",
+                  "prefill_tokens", "finished", "copy_rows")
+
+
+def _graph_engine(dev, arch, paged, cuda_graphs):
+    """Reduced fp32 engine on the card: static admission (batches of up to
+    4, so decode moves between buckets) and chunked prefill on 2 lanes."""
+    from repro_torch.config.base import ServeConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+
+    m = build_model(get_config(arch, "reduced"), torch.float32, dev)
+    serve = ServeConfig(policy="static", b_max=4, max_new_tokens=6,
+                        kv_pool_tokens=1024, block_size=8,
+                        chunked_prefill=True, chunk_budget_tokens=16,
+                        n_prefill_lanes=2, paged_kv=paged)
+    return Engine(m, m.init(0), serve, max_context=64, buckets=(1, 2, 4),
+                  prefill_chunk=8, device=dev, cuda_graphs=cuda_graphs)
+
+
+def _fill_engine_cache(eng, seed=0):
+    """Random K/V, positions and state everywhere a request could look (the
+    paged spare block's positions stay empty, the sentinel state zero)."""
+    from repro_torch.models.backbone import STATE_KEYS
+
+    g = torch.Generator(device=eng.device).manual_seed(seed)
+    for k, v in eng.cache.items():
+        if k == "pos":
+            v.copy_(torch.randint(-1, 60, v.shape, generator=g,
+                                  device=eng.device, dtype=v.dtype))
+            if eng.paged:
+                v[-1] = -1
+        else:
+            v.normal_(generator=g)
+            if eng.paged and k in STATE_KEYS:
+                v[:, eng.n_slots] = 0
+
+
+def _stage_random(eng, st, rng):
+    """Real-looking inputs for step `st`: tokens, positions up to 56,
+    distinct blocks per row and distinct state slots (paged)."""
+    rows, T = st.inputs["tokens"].shape
+    starts = rng.randint(T, 56 - T, size=rows)
+    host = {"tokens": rng.randint(0, eng.cfg.vocab_size, (rows, T)),
+            "positions": starts[:, None] + np.arange(T)}
+    if eng.paged:
+        blocks = rng.permutation(eng.mem.num_blocks)
+        per = eng.max_blocks
+        host["block_table"] = blocks[:rows * per].reshape(rows, per)
+        host["slots"] = rng.permutation(eng.n_slots)[:rows]
+    for k, v in host.items():
+        eng._stage(st, k, v.astype(np.int64))
+
+
+def _served(eng, prompts):
+    hs = [eng.submit(p) for p in prompts]
+    eng.run(max_steps=2000)
+    return [h.output_tokens for h in hs], eng.summary()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("arch", GRAPH_FAMILIES)
+def test_graph_engine_equals_eager_engine_on_card(cuda, arch, paged):
+    """Served with graph replays and with the same steps run eagerly: the
+    same tokens and counters, over promotions from both lanes, no
+    preemption and decode in more than one bucket; every decode step and
+    chunk of the graph run was a replay."""
+    rng = np.random.RandomState(3)
+    prompts = [list(map(int, rng.randint(0, 256, size=n)))
+               for n in (5, 21, 9, 30, 13, 17)]
+    runs = []
+    for graphs in (True, False):
+        eng = _graph_engine(cuda, arch, paged, graphs)
+        if graphs:
+            eng.warmup()
+        runs.append((eng, *_served(eng, prompts)))
+    (g_eng, g_toks, g_sum), (e_eng, e_toks, e_sum) = runs
+    assert g_toks == e_toks
+    assert {k: g_sum[k] for k in GRAPH_COUNTERS} \
+        == {k: e_sum[k] for k in GRAPH_COUNTERS}
+    assert g_sum["finished"] == len(prompts) and g_sum["preemptions"] == 0
+    assert len({min(b for b in g_eng.buckets if b >= n)
+                for n in g_eng.batch_trace}) > 1
+    assert g_eng.graphs.captures == len(g_eng.graphs.steps) > 0
+    assert e_eng.graphs.captures == 0
+    assert all(st.graph is not None for st in g_eng.graphs.steps.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("arch", GRAPH_FAMILIES)
+def test_replay_equals_eager_bit_for_bit_on_card(cuda, arch, paged):
+    """At every decode bucket and on a lane chunk: the replay's logits and
+    the cache it leaves are the eager run's, bit for bit, from the same
+    cache and inputs; and the replay adds the captured launches."""
+    eng = _graph_engine(cuda, arch, paged, True)
+    eng.warmup()
+    rng = np.random.RandomState(0)
+    lane = ("chunk", 1, 8, -1 if paged else eng.max_slots)
+    for key in [("decode", b) for b in eng.buckets] + [lane]:
+        st = eng.graphs.steps[key]
+        _fill_engine_cache(eng, seed=len(key))
+        _stage_random(eng, st, rng)
+        start = {k: v.clone() for k, v in eng.cache.items()}
+        want = st.run(eager=True).clone()
+        want_cache = {k: v.clone() for k, v in eng.cache.items()}
+        for k, v in start.items():
+            eng.cache[k].copy_(v)
+        before = dict(ops.LAUNCHES)
+        got = st.run().clone()
+        assert torch.equal(got, want), key
+        for k, v in eng.cache.items():
+            assert torch.equal(v, want_cache[k]), (key, k)
+        assert st.launches and all(
+            ops.LAUNCHES[k] - before[k] == n for k, n in st.launches.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("arch", GRAPH_FAMILIES)
+def test_warmup_changes_no_visible_slot_on_card(cuda, arch, paged):
+    """`warmup` (eager runs and captures of every all-padding step) leaves
+    every K/V slot, position and state row as it was; only the paged spare
+    block takes writes."""
+    eng = _graph_engine(cuda, arch, paged, True)
+    _fill_engine_cache(eng)
+    before = {k: v.clone() for k, v in eng.cache.items()}
+    eng.warmup()
+    torch.cuda.synchronize()
+    assert eng.graphs.captures == len(eng.graphs.steps) \
+        == (5 if paged else 6)
+    for k, v in eng.cache.items():
+        got, was = (v[:, :-1], before[k][:, :-1]) \
+            if paged and k in ("k", "v") else (v, before[k])
+        assert torch.equal(got, was), k
