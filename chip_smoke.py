@@ -82,13 +82,33 @@ Phases, one JSON line each:
              granite's contiguous run again with every step eager
              (`cuda_graphs=False`): the graph run's tokens and structural
              counters, and the host time the graphs took away.
-8. profile   last (a process that has run the tracer launches slower
-             after it), on a fresh granite contiguous engine: 8 requests
-             are promoted, then one decode interval at bucket 8 runs
-             under `torch.profiler` (trace in chiprun_out/): its CUDA
-             runtime calls, the blocking ones before the readback (none
-             may be) and H2D copies from pageable memory (none may be),
-             and the device's busy share of the interval.
+8. serve_<arch>_<layout>_overlap2
+             granite-3-8b in both layouts and recurrentgemma-9b paged
+             served again on graphs with two intervals dispatched ahead
+             (`--overlap-depth 2`, DESIGN §14): the depth-0 run's tokens
+             bit for bit and its structural counters; each line carries
+             its host, device and interval means and tokens/s with the
+             depth-0 run's beside them (`depth0`).
+9. twin_granite-3-8b_<layout>
+             the port's simulator (`serving/sim.py`) on the same
+             ServeConfig, prompt lengths, capped max_new_tokens,
+             max_context and prefill chunk, prior-free telemetry, every
+             arrival at 0, at depth 0 and 2: admitted, preemptions,
+             oom_events, rejected, the finished, rejected and SLA-met sets,
+             sla_requests_met and goodput_tokens equal the engine's at the
+             same depth; decode_steps and mean_batch printed beside.
+10. profile, profile_overlap2
+             last (a process that has run the tracer launches slower
+             after it), on fresh granite contiguous engines at depth 0 and
+             at depth 2: 8 requests are promoted, then two consecutive
+             decode intervals at bucket 8 run under `torch.profiler`
+             (traces in chiprun_out/): the first one's CUDA runtime calls,
+             the blocking ones before its retirement's event wait
+             (`cudaEventSynchronize`, the only one allowed), H2D copies
+             from pageable memory (none may be), the device's busy share,
+             and the device's gap between the last work the first call
+             launched and the first work the second launched; at depth 2
+             every traced call must leave two intervals in flight.
 
 Then the card's name and power limit, the `{"kernels": [...]}` summary,
 and as the last line `{"ok": true, "device": {...}}`. Any failure raises:
@@ -105,6 +125,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -151,6 +172,16 @@ STRUCTURAL = ("decode_steps", "mean_batch", "admitted", "preemptions",
               "prefill_tokens", "finished")
 #: the serve run whose decode interval is traced, and served again eager
 PROFILED = ("granite-3-8b", "contiguous")
+#: serve runs served again with two intervals dispatched ahead (DESIGN §14)
+OVERLAPPED = (("granite-3-8b", "contiguous"), ("granite-3-8b", "paged"),
+              ("recurrentgemma-9b", "paged"))
+OVERLAP_DEPTH = 2
+#: the engine-vs-simulator counters (tests/test_differential.py
+#: `assert_parity`); the finished, rejected and SLA-met sets are compared too
+TWIN = ("admitted", "preemptions", "oom_events", "rejected",
+        "sla_requests_met", "goodput_tokens")
+#: serve runs held against the port's simulator
+TWINNED = ("granite-3-8b",)
 
 
 def emit(phase: str, **fields) -> None:
@@ -744,16 +775,20 @@ def serve_prompts(arch: str):
         PROMPT_LO, PROMPT_HI + 1)))) for _ in range(FAMILIES[arch][0])]
 
 
-def run_serve(arch: str, paged: bool, cuda_graphs: bool = True):
+def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
+              depth: int = 0, beside: Optional[dict] = None):
     """Serve the family's prompts through `launch.serve.build_engine` (its
-    graphs captured by `warmup` first) and check the run. Returns (the
-    emitted fields, the engine, the requests' output tokens)."""
+    graphs captured by `warmup` first), `depth` intervals dispatched ahead
+    (DESIGN §14), and check the run. `beside`: the depth-0 run's figures,
+    printed on the line. Returns (the emitted fields, the engine, the
+    requests)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     n_req, path, attends, (fused, plain), per_forward = FAMILIES[arch]
     args = serve.build_parser().parse_args(
-        SERVE_ARGS + ["--arch", arch] + (["--paged"] if paged else []))
+        SERVE_ARGS + ["--arch", arch] + (["--paged"] if paged else [])
+        + ["--overlap-depth", str(depth)])
     t0 = time.perf_counter()
     eng = serve.build_engine(args, cuda_graphs=cuda_graphs)
     torch.cuda.synchronize()
@@ -770,7 +805,8 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True):
     s = eng.summary()
     allocator_full = eng.blocks.free_blocks == eng.blocks.num_blocks
     name = f"serve_{arch}_{'paged' if paged else 'contiguous'}" \
-        + ("" if cuda_graphs else "_eager")
+        + ("" if cuda_graphs else "_eager") \
+        + (f"_overlap{depth}" if depth else "")
     n_int = len(eng.step_host_trace)
     caught = eng.graphs.capture_s - warm["capture_s"]
     fields = dict(summary=s, launches=launches, build_s=build_s,
@@ -782,7 +818,11 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True):
                   graphs_at_warmup=warm, graphs=eng.graphs.stats(),
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                   tokens_out=eng.total_decoded,
-                  allocator_full=allocator_full)
+                  allocator_full=allocator_full, overlap_depth=depth,
+                  prefill_chunk=eng.prefill_chunk,
+                  max_context=eng.max_context)
+    if beside is not None:
+        fields["depth0"] = beside
     emit(name, **fields)
     if s["finished"] != n_req:
         raise AssertionError(f"{name}: {s['finished']} of {n_req} "
@@ -812,7 +852,89 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True):
     if cuda_graphs and (not eng.graphs.enabled or any(
             st.graph is None for st in eng.graphs.steps.values())):
         raise AssertionError(f"{name}: a step ran without its graph")
-    return fields, eng, [h.output_tokens for h in handles]
+    if eng.overlap_depth != depth or eng._inflight:
+        raise AssertionError(f"{name}: depth {eng.overlap_depth}, "
+                             f"{len(eng._inflight)} intervals left in flight")
+    return fields, eng, handles
+
+
+def request_sets(reqs) -> dict:
+    """The finished, rejected and SLA-met request ids of a run."""
+    return dict(
+        finished=sorted(r.rid for r in reqs
+                        if r.state.value == "finished" and not r.rejected),
+        rejected=sorted(r.rid for r in reqs if r.rejected),
+        sla_met=sorted(r.rid for r in reqs if r.sla_met))
+
+
+def overlap_figures(fields) -> dict:
+    s = fields["summary"]
+    return dict(step_host_s_mean=s["step_host_s_mean"],
+                step_device_s_mean=s["step_device_s_mean"],
+                interval_s_mean=fields["interval_s_mean"],
+                step_host_s_mean_without_captures=fields[
+                    "step_host_s_mean_without_captures"],
+                throughput_tok_s=s["throughput_tok_s"],
+                tbt_ms_mean=s["tbt_ms_mean"], serve_s=fields["serve_s"])
+
+
+def run_twin(arch: str, layout: str, runs: dict):
+    """The port's simulator (`serving/sim.py`) on the serve runs'
+    configuration: the same ServeConfig, prompt lengths, capped
+    max_new_tokens, max_context and prefill chunk, prior-free telemetry,
+    every arrival at 0 (the memory policy reads only length moments and
+    counts). `runs`: overlap depth -> (the serve run's fields, its
+    requests). Each depth's engine run must agree with the sim at that
+    depth on TWIN and on the request sets; decode_steps and mean_batch are
+    printed beside the engine's (the sim's batch trace also counts
+    prefill-only intervals)."""
+    from repro_torch.config.registry import get_config
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.launch import serve
+    from repro_torch.serving.cost_model import CostModel, PROFILES
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.sim import LengthDist, ServingSimulator
+
+    cfg = get_config(arch, "full")
+    lens = [len(p) for p in serve_prompts(arch)]
+    out, bad = {}, {}
+    for depth, (fields, reqs) in runs.items():
+        args = serve.build_parser().parse_args(
+            SERVE_ARGS + ["--arch", arch]
+            + (["--paged"] if layout == "paged" else [])
+            + ["--overlap-depth", str(depth)])
+        ctx = fields["max_context"]
+        sim = ServingSimulator(
+            cfg, serve.serve_config(args), CostModel(cfg,
+                                                     PROFILES[args.profile]),
+            LengthDist(mean_in=sum(lens) / len(lens),
+                       mean_out=float(args.max_new)),
+            prefill_chunk=fields["prefill_chunk"], max_context=ctx)
+        sim.tel = Telemetry()
+        for i, n in enumerate(lens):
+            # Engine.submit caps max_new_tokens at the context; mirror it
+            sim.waiting.append(Request(
+                rid=i, arrival_time=0.0, prompt_len=n,
+                max_new_tokens=min(args.max_new, ctx - n - 1)))
+        sim._all.extend(sim.waiting)
+        t0 = time.perf_counter()
+        res = sim.run()
+        sim_s = time.perf_counter() - t0
+        s = fields["summary"]
+        eng = {k: s[k] for k in TWIN} | request_sets(reqs)
+        twin = {k: getattr(res, k) for k in TWIN} | request_sets(sim._all)
+        out[f"depth{depth}"] = dict(
+            engine=eng, sim=twin, sim_s=sim_s,
+            decode_steps=dict(engine=s["decode_steps"],
+                              sim=res.decode_steps),
+            mean_batch=dict(engine=s["mean_batch"], sim=res.mean_batch))
+        bad.update({f"depth{depth} {k}": (eng[k], twin[k]) for k in eng
+                    if eng[k] != twin[k]})
+    emit(f"twin_{arch}_{layout}", **out)
+    if bad:
+        raise AssertionError(f"twin {arch} {layout}: the engine and the "
+                             f"simulator disagree: {bad}")
+    return out
 
 
 def fill_cache(eng, seed: int) -> None:
@@ -906,20 +1028,46 @@ def replay_times(st, reps: int = 10):
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D",
               "cudaMemset")
+#: the one blocking call an interval may make: its retirement's event wait
+READBACK = "cudaEventSynchronize"
+
+
+def _device_span(ev, runtime):
+    """(first start, last end) in µs of the device work that the runtime
+    calls `runtime` launched (kernels, copies and memsets by correlation
+    id; a graph launch's kernels carry the launch's id), or None."""
+    corr = {e["args"]["correlation"] for e in runtime
+            if "correlation" in e.get("args", {})}
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in ev
+             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+             and e.get("args", {}).get("correlation") in corr]
+    if not spans:
+        return None
+    return min(a for a, _ in spans), max(b for _, b in spans)
 
 
 def trace_interval(path: Path):
-    """From a chrome trace holding one `interval` annotation: the CUDA
-    runtime calls in it, the blocking ones before the last (the readback's
-    wait), pageable copies, and the share of the interval's wall time the
-    device was busy (union of kernel, memcpy and memset spans)."""
+    """From a chrome trace holding two consecutive `interval` annotations
+    (two step() calls): the CUDA runtime calls of the first, the blocking
+    ones before its last (the retirement's wait), pageable copies, the
+    share of its wall time the device was busy (union of kernel, memcpy
+    and memset spans), and the device's gap between the last device work
+    the first call launched and the first the second call launched."""
     ev = json.loads(path.read_text())["traceEvents"]
-    iv = next(e for e in ev if e.get("name") == "interval"
-              and e.get("cat") == "user_annotation")
+    ivs = sorted((e for e in ev if e.get("name") == "interval"
+                  and e.get("cat") == "user_annotation"),
+                 key=lambda e: e["ts"])
+
+    def runtime_of(iv):
+        t0, t1 = iv["ts"], iv["ts"] + iv["dur"]
+        return sorted((e for e in ev if e.get("cat") in ("cuda_runtime",
+                                                         "cuda_driver")
+                       and t0 <= e.get("ts", -1) <= t1),
+                      key=lambda e: e["ts"])
+
+    iv = ivs[0]
     t0, t1 = iv["ts"], iv["ts"] + iv["dur"]
-    rt = sorted((e for e in ev if e.get("cat") in ("cuda_runtime",
-                                                   "cuda_driver")
-                 and t0 <= e.get("ts", -1) <= t1), key=lambda e: e["ts"])
+    rt = runtime_of(iv)
     names = [e["name"] for e in rt]
     syncs = [i for i, n in enumerate(names) if n in SYNC_CALLS]
     gpu = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in ev
@@ -934,6 +1082,9 @@ def trace_interval(path: Path):
     counts = {}
     for n in names:
         counts[n] = counts.get(n, 0) + 1
+    spans = [_device_span(ev, runtime_of(i)) for i in ivs[:2]]
+    gap = spans[1][0] - spans[0][1] \
+        if len(spans) == 2 and None not in spans else None
     return dict(
         wall_us=iv["dur"], runtime_calls=counts, traced=bool(rt),
         device_events=len(gpu),
@@ -942,20 +1093,28 @@ def trace_interval(path: Path):
         pageable_copies=sum(1 for e in ev if e.get("cat") == "gpu_memcpy"
                             and "HtoD (Pageable" in e.get("name", "")
                             and t0 <= e.get("ts", -1) <= t1),
-        device_busy_share=busy / iv["dur"] if gpu else None)
+        device_busy_share=busy / iv["dur"] if gpu else None,
+        device_spans_us=spans, device_gap_us=gap,
+        intervals_traced=len(ivs))
 
 
-def run_profile(arch: str, paged: bool):
-    """One decode interval at bucket 8 under `torch.profiler`, on a fresh
-    engine of the serve runs' configuration: 8 requests of one 16-token
-    chunk each are prefilled and promoted, then pure decode intervals run,
-    the second of them traced. (Last of the script's phases: a process
-    that has run the tracer launches slower after it.)"""
+def run_profile(arch: str, paged: bool, depth: int = 0):
+    """Two consecutive decode intervals at bucket 8 under `torch.profiler`,
+    on a fresh engine of the serve runs' configuration with `depth`
+    intervals dispatched ahead: 8 requests of one 16-token chunk each are
+    prefilled and promoted, then pure decode intervals run, the third and
+    fourth of them traced. The first traced call may block only in its
+    retirement's event wait, and copies nothing from pageable memory; at
+    depth k every traced call leaves k intervals in flight, so it retired
+    an earlier interval than the one it dispatched. (Last of the script's
+    phases: a process that has run the tracer launches slower after
+    it.)"""
     import numpy as np
     from repro_torch.launch import serve
 
     eng = serve.build_engine(serve.build_parser().parse_args(
-        SERVE_ARGS + ["--arch", arch] + (["--paged"] if paged else [])))
+        SERVE_ARGS + ["--arch", arch] + (["--paged"] if paged else [])
+        + ["--overlap-depth", str(depth)]))
     rng = np.random.RandomState(1)
     for _ in range(8):
         eng.submit(list(map(int, rng.randint(0, eng.cfg.vocab_size,
@@ -969,23 +1128,38 @@ def run_profile(arch: str, paged: bool):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     OUT_DIR.mkdir(exist_ok=True)
-    path = OUT_DIR / f"trace_{arch}_decode_interval.json"
-    # a traced interval after one traced and dropped (the tracer's start-up)
+    suffix = f"_overlap{depth}" if depth else ""
+    path = OUT_DIR / f"trace_{arch}_decode_interval{suffix}.json"
+    in_flight = []
+    # traced intervals after two traced and dropped (the tracer's start-up)
     with torch.profiler.profile(
             activities=acts,
             schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
             on_trace_ready=lambda p: p.export_chrome_trace(str(path))) \
             as prof:
-        for _ in range(2):
-            with torch.profiler.record_function("interval"):
-                eng.step()
+        for cycle in range(2):
+            for _ in range(2):
+                with torch.profiler.record_function("interval"):
+                    eng.step()
+                in_flight.append(len(eng._inflight))
+            if cycle:
+                # every launched kernel has run before the trace is
+                # collected (not between the cycles: that would drain the
+                # intervals in flight before the traced ones)
+                torch.cuda.synchronize()
             prof.step()
     t = trace_interval(path)
-    emit("profile", arch=arch, bucket=8, trace=str(path.relative_to(ROOT)),
-         **t)
-    if t["syncs_before_readback"] or t["pageable_copies"]:
-        raise AssertionError(f"profile: the decode interval synchronises "
-                             f"before its readback: {t}")
+    t["in_flight_after_each_step"] = in_flight
+    emit("profile" + suffix, arch=arch, bucket=8, overlap_depth=depth,
+         trace=str(path.relative_to(ROOT)), **t)
+    if t["syncs_before_readback"] or t["pageable_copies"] \
+            or t["readback"] != READBACK or t["intervals_traced"] != 2:
+        raise AssertionError(f"profile{suffix}: the decode interval "
+                             f"synchronises before its retirement's event "
+                             f"wait, or copies pageable memory: {t}")
+    if in_flight != [depth] * 4:
+        raise AssertionError(f"profile{suffix}: {in_flight} intervals in "
+                             f"flight after the steps, not {depth}")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -1039,12 +1213,17 @@ def main() -> int:
 
     kres = run_kernels(dev)
     refs = [run_reference(dev, arch) for arch in REFERENCE]
-    serves, runs, launches, graphs, outputs = {}, {}, {}, {}, {}
+    serves, runs, launches, graphs, served = {}, {}, {}, {}, {}
+
+    def tokens(key):
+        return [r.output_tokens for r in served[key][1]]
+
     for arch in FAMILIES:
         layouts = {}
         for paged in (False, True):
             layout = "paged" if paged else "contiguous"
-            fields, eng, outputs[arch, layout] = run_serve(arch, paged)
+            fields, eng, reqs = run_serve(arch, paged)
+            served[arch, layout] = (fields, reqs)
             layouts[layout] = fields["summary"]
             runs[f"{arch}_{layout}"] = fields
             for k, n in fields["launches"].items():
@@ -1066,17 +1245,46 @@ def main() -> int:
     # the same run with every step eager: the same tokens and counters,
     # and the host time the graphs took away
     arch, layout = PROFILED
-    eager, eng, toks = run_serve(arch, layout == "paged", cuda_graphs=False)
+    eager, eng, reqs = run_serve(arch, layout == "paged", cuda_graphs=False)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     diff = {k: (serves[arch][layout][k], eager["summary"][k])
             for k in STRUCTURAL
             if serves[arch][layout][k] != eager["summary"][k]}
-    if toks != outputs[arch, layout] or diff:
+    if [r.output_tokens for r in reqs] != tokens((arch, layout)) or diff:
         raise AssertionError(f"{arch} {layout}: the eager run's tokens or "
                              f"counters differ from the graph run's: {diff}")
+    # dispatch-ahead (DESIGN §14): the depth-0 runs' tokens and counters
+    overlap = {}
+    for arch, layout in OVERLAPPED:
+        zero, _ = served[arch, layout]
+        fields, eng, reqs = run_serve(arch, layout == "paged",
+                                      depth=OVERLAP_DEPTH,
+                                      beside=overlap_figures(zero))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, n in fields["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        diff = {k: (zero["summary"][k], fields["summary"][k])
+                for k in STRUCTURAL
+                if zero["summary"][k] != fields["summary"][k]}
+        if [r.output_tokens for r in reqs] != tokens((arch, layout)) \
+                or diff:
+            raise AssertionError(f"{arch} {layout}: the depth-"
+                                 f"{OVERLAP_DEPTH} run's tokens or "
+                                 f"counters differ from depth 0's: {diff}")
+        overlap[f"{arch}_{layout}"] = fields
+        served[arch, layout, OVERLAP_DEPTH] = (fields, reqs)
+    twins = {f"{arch}_{layout}": run_twin(arch, layout, {
+        0: served[arch, layout],
+        OVERLAP_DEPTH: served[arch, layout, OVERLAP_DEPTH]})
+        for arch, layout in OVERLAPPED if arch in TWINNED}
+    arch, layout = PROFILED
     profile = run_profile(arch, layout == "paged")
+    profile_overlap = run_profile(arch, layout == "paged",
+                                  depth=OVERLAP_DEPTH)
 
     summary = []
     for name, (route, source, replaces, case) in KERNELS.items():
@@ -1100,6 +1308,8 @@ def main() -> int:
         {"card": card, "ptxas": ptxas, "kernels": kres, "summary": summary,
          "reference": refs, "serve": runs, "launches": launches,
          "graphs": graphs, "profile": profile,
+         "profile_overlap": profile_overlap, "serve_overlap": overlap,
+         "twin": twins,
          "serve_eager": {f"{arch}_{layout}": eager}},
         indent=1))
     print(card)

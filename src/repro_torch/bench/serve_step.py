@@ -3,12 +3,15 @@ of `chip_smoke.py`'s configuration (its flags and prompts; granite-3-8b
 contiguous by default) through `repro_torch.launch.serve.run`.
 
     python src/repro_torch/bench/serve_step.py [--src DIR] [--arch A]
-        [--paged] [--eager]
+        [--paged] [--eager] [--overlap-depth K]
 
 With `--src`, `repro_torch` is imported from that source tree (an unpacked
 earlier commit, say), so two versions can be compared in one call on one
 card, each in a process of its own. `--eager` runs the steps eagerly
-(`cuda_graphs=False`); a tree without CUDA graphs always does. Prints the
+(`cuda_graphs=False`); a tree without CUDA graphs always does.
+`--overlap-depth K` serves with K intervals dispatched ahead (DESIGN §14;
+default 0, the synchronous loop), so the depth-0 and depth-2 runs of one
+tree can be compared in one call. Prints the
 card's name and power limit, then one JSON line: tokens/s, TBT mean and
 p95 (each tree's own TBT sample), `step_host_s_mean`,
 `step_device_s_mean`, their sum (the interval's wall time), the host mean
@@ -39,6 +42,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="granite-3-8b")
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--overlap-depth", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("serve_step: no CUDA device", file=sys.stderr)
@@ -58,7 +62,9 @@ def main(argv=None) -> int:
     _build.build_all()
     flags = serve.build_parser().parse_args(
         chip_smoke.SERVE_ARGS + ["--arch", args.arch]
-        + (["--paged"] if args.paged else []))
+        + (["--paged"] if args.paged else [])
+        + (["--overlap-depth", str(args.overlap_depth)]
+           if args.overlap_depth else []))
     prompts = chip_smoke.serve_prompts(args.arch)
     # the requests (for their tokens) and the capture seconds of warmup
     handles, warm = [], {}
@@ -91,6 +97,7 @@ def main(argv=None) -> int:
         src=str(src.relative_to(ROOT)) if src.is_relative_to(ROOT)
         else str(src),
         arch=args.arch, layout="paged" if args.paged else "contiguous",
+        overlap_depth=args.overlap_depth,
         graphs=bool(graphs and eng.graphs.enabled), run_s=run_s,
         intervals=n,
         **{k: s[k] for k in ("throughput_tok_s", "tbt_ms_mean", "tbt_ms_p95",

@@ -5,14 +5,16 @@
 
 Every flag of the JAX package's `launch/serve.py`, with the same names and
 defaults, plus `--device` (default cuda; `--device cpu` runs the plain
-PyTorch path). Flags of features the port has not reached yet (trace
-replay, prefix sharing, the swap tier, async overlap, mesh serving) raise
-NotImplementedError when set away from their defaults.
+PyTorch path). `--overlap-depth K` keeps K intervals dispatched ahead of
+retirement (DESIGN §14); `--trace PATH` replays a `repro-trace` file
+(DESIGN §15). Flags of features the port has not reached yet (prefix
+sharing, the swap tier, mesh serving) raise NotImplementedError when set
+away from their defaults.
 """
 from __future__ import annotations
 
 import argparse
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,7 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="trace replay (DESIGN §15): not yet ported")
+                    help="replay a repro-trace JSONL file (DESIGN §15): "
+                         "its requests in file order, max_new_tokens = "
+                         "min(l_out, --max-new); --requests is ignored")
     ap.add_argument("--ttft-sla", type=float, default=0.0, metavar="S",
                     help="per-request TTFT goodput SLA in seconds "
                          "(ttft_sla_s); 0 disables the check (DESIGN §15)")
@@ -110,8 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="hardware profile of the swap-vs-recompute "
                          "crossover (DESIGN §11)")
     ap.add_argument("--overlap-depth", type=int, default=0,
-                    help="async dispatch-ahead (DESIGN §14): only 0 is "
-                         "ported")
+                    help="async dispatch-ahead (DESIGN §14): intervals "
+                         "left in flight after each step; 0 = synchronous")
     ap.add_argument("--mesh", type=parse_mesh, default=None,
                     metavar="DATA,MODEL",
                     help="mesh-sharded serving (DESIGN §12): not yet ported")
@@ -155,8 +159,6 @@ def build_engine(args, cuda_graphs: Optional[bool] = None):
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine, check_ported
 
-    if args.trace is not None:
-        raise NotImplementedError("--trace is not yet ported to repro_torch")
     serve = serve_config(args)
     check_ported(serve)
     cfg = get_config(args.arch, args.variant)
@@ -172,19 +174,38 @@ def build_engine(args, cuda_graphs: Optional[bool] = None):
     return eng
 
 
+def trace_requests(path: str, vocab_size: int, seed: int,
+                   max_new: int) -> List[Tuple[List[int], int]]:
+    """(prompt tokens, max_new_tokens) of each request of a repro-trace
+    file, in file order, as the JAX CLI submits them: token records with
+    ids folded into the vocabulary, length records with tokens drawn from
+    `seed`, and max_new_tokens = max(1, min(l_out, max_new)). Service is
+    as fast as possible; arrival gating lives in the simulator."""
+    from repro_torch.serving.workload import load_trace_events, trace_prompts
+
+    return [(toks, max(1, min(lo, max_new))) for toks, lo in trace_prompts(
+        load_trace_events(path), vocab_size, seed=seed)]
+
+
 def run(args, prompts: Optional[Sequence[List[int]]] = None,
         cuda_graphs: Optional[bool] = None):
-    """`build_engine`, then submit `prompts` (default: --requests random
-    prompts of 4-23 tokens from --seed, as the JAX CLI draws them) and
-    serve them to completion. Returns the engine."""
+    """`build_engine`, then submit `prompts` (default: the requests of
+    --trace, or --requests random prompts of 4-23 tokens from --seed, as
+    the JAX CLI draws them) and serve them to completion. Returns the
+    engine."""
     eng = build_engine(args, cuda_graphs)
-    if prompts is None:
+    if prompts is not None:
+        reqs = [(p, 0) for p in prompts]
+    elif args.trace is not None:
+        reqs = trace_requests(args.trace, eng.cfg.vocab_size, args.seed,
+                              args.max_new)
+    else:
         rng = np.random.RandomState(args.seed)
-        prompts = [list(map(int, rng.randint(0, eng.cfg.vocab_size,
-                                             size=rng.randint(4, 24))))
-                   for _ in range(args.requests)]
-    for p in prompts:
-        eng.submit(p)
+        reqs = [(list(map(int, rng.randint(0, eng.cfg.vocab_size,
+                                           size=rng.randint(4, 24)))), 0)
+                for _ in range(args.requests)]
+    for p, max_new in reqs:
+        eng.submit(p, max_new_tokens=max_new)
     eng.run()
     return eng
 

@@ -25,14 +25,29 @@ counterpart of the reference's `jax.jit` per shape: on the card the replay
 of a CUDA graph captured once (`warmup()` captures every decode bucket and
 full-chunk lane shape; tail chunks capture at first use), on the CPU the
 same function run eagerly. Step inputs are staged in pinned host memory and
-copied without blocking, so an interval holds one synchronisation: the
-retirement readback, whose wait is the interval's device time and a decode
-step's TBT sample, as in the reference. This slice is the synchronous loop
-(`overlap_depth=0`, DESIGN §14). Prefix sharing, the swap tier, mesh
-serving and async overlap are not ported yet and raise when asked for.
+copied without blocking.
+
+Async dispatch-ahead (DESIGN §14): `step()` schedules and dispatches
+interval N, then retires the oldest intervals until at most
+`overlap_depth` remain in flight; depth 0 retires N in the same call. An
+interval's tokens stay on the device: a decode step of a later interval
+splices them in from `_pending_tok`. At dispatch the interval's sampled
+and first tokens are concatenated on the device and copied, without
+blocking, into pinned memory of the interval's own staging arena, and on
+the card a CUDA event is recorded behind that copy. Retirement waits on
+that event alone (the interval's one synchronisation: its wait is the
+device time the host could not hide and a decode step's TBT sample, as in
+the reference), reads the pinned tokens, applies the interval's telemetry
+feeds and timestamps, rewinds its arena and seals the allocator's shadow
+epoch. The staging ring holds `overlap_depth + 1` arenas, so no pinned
+byte that a queued copy has yet to read is overwritten (`graphs.Staging`).
+On the CPU the same path runs eagerly: every copy has completed when it
+returns. Prefix sharing, the swap tier and mesh serving are not ported yet
+and raise when asked for.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import time
@@ -76,7 +91,6 @@ def check_ported(serve: ServeConfig) -> None:
     """Raise for ServeConfig features this slice has not ported yet."""
     for name, set_ in (("prefix_cache", serve.prefix_cache),
                        ("swap_space_blocks", serve.swap_space_blocks > 0),
-                       ("overlap_depth", serve.overlap_depth != 0),
                        ("mesh_shape", bool(serve.mesh_shape))):
         if set_:
             raise NotImplementedError(
@@ -103,6 +117,11 @@ class _StepRec:
     lane_tokens: Optional[Dict[int, int]] = None
     n_decode: int = 0
     dispatched: bool = False
+    #: set at dispatch: the tokens' pinned host copy, its staging arena,
+    #: and (on the card) the event recorded behind the copy
+    host: Optional[torch.Tensor] = None
+    arena: int = -1
+    event: Optional[torch.cuda.Event] = None
 
 
 class Engine:
@@ -157,7 +176,11 @@ class Engine:
         self.policy = make_policy(serve, self.mem)
         self.graphs = StepGraphs(self.device, self.device.type == "cuda"
                                  if cuda_graphs is None else cuda_graphs)
-        self._staging = Staging(self.device)
+        # async dispatch-ahead (DESIGN §14): up to overlap_depth dispatched
+        # intervals stay un-retired while the host schedules the next
+        self.overlap_depth = max(0, int(serve.overlap_depth))
+        self._inflight: "collections.deque[_StepRec]" = collections.deque()
+        self._staging = Staging(self.device, depth=self.overlap_depth)
 
         self.waiting: List[Request] = []
         self.active: List[Request] = []          # compact: slot i = active[i]
@@ -191,14 +214,14 @@ class Engine:
         # SLA attainment: decode steps within d_sla + eps_d
         self._sla_ok = 0
         self._sla_steps = 0
-        # rid -> device scalar of the request's newest not-yet-read token
+        # rid -> device scalar of the request's newest not-yet-retired token
         # (a first token promoted this interval feeds this interval's decode)
         self._pending_tok: Dict[int, torch.Tensor] = {}
         # rid -> life generation, bumped by _evict: retirement drops
         # patches recorded against an earlier (cleared) life
         self._gen: Dict[int, int] = {}
-        # per step(): device_s = the readback wait (the interval's one
-        # sync), host_s = the remainder
+        # per step(): device_s = the retirement waits (the only syncs),
+        # host_s = the remainder
         self.step_host_trace: List[float] = []
         self.step_device_trace: List[float] = []
 
@@ -389,9 +412,16 @@ class Engine:
 
     # -- scheduling interval -------------------------------------------------------
     def step(self) -> bool:
-        """One scheduling interval: admit, prefill, decode, then retire the
-        interval's device work. Returns False when fully idle."""
+        """One scheduling interval: admit, prefill, decode and dispatch the
+        readback, then retire the oldest intervals until at most
+        `overlap_depth` remain in flight (DESIGN §14). Returns False when
+        fully idle."""
         if not self.waiting and not self.active and not self.prefilling:
+            # pipeline drain: retirement only patches values, timestamps
+            # and telemetry, never schedulable work, so this call still
+            # reports idle and run() counts the synchronous loop's steps
+            while self._inflight:
+                self._retire_step()
             return False
         t0 = time.perf_counter()
         tel = self.tel.snapshot(
@@ -452,7 +482,12 @@ class Engine:
             self._advance_prefill(budget, rec)
         if self.active:
             self._decode_once(rec)
-        device_s = self._retire(rec) if rec.dispatched else 0.0
+        if rec.dispatched:
+            self._dispatch_readback(rec)
+            self._inflight.append(rec)
+        device_s = 0.0
+        while len(self._inflight) > self.overlap_depth:
+            device_s += self._retire_step()
         host_s = (time.perf_counter() - t0) - device_s
         self.step_host_trace.append(host_s)
         self.step_device_trace.append(device_s)
@@ -688,24 +723,40 @@ class Engine:
             if r in self.active:
                 self._evict(self.active.index(r), r)
 
-    def _retire(self, rec: _StepRec) -> float:
-        """Read the interval's tokens back in ONE transfer, patch the output
-        placeholders, then apply the interval's telemetry feeds. Returns
-        the readback wait in seconds.
-
-        The readback is the interval's one synchronisation (its steps are
-        graph replays, its inputs staged without blocking), so its wait is
-        the device time the host could not hide, and that wait is a decode
-        step's TBT sample, as in the reference's `_retire_step`. After it,
-        every copy the interval staged has completed and the staging arena
-        is rewound."""
+    def _dispatch_readback(self, rec: _StepRec) -> None:
+        """Queue the interval's readback behind its steps: the sampled and
+        first tokens (or, with neither, one token of the last prefill
+        chunk, a fence) concatenated on the device and copied without
+        blocking into the interval's staging arena, which is sealed to the
+        record; on the card an event is recorded behind the copy."""
         toks = ([rec.dec] if rec.dec is not None else []) \
             + [t.reshape(1) for t in rec.first]
+        flat = torch.cat(toks) if toks else rec.probe.reshape(-1)[:1]
+        rec.host = self._staging.readback(flat)
+        rec.arena = self._staging.seal()
+        if self.device.type == "cuda":
+            rec.event = torch.cuda.Event()
+            rec.event.record()
+
+    def _retire_step(self) -> float:
+        """Retire the oldest in-flight interval: wait for its readback
+        event, patch the output placeholders from the pinned tokens, stamp
+        TTFT/TBT/finish times and apply the interval's telemetry feeds,
+        rewind its staging arena and seal the allocator's shadow epoch
+        (DESIGN §14, the reference's `_retire_step`). Returns the wait in
+        seconds.
+
+        The event wait is the only synchronisation of the serving loop (its
+        steps are graph replays, its inputs staged without blocking), so it
+        is the device time the host could not hide, and it is a decode
+        step's TBT sample, as in the reference."""
+        rec = self._inflight.popleft()
         t0 = time.perf_counter()
-        vals = torch.cat(toks).tolist() if toks \
-            else rec.probe.reshape(-1)[:1].tolist()
+        if rec.event is not None:
+            rec.event.synchronize()
         dev_s = time.perf_counter() - t0
-        self._staging.rewind()
+        vals = rec.host.tolist()
+        self._staging.release(rec.arena)
         dt_ms = dev_s * 1e3
         now = self._now()
         n_dec = rec.dec.shape[0] if rec.dec is not None else 0
@@ -716,7 +767,6 @@ class Engine:
                 r.output_tokens[idx] = vals[k if kind == "d" else n_dec + k]
             if kind == "d":
                 r.tbt_samples.append(dt_ms)
-        self._pending_tok.clear()   # every placeholder now holds its value
         if rec.lane_tokens is not None:
             self.tel.on_prefill_interval(rec.lane_tokens, self.n_lanes)
         for r, feed, queue_s, t_ps in rec.firsts:
@@ -737,6 +787,11 @@ class Engine:
                 self.sla_requests_met += 1
                 self.goodput_tokens += n_out
             self.tel.on_completion(n_out)
+        # blocks freed since the last retirement are safe for any reuse
+        # now that the step that could still read them has retired; open
+        # the next epoch for the frees of the intervals still in flight
+        self.blocks.shadow_commit()
+        self.blocks.shadow_begin()
         return dev_s
 
     # -- metrics ---------------------------------------------------------------

@@ -15,6 +15,16 @@ capture on that stream. Every graph allocates from one shared memory pool,
 so a graph's intermediates may lie where another graph's output lives:
 each step's output must be consumed (argmax, sampling) before any other
 step runs. A failed capture raises; nothing falls back to eager.
+
+With dispatch-ahead (DESIGN §14) steps of up to `overlap_depth` earlier
+intervals may still be queued when a step runs. The one stream orders
+them: a replay reads its static inputs after the earlier replays that
+read them, and the sampled tokens of a step come from the normal
+allocator and live in their interval's record. A tail chunk captured at
+first use waits for the work in flight (the side stream waits on the
+current one, and the capture synchronises the device before it starts).
+Only host memory outlives the stream's order: `Staging` keeps one pinned
+arena per interval in flight.
 """
 from __future__ import annotations
 
@@ -121,43 +131,95 @@ class StepGraphs:
                 "capture_s": self.capture_s, "pool_bytes": self.pool_bytes}
 
 
-class Staging:
-    """Host staging of step inputs: pinned memory on the card (pageable on
-    the CPU), copied to the device with `non_blocking=True`, so staging
-    never waits for the stream.
+class _Arena:
+    """One interval's host staging memory: a bump allocator over one
+    buffer, and the buffers it outgrew, kept until the rewind."""
 
-    Each copy reads its own slice of the arena, and the arena is rewound
-    only by `rewind()`, which the engine calls after the interval's
-    readback: at `overlap_depth` 0 that readback is the fence after which
-    every copy that read the arena has completed. (Dispatch-ahead, DESIGN
-    §14, keeps intervals in flight past it and will need an arena per
-    interval in flight.) An arena outgrown mid-interval is kept until the
-    rewind."""
-
-    def __init__(self, device: torch.device, nbytes: int = 1 << 16):
-        self.pin = device.type == "cuda"
-        self._buf = self._alloc(nbytes)
-        self._outgrown: List[torch.Tensor] = []
-        self._off = 0
+    def __init__(self, nbytes: int, pin: bool):
+        self.pin = pin
+        self.buf = self._alloc(nbytes)
+        self.outgrown: List[torch.Tensor] = []
+        self.off = 0
 
     def _alloc(self, nbytes: int) -> torch.Tensor:
         return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.pin)
 
-    def copy(self, dst: torch.Tensor, host: np.ndarray) -> None:
-        """dst.copy_(host) through the arena (host converted to dst's dtype
-        on the host first, so the device copy is a plain one)."""
-        src = torch.from_numpy(np.ascontiguousarray(host)).to(dst.dtype)
-        n = src.numel() * src.element_size()
-        off = -(-self._off // 8) * 8
-        if off + n > self._buf.numel():
-            self._outgrown.append(self._buf)
-            self._buf = self._alloc(max(2 * self._buf.numel(), 2 * n))
+    def take(self, dtype: torch.dtype, shape) -> torch.Tensor:
+        """A fresh slice of the arena, 8-byte aligned, as `dtype`."""
+        n = max(1, int(np.prod(shape))) * torch.empty(
+            (), dtype=dtype).element_size()
+        off = -(-self.off // 8) * 8
+        if off + n > self.buf.numel():
+            self.outgrown.append(self.buf)
+            self.buf = self._alloc(max(2 * self.buf.numel(), 2 * n))
             off = 0
-        pinned = self._buf[off:off + n].view(src.dtype).view(src.shape)
-        pinned.copy_(src)
-        self._off = off + n
-        dst.copy_(pinned, non_blocking=True)
+        self.off = off + n
+        return self.buf[off:off + n].view(dtype)[:int(np.prod(shape))] \
+            .view(shape)
 
     def rewind(self) -> None:
-        self._off = 0
-        self._outgrown.clear()
+        self.off = 0
+        self.outgrown.clear()
+
+
+class Staging:
+    """Host staging of step inputs and readbacks: pinned memory on the
+    card (pageable on the CPU), copied with `non_blocking=True`, so neither
+    staging nor dispatching the readback waits for the stream.
+
+    Dispatch-ahead (DESIGN §14) keeps up to `depth` intervals in flight
+    while the host stages the next one, and a non-blocking copy reads its
+    pinned source only when the stream reaches it. So staging keeps a ring
+    of `depth + 1` arenas: the open interval stages into its own arena
+    (each copy from its own slice of it), `seal()` hands that arena to the
+    dispatched interval and opens the next one, and `release()` rewinds an
+    arena only when its interval retires, after the readback event that
+    follows every copy the interval enqueued. An interval that dispatched
+    nothing keeps the arena open for the next one, so its copies are
+    covered by that interval's event. Staging into, or sealing towards, an
+    arena still in flight raises."""
+
+    def __init__(self, device: torch.device, nbytes: int = 1 << 16,
+                 depth: int = 0):
+        pin = device.type == "cuda"
+        self._ring = [_Arena(nbytes, pin) for _ in range(depth + 1)]
+        self._open = 0
+        self._in_flight: List[int] = []
+
+    def _arena(self) -> _Arena:
+        if self._open in self._in_flight:
+            raise RuntimeError(f"staging arena {self._open} is still in "
+                               f"flight")
+        return self._ring[self._open]
+
+    def copy(self, dst: torch.Tensor, host: np.ndarray) -> None:
+        """dst.copy_(host) through the open arena (host converted to dst's
+        dtype on the host first, so the device copy is a plain one)."""
+        src = torch.from_numpy(np.ascontiguousarray(host)).to(dst.dtype)
+        pinned = self._arena().take(src.dtype, src.shape)
+        pinned.copy_(src)
+        dst.copy_(pinned, non_blocking=True)
+
+    def readback(self, src: torch.Tensor) -> torch.Tensor:
+        """A host tensor in the open arena that `src` is copied into
+        without blocking: valid once the stream has passed the copy (at
+        once on the CPU)."""
+        host = self._arena().take(src.dtype, src.shape)
+        host.copy_(src, non_blocking=True)
+        return host
+
+    def seal(self) -> int:
+        """The open interval was dispatched: its arena is in flight until
+        `release` and the next interval stages into the next arena. Returns
+        the sealed arena's index."""
+        i = self._open
+        self._arena()
+        self._in_flight.append(i)
+        self._open = (i + 1) % len(self._ring)
+        return i
+
+    def release(self, i: int) -> None:
+        """Interval retired: every copy through arena `i` has completed, so
+        the arena is rewound for reuse."""
+        self._in_flight.remove(i)
+        self._ring[i].rewind()

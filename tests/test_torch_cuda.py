@@ -686,9 +686,10 @@ GRAPH_COUNTERS = ("decode_steps", "mean_batch", "admitted", "preemptions",
                   "prefill_tokens", "finished", "copy_rows")
 
 
-def _graph_engine(dev, arch, paged, cuda_graphs):
+def _graph_engine(dev, arch, paged, cuda_graphs, depth=0):
     """Reduced fp32 engine on the card: static admission (batches of up to
-    4, so decode moves between buckets) and chunked prefill on 2 lanes."""
+    4, so decode moves between buckets) and chunked prefill on 2 lanes,
+    `depth` intervals dispatched ahead (DESIGN §14)."""
     from repro_torch.config.base import ServeConfig
     from repro_torch.config.registry import get_config
     from repro_torch.models.model import build_model
@@ -698,7 +699,8 @@ def _graph_engine(dev, arch, paged, cuda_graphs):
     serve = ServeConfig(policy="static", b_max=4, max_new_tokens=6,
                         kv_pool_tokens=1024, block_size=8,
                         chunked_prefill=True, chunk_budget_tokens=16,
-                        n_prefill_lanes=2, paged_kv=paged)
+                        n_prefill_lanes=2, paged_kv=paged,
+                        overlap_depth=depth)
     return Engine(m, m.init(0), serve, max_context=64, buckets=(1, 2, 4),
                   prefill_chunk=8, device=dev, cuda_graphs=cuda_graphs)
 
@@ -819,3 +821,50 @@ def test_warmup_changes_no_visible_slot_on_card(cuda, arch, paged):
         got, was = (v[:, :-1], before[k][:, :-1]) \
             if paged and k in ("k", "v") else (v, before[k])
         assert torch.equal(got, was), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("arch", GRAPH_FAMILIES)
+def test_overlap_engine_equals_depth0_on_card(cuda, arch, paged, monkeypatch):
+    """On graphs, two intervals dispatched ahead give the synchronous
+    loop's tokens, step count and counters bit for bit; every retirement
+    waits on its own record's event, recorded behind the readback copy
+    into pinned memory; and at depth 2 a record retires only behind two
+    later dispatched intervals (but in the final drain)."""
+    from repro_torch.serving.engine import Engine
+
+    rng = np.random.RandomState(3)
+    prompts = [list(map(int, rng.randint(0, 256, size=n)))
+               for n in (5, 21, 9, 30, 13, 17)]
+    waits, recs = [], []
+    retire = Engine._retire_step
+    event_sync = torch.cuda.Event.synchronize
+
+    def spy_retire(self):
+        rec = self._inflight[0]
+        assert rec.event is not None and rec.host.is_pinned()
+        recs.append((rec.event, self.overlap_depth, len(self._inflight)))
+        return retire(self)
+
+    def spy_event(ev):
+        waits.append(ev)
+        return event_sync(ev)
+
+    monkeypatch.setattr(Engine, "_retire_step", spy_retire)
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", spy_event)
+    runs = {}
+    for depth in (0, 2):
+        eng = _graph_engine(cuda, arch, paged, True, depth=depth)
+        eng.warmup()
+        hs = [eng.submit(p) for p in prompts]
+        steps = eng.run(max_steps=2000)
+        runs[depth] = (steps, [h.output_tokens for h in hs], eng.summary())
+        assert not eng._inflight
+    (s0, t0, m0), (s2, t2, m2) = runs[0], runs[2]
+    assert (s2, t2) == (s0, t0)
+    assert {k: m2[k] for k in GRAPH_COUNTERS} \
+        == {k: m0[k] for k in GRAPH_COUNTERS}
+    assert [ev for ev, _, _ in recs] == waits
+    deep = [n for _, d, n in recs if d == 2]
+    assert deep.count(3) == len(deep) - 2 and deep[-2:] == [2, 1]

@@ -121,8 +121,8 @@ def test_engine_telemetry_feeds_policy(weights):
 
 
 def test_block_manager_matches_jax():
-    """The port's trimmed allocator makes the JAX allocator's decisions,
-    block id for block id, over a random allocate/free sequence."""
+    """The port's allocator makes the JAX allocator's decisions, block id
+    for block id, over a random allocate/free sequence."""
     from repro.serving.kv_cache import BlockManager as JBlockManager
     from repro_torch.serving.kv_cache import BlockManager
 

@@ -219,7 +219,7 @@ def _serve(eng, prompts):
 
 @pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
 def test_tbt_sample_is_the_readback_wait(paged):
-    """`_retire` samples TBT as the reference does: the interval's readback
+    """`_retire_step` samples TBT as the reference does: the interval's readback
     wait (its device time), for the controller and for each request."""
     eng = _engine("granite-3-8b", paged)
     hs, decoded = _serve(eng, _prompts(eng, 5))
@@ -319,7 +319,7 @@ def test_staged_inputs_are_the_eager_loops_inputs(arch, paged, monkeypatch):
 
 def test_staging_copies_each_input_from_its_own_slice():
     """An interval's staged copies never share arena bytes, also past an
-    outgrown arena, until the rewind after the readback."""
+    outgrown arena, until its arena is released after the readback."""
     from repro_torch.serving.graphs import Staging
 
     st = Staging(torch.device("cpu"), nbytes=64)
@@ -328,6 +328,7 @@ def test_staging_copies_each_input_from_its_own_slice():
         st.copy(d, np.arange(d.numel()) + 100 * i)
     for i, d in enumerate(dsts):
         assert d.tolist() == list(range(100 * i, 100 * i + d.numel()))
-    assert st._outgrown and st._off > 0
-    st.rewind()
-    assert not st._outgrown and st._off == 0
+    arena = st._ring[0]
+    assert arena.outgrown and arena.off > 0
+    st.release(st.seal())
+    assert not arena.outgrown and arena.off == 0

@@ -98,9 +98,8 @@ def test_cli_flags_are_the_jax_cli_flags_plus_device():
     assert _flags(port_serve.build_parser()) == jax_flags | {"--device"}
 
 
-@pytest.mark.parametrize("argv", [["--trace", "t.jsonl"], ["--prefix-cache"],
-                                  ["--swap-space", "4"],
-                                  ["--overlap-depth", "1"], ["--mesh", "1,2"]])
+@pytest.mark.parametrize("argv", [["--prefix-cache"], ["--swap-space", "4"],
+                                  ["--mesh", "1,2"]])
 def test_unported_features_raise(argv):
     args = port_serve.build_parser().parse_args(argv + ["--device", "cpu"])
     with pytest.raises(NotImplementedError):
