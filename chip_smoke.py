@@ -97,7 +97,35 @@ Phases, one JSON line each:
              oom_events, rejected, the finished, rejected and SLA-met sets,
              sla_requests_met and goodput_tokens equal the engine's at the
              same depth; decode_steps and mean_batch printed beside.
-10. profile, profile_overlap2
+10. prefix_reference
+             (run after phase 4) granite-3-8b at 2 layers, full width,
+             bf16, paged: request B reads request A's 16 system-prompt
+             blocks through its table and prefills only its suffix; its
+             last logits within 5e-2 of max|logit| of B prefilled whole.
+11. tiers_granite-3-8b_recompute / _swap / _swap_overlap2
+             the memory tiers (DESIGN §11) through
+             `repro_torch.bench.kv_swap.serve_waves`: granite-3-8b
+             paged, full width, the serve flags with `--policy static
+             --pool-tokens 1536`; swap adds `--swap-space 256 --preempt
+             auto`, once more at depth 2. All 12 requests finish, the
+             allocator and host pool end full, only the paged attention
+             kernels launch; recompute preempts and never swaps, swap
+             swaps out at least once and swaps every victim back in;
+             depth 2 gives depth 0's tokens and counters. Wrappers set on
+             the engine's `_swap_out` / `_swap_in_next` from outside hold
+             each swap round trip's K, V and pos rows bit for bit.
+             tiers_granite-3-8b_prefix_off / _on / _prefix
+             prefix sharing (DESIGN §10) through
+             `bench.prefix_caching`: the shared-system-prompt stream in
+             5 waves (16 requests), pool 8192: the hit rate and hit
+             tokens equal the simulator's, no block is copied, prefill
+             tokens fall by exactly the hit tokens; TTFT and the share
+             of requests with equal tokens are printed.
+             twin_tiers_granite-3-8b
+             each tier run against the port's simulator on the same
+             stream: TWIN, the swap counters and the request sets.
+             Predictions (the simulator's) are printed beside.
+12. profile, profile_overlap2
              last (a process that has run the tracer launches slower
              after it), on fresh granite contiguous engines at depth 0 and
              at depth 2: 8 requests are promoted, then two consecutive
@@ -109,6 +137,13 @@ Phases, one JSON line each:
              and the device's gap between the last work the first call
              launched and the first work the second launched; at depth 2
              every traced call must leave two intervals in flight.
+13. profile_swap
+             the depth-0 swap run's engine serves its prompts again; its
+             first swap-out and swap-in intervals under `torch.profiler`,
+             the swap calls annotated from outside: no blocking CUDA
+             call and no pageable copy from them, the intervals' one
+             blocking call the retirement's event wait; the device time
+             of the swap's copies per swapped block.
 
 Then the card's name and power limit, the `{"kernels": [...]}` summary,
 and as the last line `{"ok": true, "device": {...}}`. Any failure raises:
@@ -766,13 +801,11 @@ def run_reference(dev, arch: str):
 
 
 def serve_prompts(arch: str):
-    import numpy as np
+    from repro_torch.bench.kv_swap import prompts
     from repro_torch.config.registry import get_config
 
-    vocab = get_config(arch, "full").vocab_size
-    rng = np.random.RandomState(0)
-    return [list(map(int, rng.randint(0, vocab, size=rng.randint(
-        PROMPT_LO, PROMPT_HI + 1)))) for _ in range(FAMILIES[arch][0])]
+    return prompts(get_config(arch, "full").vocab_size, FAMILIES[arch][0],
+                   PROMPT_LO, PROMPT_HI)
 
 
 def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
@@ -858,15 +891,6 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
     return fields, eng, handles
 
 
-def request_sets(reqs) -> dict:
-    """The finished, rejected and SLA-met request ids of a run."""
-    return dict(
-        finished=sorted(r.rid for r in reqs
-                        if r.state.value == "finished" and not r.rejected),
-        rejected=sorted(r.rid for r in reqs if r.rejected),
-        sla_met=sorted(r.rid for r in reqs if r.sla_met))
-
-
 def overlap_figures(fields) -> dict:
     s = fields["summary"]
     return dict(step_host_s_mean=s["step_host_s_mean"],
@@ -888,6 +912,7 @@ def run_twin(arch: str, layout: str, runs: dict):
     depth on TWIN and on the request sets; decode_steps and mean_batch are
     printed beside the engine's (the sim's batch trace also counts
     prefill-only intervals)."""
+    from repro_torch.bench.kv_swap import request_sets
     from repro_torch.config.registry import get_config
     from repro_torch.core.telemetry import Telemetry
     from repro_torch.launch import serve
@@ -934,6 +959,324 @@ def run_twin(arch: str, layout: str, runs: dict):
     if bad:
         raise AssertionError(f"twin {arch} {layout}: the engine and the "
                              f"simulator disagree: {bad}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the memory tiers (DESIGN §10, §11): granite-3-8b on the paged pool
+
+TIER_ARCH = "granite-3-8b"
+#: the port's simulator's figures for the tier runs, printed beside the
+#: engine's (`serving/sim.py`, CPU, before the first chip run)
+TIER_PREDICTION = {"recompute": {"preemptions": 2, "swap_outs": 0},
+                   "swap": {"swap_outs": 3, "swap_ins": 3},
+                   "prefix": {"prefix_hit_rate": 0.558,
+                              "ttft_mean_s": {"off": 0.726, "on": 0.396}}}
+#: the engine-vs-simulator counters of the tier runs
+TIER_TWIN = TWIN + ("swap_outs", "swap_ins", "swap_out_bytes",
+                    "swap_in_bytes")
+
+
+def _pool_rows(eng, ids):
+    """Clones of the K, V and pos pool rows of blocks `ids`: the ids staged
+    through the engine's pinned arena, the gathers queued on the stream
+    (no wait)."""
+    idx = eng._ids(ids)
+    return {k: eng.cache[k].index_select(0 if k == "pos" else 1,
+                                         idx).clone()
+            for k in ("k", "v", "pos")}
+
+
+def watch_swaps(eng, log: dict) -> None:
+    """Wrap the engine's `_swap_out` and `_swap_in_next` from outside: at
+    each swap-out snapshot the victim's pool rows, at each swap-in the rows
+    at its new block ids (compared after the run, so the serve run waits
+    on nothing), and the interval index of each."""
+    swap_out, swap_in = eng._swap_out, eng._swap_in_next
+    log.update(taken={}, restored=[], out_at=[], in_at=[])
+
+    def out_spy(slot, r):
+        log["taken"][r.rid] = _pool_rows(eng, eng.blocks.table(r.rid))
+        log["out_at"].append(len(eng.step_host_trace))
+        return swap_out(slot, r)
+
+    def in_spy():
+        rid = eng.swapped[0].rid
+        ok = swap_in()
+        if ok:
+            log["restored"].append(
+                (log["taken"].pop(rid), _pool_rows(eng,
+                                                   eng.blocks.table(rid))))
+            log["in_at"].append(len(eng.step_host_trace))
+        return ok
+
+    eng._swap_out, eng._swap_in_next = out_spy, in_spy
+
+
+def round_trip_check(log: dict, name: str) -> dict:
+    """Every swap-in restored the swapped-out rows bit for bit."""
+    torch.cuda.synchronize()
+    same = [all(bool(torch.equal(a[k], b[k])) for k in a)
+            for a, b in log["restored"]]
+    out = dict(round_trips=len(same), bit_equal=all(same) and bool(same),
+               blocks=[int(a["pos"].shape[0]) for a, _ in log["restored"]])
+    if not out["bit_equal"]:
+        raise AssertionError(f"{name}: a swap round trip changed the pool "
+                             f"rows: {same}")
+    return out
+
+
+def run_tier(kind: str, mode: str, depth: int = 0, watch: bool = False):
+    """One memory-tier serve run through `repro_torch.bench.kv_swap` or
+    `bench.prefix_caching` (their `serve_waves`: `launch.serve`'s
+    `build_engine` on chip_smoke's serve flags plus the tier's), its
+    launches counted, at overlap depth `depth`. Returns (name, the bench's
+    result, the launches, the swap log)."""
+    from repro_torch.bench import kv_swap, prefix_caching
+    from repro_torch.config.registry import get_config
+    from repro_torch.kernels import ops
+
+    base = SERVE_ARGS + ["--arch", TIER_ARCH]
+    if kind == "swap":
+        argv, waves = kv_swap.swap_argv(mode, base), \
+            [serve_prompts(TIER_ARCH)]
+    else:
+        argv = prefix_caching.prefix_argv(mode, base)
+        waves = prefix_caching.waves(get_config(TIER_ARCH,
+                                                "full").vocab_size)
+    argv += ["--overlap-depth", str(depth)]
+    log: dict = {}
+
+    def on_built(eng):
+        if watch:
+            watch_swaps(eng, log)
+        ops.reset_launches()
+
+    out = kv_swap.serve_waves(argv, waves, on_built=on_built)
+    launches = dict(ops.LAUNCHES)
+    name = f"tiers_{TIER_ARCH}_" + (mode if kind == "swap"
+                                    else f"prefix_{mode}") \
+        + (f"_overlap{depth}" if depth else "")
+    return name, out, launches, log
+
+
+def check_tier_run(name: str, out: dict, launches: dict, n_req: int):
+    """All requests finish, the allocator and host pool end full, and the
+    run attends through the block table only."""
+    m, eng = out["metrics"], out["engine"]
+    if m["finished"] != n_req or not m["allocator_full"] \
+            or m["host_blocks_free"] != eng.serve.swap_space_blocks \
+            * eng.swap:
+        raise AssertionError(f"{name}: {m['finished']} of {n_req} "
+                             f"finished, allocator full "
+                             f"{m['allocator_full']}, host blocks free "
+                             f"{m['host_blocks_free']}")
+    if any(launches[k] for k in ATTENTION[False]) \
+            or not all(launches[k] for k in ATTENTION[True]):
+        raise AssertionError(f"{name}: not only the paged attention "
+                             f"kernels launched: {launches}")
+    if eng._inflight or any(st.graph is None
+                            for st in eng.graphs.steps.values()):
+        raise AssertionError(f"{name}: intervals left in flight or a step "
+                             f"without its graph")
+
+
+def tier_twin(out: dict) -> tuple:
+    """(engine, simulator) on TIER_TWIN and the request sets."""
+    from repro_torch.bench.kv_swap import request_sets
+
+    m = out["metrics"]
+    eng = {k: m[k] for k in TIER_TWIN} | request_sets(out["requests"])
+    sim = {k: out["sim"][k] for k in TIER_TWIN} | out["sim"]["sets"]
+    return eng, sim
+
+
+def run_tiers():
+    """The swap tier and prefix sharing at full width: recompute and swap
+    (depth 0 and 2) under the 1536-token pool, prefix sharing off and on
+    over the shared-system-prompt waves, each held against the port's
+    simulator on the same stream. Returns (the figures, the launches, the
+    depth-0 swap engine and its swap log, for `profile_swap`)."""
+    n_req = len(serve_prompts(TIER_ARCH))
+    figures, launches, twins = {}, {}, {}
+    keep = None
+
+    def add(lc):
+        for k, n in lc.items():
+            launches[k] = launches.get(k, 0) + n
+
+    runs = {}
+    for mode, depth in (("recompute", 0), ("swap", 0), ("swap", 2)):
+        name, out, lc, log = run_tier("swap", mode, depth,
+                                      watch=mode == "swap")
+        check_tier_run(name, out, lc, n_req)
+        m = out["metrics"]
+        fields = dict(metrics=m, launches=lc,
+                      prediction=TIER_PREDICTION[mode],
+                      sim={k: out["sim"][k] for k in TIER_TWIN},
+                      swapped_mib=m["swap_out_bytes"] / 2 ** 20)
+        if mode == "swap":
+            fields["round_trip"] = round_trip_check(log, name)
+            fields["swap_intervals"] = dict(out=log["out_at"],
+                                            into=log["in_at"])
+        emit(name, **fields)
+        add(lc)
+        if mode == "recompute" and (m["preemptions"] < 1
+                                    or m["swap_outs"] != 0):
+            raise AssertionError(f"{name}: {m['preemptions']} preemptions, "
+                                 f"{m['swap_outs']} swap-outs")
+        if mode == "swap" and (m["swap_outs"] < 1
+                               or m["swap_ins"] != m["swap_outs"]):
+            raise AssertionError(f"{name}: {m['swap_outs']} swap-outs, "
+                                 f"{m['swap_ins']} swap-ins")
+        twins[f"{mode}_depth{depth}"] = tier_twin(out)
+        runs[mode, depth] = out
+        figures[name] = fields
+        if (mode, depth) == ("swap", 0):
+            keep = (out["engine"], log, out["requests"])
+        else:
+            out.pop("engine")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    zero, two = runs["swap", 0], runs["swap", 2]
+    diff = {k: (zero["metrics"][k], two["metrics"][k])
+            for k in STRUCTURAL + TIER_TWIN[-4:]
+            if zero["metrics"][k] != two["metrics"][k]}
+    if zero["tokens"] != two["tokens"] or diff:
+        raise AssertionError(f"swap: the depth-{OVERLAP_DEPTH} run's tokens "
+                             f"or counters differ from depth 0's: {diff}")
+
+    prefix = {}
+    for mode in ("off", "on"):
+        name, out, lc, _ = run_tier("prefix", mode)
+        check_tier_run(name, out, lc, len(out["requests"]))
+        m = out["metrics"]
+        emit(name, metrics=m, launches=lc, sim={
+            k: out["sim"][k] for k in ("prefix_hit_rate",
+                                       "prefix_hit_tokens",
+                                       "prefix_query_tokens",
+                                       "ttft_mean_s", "ttft_p90_s")},
+             prediction=TIER_PREDICTION["prefix"])
+        add(lc)
+        twins[f"prefix_{mode}"] = tier_twin(out)
+        out.pop("engine")
+        prefix[mode] = out
+        figures[name] = dict(metrics=m, launches=lc)
+        gc.collect()
+        torch.cuda.empty_cache()
+    off, on = prefix["off"]["metrics"], prefix["on"]["metrics"]
+    sim_on = prefix["on"]["sim"]
+    same = [a == b for a, b in zip(prefix["off"]["tokens"],
+                                   prefix["on"]["tokens"])]
+    check = dict(
+        hit_rate=dict(engine=on["prefix_hit_rate"],
+                      sim=sim_on["prefix_hit_rate"]),
+        hit_tokens=dict(engine=on["prefix_hit_tokens"],
+                        sim=sim_on["prefix_hit_tokens"]),
+        copy_bytes=on["copy_bytes"],
+        prefill_tokens=dict(off=off["prefill_tokens"],
+                            on=on["prefill_tokens"]),
+        ttft_mean_s=dict(off=off["ttft_mean_s"], on=on["ttft_mean_s"]),
+        ttft_p90_s=dict(off=off["ttft_p90_s"], on=on["ttft_p90_s"]),
+        tokens_equal_share=sum(same) / len(same),
+        requests=len(same))
+    emit(f"tiers_{TIER_ARCH}_prefix", **check,
+         prediction=TIER_PREDICTION["prefix"])
+    if on["prefix_hit_rate"] != sim_on["prefix_hit_rate"] \
+            or on["prefix_hit_tokens"] != sim_on["prefix_hit_tokens"] \
+            or on["copy_bytes"] != 0 or on["prefix_hit_tokens"] <= 0:
+        raise AssertionError(f"prefix: the engine's hits differ from the "
+                             f"simulator's, or a block was copied: {check}")
+    if off["preemptions"] == on["preemptions"] == 0 \
+            and on["prefill_tokens"] != off["prefill_tokens"] \
+            - on["prefix_hit_tokens"]:
+        raise AssertionError(f"prefix: prefill tokens not reduced by the "
+                             f"hit tokens: {check}")
+    figures["prefix_check"] = check
+
+    bad = {f"{run} {k}": (e[k], s[k]) for run, (e, s) in twins.items()
+           for k in e if e[k] != s[k]}
+    emit(f"twin_tiers_{TIER_ARCH}", **{run: dict(engine=e, sim=s)
+                                       for run, (e, s) in twins.items()})
+    if bad:
+        raise AssertionError(f"twin tiers: the engine and the simulator "
+                             f"disagree: {bad}")
+    figures["twin"] = {run: e for run, (e, _) in twins.items()}
+    return figures, launches, keep
+
+
+#: prefix_reference: system prompt, the two users' suffixes (tokens)
+PREFIX_REF = (256, 40, 50)
+
+
+def run_prefix_reference(dev):
+    """Granite at 2 layers, full width, bf16, on the paged pool: request A
+    (system + user A) prefilled into a fresh pool, then request B reads
+    A's system blocks through its table and prefills only its suffix; B's
+    last-position logits against B prefilled whole into a fresh pool,
+    within 5e-2 of max|logit|. 16-token chunks, as the engine runs."""
+    import dataclasses
+    from repro_torch.config.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    sys_len, ua, ub = PREFIX_REF
+    bs, chunk = 16, 16
+    cfg = dataclasses.replace(get_config(TIER_ARCH, "full"), num_layers=2)
+    m = build_model(cfg, torch.bfloat16, dev)
+    params = m.init(0)
+    g = torch.Generator().manual_seed(0)
+    system, a_user, b_user = (torch.randint(0, cfg.vocab_size, (n,),
+                                            generator=g).tolist()
+                              for n in PREFIX_REF)
+
+    def prefill(cache, table, toks, start):
+        """Chunks of `toks[start:]` at their positions through `table`;
+        the last chunk's last-position logits."""
+        tbl = torch.full((1, 64), -1, dtype=torch.int32, device=dev)
+        tbl[0, :len(table)] = torch.tensor(table, dtype=torch.int32)
+        lg = None
+        for s0 in range(start, len(toks), chunk):
+            piece = toks[s0:s0 + chunk]
+            t = torch.tensor([piece], device=dev)
+            pos = torch.arange(s0, s0 + len(piece), dtype=torch.int32,
+                               device=dev)[None]
+            lg, _ = m.prefill_paged(params, t, pos, tbl, cache,
+                                    rows=torch.zeros(1, dtype=torch.int64,
+                                                     device=dev),
+                                    last_only=True)
+        return lg[0, -1].float()
+
+    ops.reset_launches()
+    nb = 64
+    a = system + a_user
+    b = system + b_user
+    shared = sys_len // bs
+    a_tbl = list(range(-(-len(a) // bs)))
+    b_tbl = a_tbl[:shared] + list(range(len(a_tbl),
+                                        len(a_tbl) + -(-len(b) // bs)
+                                        - shared))
+    cache = m.init_paged_cache(nb, bs, n_slots=1)
+    prefill(cache, a_tbl, a, 0)
+    got = prefill(cache, b_tbl, b, sys_len)
+    launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+    fresh = m.init_paged_cache(nb, bs, n_slots=1)
+    want = prefill(fresh, list(range(-(-len(b) // bs))), b, 0)
+    rel = float((got - want).abs().max() / want.abs().max())
+    out = dict(layers=2, d_model=cfg.d_model, system_tokens=sys_len,
+               suffix_tokens=ub, shared_blocks=shared, rel_max_err=rel,
+               tol=5e-2, argmax_equal=bool(got.argmax() == want.argmax()),
+               finite=bool(torch.isfinite(got).all()), launches=launches)
+    emit("prefix_reference", **out)
+    if rel > 5e-2 or not out["finite"] \
+            or not launches.get("paged_flash_attention"):
+        raise AssertionError(f"prefix_reference: the shared-prefix suffix "
+                             f"prefill differs from the whole prefill: "
+                             f"{out}")
+    del m, params, cache, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1166,6 +1509,122 @@ def run_profile(arch: str, paged: bool, depth: int = 0):
     return t
 
 
+def _swap_spans(path: Path):
+    """Each `swap_out` / `swap_in` annotation of a chrome trace: the CUDA
+    runtime calls inside it, the blocking ones, its pageable copies, and
+    the device time of the work those calls launched (gathers, scatters,
+    copies), with the kinds of its copies."""
+    ev = json.loads(path.read_text())["traceEvents"]
+    out = []
+    for a in (e for e in ev if e.get("cat") == "user_annotation"
+              and e.get("name") in ("swap_out", "swap_in")):
+        t0, t1 = a["ts"], a["ts"] + a["dur"]
+        rt = [e for e in ev if e.get("cat") in ("cuda_runtime",
+                                                "cuda_driver")
+              and t0 <= e.get("ts", -1) <= t1]
+        corr = {e["args"]["correlation"] for e in rt
+                if "correlation" in e.get("args", {})}
+        dev = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset")
+               and e.get("args", {}).get("correlation") in corr]
+        names = [e["name"] for e in rt]
+        out.append(dict(
+            name=a["name"], host_us=a["dur"], runtime_calls=len(names),
+            blocking=[n for n in names if n in SYNC_CALLS],
+            pageable_copies=sum(1 for e in dev if "Pageable" in e["name"]),
+            copies=sorted({e["name"] for e in dev
+                           if e.get("cat") == "gpu_memcpy"}),
+            device_us=sum(e.get("dur", 0) for e in dev),
+            device_events=len(dev)))
+    return out
+
+
+def run_profile_swap(eng, log: dict, prompts):
+    """The depth-0 swap run's first swap-out and first swap-in intervals
+    under `torch.profiler`, on that run's engine serving its prompts again
+    (every tail chunk is captured by now, and the static policy repeats
+    the interval sequence): the swap calls, annotated from outside, make
+    no blocking CUDA call and no pageable copy, and the traced intervals'
+    one blocking call is the retirement's event wait. Prints the device
+    time of the swap's gathers, scatters and copies per swapped block."""
+    from torch.profiler import ProfilerAction, ProfilerActivity
+
+    del eng._swap_out, eng._swap_in_next        # the round-trip watchers
+    swap_out, swap_in = eng._swap_out, eng._swap_in_next
+    marks = []
+
+    def out_ann(slot, r):
+        marks.append(("out", len(eng.blocks.table(r.rid)),
+                      len(eng.step_host_trace)))
+        with torch.profiler.record_function("swap_out"):
+            return swap_out(slot, r)
+
+    def in_ann():
+        r = eng.swapped[0]
+        with torch.profiler.record_function("swap_in"):
+            ok = swap_in()
+        if ok:
+            marks.append(("in", len(eng.blocks.table(r.rid)),
+                          len(eng.step_host_trace)))
+        return ok
+
+    eng._swap_out, eng._swap_in_next = out_ann, in_ann
+    base = len(eng.step_host_trace)
+    targets = {base + log["out_at"][0], base + log["in_at"][0]}
+
+    def sched(step):
+        if base + step in targets:
+            return ProfilerAction.RECORD_AND_SAVE
+        if base + step + 1 in targets:
+            return ProfilerAction.WARMUP
+        return ProfilerAction.NONE
+
+    OUT_DIR.mkdir(exist_ok=True)
+    paths = []
+
+    def save(prof):
+        paths.append(OUT_DIR / f"trace_{TIER_ARCH}_swap_{len(paths)}.json")
+        prof.export_chrome_trace(str(paths[-1]))
+
+    n0 = eng.total_finished
+    for p in prompts:
+        eng.submit(p)
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=sched, on_trace_ready=save) as prof:
+        while True:
+            with torch.profiler.record_function("interval"):
+                more = eng.step()
+            prof.step()
+            if not more:
+                break
+    torch.cuda.synchronize()
+    traced = [dict(trace=str(pth.relative_to(ROOT)), **trace_interval(pth),
+                   swaps=_swap_spans(pth)) for pth in paths]
+    swaps = [w for t in traced for w in t["swaps"]]
+    hit = {(k, i) for k, _, i in marks if i in targets}
+    blocks = {k: b for k, b, i in marks if i in targets}
+    per_block = {w["name"]: w["device_us"] / max(blocks.get(
+        w["name"][5:], 1), 1) for w in swaps}
+    out = dict(arch=TIER_ARCH, overlap_depth=eng.overlap_depth,
+               targets=sorted(t - base for t in targets),
+               marks=[(k, b, i - base) for k, b, i in marks],
+               finished=eng.total_finished - n0, intervals=traced,
+               device_us_per_block=per_block)
+    emit("profile_swap", **out)
+    bad = [w for w in swaps if w["blocking"] or w["pageable_copies"]] \
+        + [t for t in traced if t["syncs_before_readback"]
+           or t["pageable_copies"] or t["readback"] != READBACK]
+    if bad or {k for k, _ in hit} != {"out", "in"} \
+            or {w["name"] for w in swaps} != {"swap_out", "swap_in"} \
+            or eng.total_finished - n0 != len(prompts):
+        raise AssertionError(f"profile_swap: a swap call blocks or copies "
+                             f"pageable memory, the traced intervals did "
+                             f"not swap, or an interval blocks before its "
+                             f"event wait: {bad or out}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1213,6 +1672,7 @@ def main() -> int:
 
     kres = run_kernels(dev)
     refs = [run_reference(dev, arch) for arch in REFERENCE]
+    prefix_ref = run_prefix_reference(dev)
     serves, runs, launches, graphs, served = {}, {}, {}, {}, {}
 
     def tokens(key):
@@ -1281,10 +1741,19 @@ def main() -> int:
         0: served[arch, layout],
         OVERLAP_DEPTH: served[arch, layout, OVERLAP_DEPTH]})
         for arch, layout in OVERLAPPED if arch in TWINNED}
+    # the memory tiers (DESIGN §10, §11), their launches on the main path
+    tiers, tier_launches, (swap_eng, swap_log, _) = run_tiers()
+    for k, n in tier_launches.items():
+        launches[k] = launches.get(k, 0) + n
     arch, layout = PROFILED
     profile = run_profile(arch, layout == "paged")
     profile_overlap = run_profile(arch, layout == "paged",
                                   depth=OVERLAP_DEPTH)
+    profile_swap = run_profile_swap(swap_eng, swap_log,
+                                    serve_prompts(TIER_ARCH))
+    del swap_eng, swap_log
+    gc.collect()
+    torch.cuda.empty_cache()
 
     summary = []
     for name, (route, source, replaces, case) in KERNELS.items():
@@ -1309,7 +1778,8 @@ def main() -> int:
          "reference": refs, "serve": runs, "launches": launches,
          "graphs": graphs, "profile": profile,
          "profile_overlap": profile_overlap, "serve_overlap": overlap,
-         "twin": twins,
+         "twin": twins, "tiers": tiers, "prefix_reference": prefix_ref,
+         "profile_swap": profile_swap,
          "serve_eager": {f"{arch}_{layout}": eager}},
         indent=1))
     print(card)

@@ -7,9 +7,12 @@ Every flag of the JAX package's `launch/serve.py`, with the same names and
 defaults, plus `--device` (default cuda; `--device cpu` runs the plain
 PyTorch path). `--overlap-depth K` keeps K intervals dispatched ahead of
 retirement (DESIGN §14); `--trace PATH` replays a `repro-trace` file
-(DESIGN §15). Flags of features the port has not reached yet (prefix
-sharing, the swap tier, mesh serving) raise NotImplementedError when set
-away from their defaults.
+(DESIGN §15). The memory tiers run on the paged pool (`--paged`) of the
+attention-only families: `--prefix-cache` shares indexed prompt blocks
+(DESIGN §10), `--swap-space N --preempt auto|swap|recompute` offloads
+preemption victims to an N-block host pool, `--profile` pricing the
+swap-vs-recompute crossover (DESIGN §11). `--mesh` (mesh serving, not
+ported yet) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -102,9 +105,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--paged", action="store_true",
                     help="physically paged KV cache (block-table pools)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="prefix sharing (DESIGN §10): not yet ported")
+                    help="prefix sharing (DESIGN §10): ref-counted shared "
+                         "prompt blocks with copy-on-write (paged, "
+                         "attention-only families)")
     ap.add_argument("--swap-space", type=int, default=0, metavar="BLOCKS",
-                    help="host swap pool (DESIGN §11): not yet ported")
+                    help="host swap pool of BLOCKS blocks (DESIGN §11): "
+                         "preemption may offload a victim's K/V instead "
+                         "of recomputing it (paged, attention-only "
+                         "families)")
     ap.add_argument("--preempt", default="auto",
                     choices=["auto", "swap", "recompute"],
                     help="preemption flavor; without a swap pool every "
@@ -157,6 +165,7 @@ def build_engine(args, cuda_graphs: Optional[bool] = None):
     describe, its step graphs captured on the card (`Engine.warmup`).
     `cuda_graphs=False` runs the steps eagerly on the card."""
     from repro_torch.models.model import build_model
+    from repro_torch.serving.cost_model import CostModel
     from repro_torch.serving.engine import Engine, check_ported
 
     serve = serve_config(args)
@@ -167,7 +176,8 @@ def build_engine(args, cuda_graphs: Optional[bool] = None):
     eng = Engine(model, model.init(args.seed), serve,
                  max_context=args.max_context, buckets=serve.batch_buckets,
                  prefill_chunk=16, seed=args.seed, device=args.device,
-                 cuda_graphs=cuda_graphs)
+                 cuda_graphs=cuda_graphs,
+                 cost=CostModel(cfg, PROFILES[args.profile]))
     if eng.graphs.enabled:
         # every decode bucket and full-chunk lane shape before any request
         eng.warmup()

@@ -42,8 +42,19 @@ feeds and timestamps, rewinds its arena and seals the allocator's shadow
 epoch. The staging ring holds `overlap_depth + 1` arenas, so no pinned
 byte that a queued copy has yet to read is overwritten (`graphs.Staging`).
 On the CPU the same path runs eagerly: every copy has completed when it
-returns. Prefix sharing, the swap tier and mesh serving are not ported yet
-and raise when asked for.
+returns.
+
+The memory tiers run on the paged pool of the attention-only families, as
+in the reference (DESIGN §10, §11). Prefix sharing maps a prompt's indexed
+full blocks into its table at admission, prefills only the suffix and
+registers each chunk's full blocks once its K/V is dispatched; a shared
+block about to be written is first copied in place (copy-on-write on the
+pools, whose addresses the CUDA graphs captured). The swap tier moves a
+preemption victim's K, V and position rows into a block-major host pool
+(pinned on the card) and back on swap-in, with non-blocking copies on the
+engine's one stream, which orders them after the steps that wrote those
+rows and before any later reuse: the swap path adds no synchronisation.
+Mesh serving is not ported yet and raises when asked for.
 """
 from __future__ import annotations
 
@@ -63,8 +74,10 @@ from repro_torch.core.memory_model import MemoryModel
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.models.backbone import STATE_KEYS
 from repro_torch.models.model import Model, resolve_device
+from repro_torch.serving.cost_model import PROFILES, CostModel
 from repro_torch.serving.graphs import Staging, Step, StepGraphs
-from repro_torch.serving.kv_cache import BlockManager
+from repro_torch.serving.kv_cache import (BlockManager, prefix_cache_supported,
+                                          swap_supported)
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import sample
 
@@ -87,14 +100,27 @@ def put_cache_rows(cache: Dict[str, torch.Tensor], rows,
             v[:, rows] = sub[k]
 
 
+#: the paged pools a swap or a copy-on-write moves, block axis 0 for `pos`
+#: and 1 for K and V
+POOL_KEYS = ("k", "v", "pos")
+
+
 def check_ported(serve: ServeConfig) -> None:
     """Raise for ServeConfig features this slice has not ported yet."""
-    for name, set_ in (("prefix_cache", serve.prefix_cache),
-                       ("swap_space_blocks", serve.swap_space_blocks > 0),
-                       ("mesh_shape", bool(serve.mesh_shape))):
-        if set_:
-            raise NotImplementedError(
-                f"ServeConfig.{name} is not yet ported to repro_torch")
+    if serve.mesh_shape:
+        raise NotImplementedError(
+            "ServeConfig.mesh_shape is not yet ported to repro_torch")
+
+
+def host_runs(ids: List[int]):
+    """(start, stop, first id) of each run of consecutive ids in `ids`
+    (sorted): one host copy each."""
+    runs, a = [], 0
+    for i in range(1, len(ids) + 1):
+        if i == len(ids) or ids[i] != ids[i - 1] + 1:
+            runs.append((a, i, ids[a]))
+            a = i
+    return runs
 
 
 @dataclasses.dataclass
@@ -130,10 +156,13 @@ class Engine:
                  buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64),
                  prefill_chunk: int = 32, seed: int = 0,
                  temperature: float = 0.0, device=None,
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None,
+                 cost: Optional[CostModel] = None):
         """`cuda_graphs`: run each step as a CUDA graph replay (default on
         the card); False runs the same steps eagerly, as on the CPU, where
-        True raises."""
+        True raises. `cost`: the swap-vs-recompute crossover's cost model
+        (DESIGN §11), the a100x8 profile by default, as in the
+        reference."""
         check_ported(serve)
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -159,7 +188,18 @@ class Engine:
                                eps_m=serve.eps_m,
                                block_size=serve.block_size, eta_tokens=eta)
         self.paged = serve.paged_kv
-        self.blocks = BlockManager(self.mem.eta, serve.block_size)
+        # prefix sharing (DESIGN §10) and the host swap tier (DESIGN §11):
+        # the paged pool of a family whose per-request state is all in the
+        # K/V blocks, exactly the reference's gates
+        kv_only = self.paged and self.mem.bytes_per_token != 0
+        self.prefix = serve.prefix_cache and kv_only \
+            and prefix_cache_supported(self.cfg)
+        self.swap = serve.swap_space_blocks > 0 and kv_only \
+            and serve.preempt != "recompute" and swap_supported(self.cfg)
+        self.blocks = BlockManager(
+            self.mem.eta, serve.block_size, prefix_cache=self.prefix,
+            swap_space_blocks=serve.swap_space_blocks if self.swap else 0)
+        self.cost = cost or CostModel(self.cfg, PROFILES["a100x8"])
         self.n_slots = self.max_slots + self.n_lanes
         # per-request block-table width: enough blocks for a full context
         self.max_blocks = -(-max_context // serve.block_size)
@@ -188,25 +228,51 @@ class Engine:
         # request with r.lane >= 0 owns lane r.lane, the rest queue
         self.prefilling: List[Request] = []
         self.lanes: List[Optional[Request]] = [None] * self.n_lanes
+        # offloaded requests awaiting swap-in, drained before `waiting`
+        self.swapped: List[Request] = []
         self.now0 = time.perf_counter()
         self._next_rid = 0
         self.total_decoded = 0
         self.total_finished = 0
         self.admitted_total = 0   # successful admissions from `waiting`
-        self.preemptions = 0      # recompute evictions
+        self.preemptions = 0      # evictions, recompute + swap-out alike
         self.oom_events = 0       # admission refusals at the watermark
         self.rejected = 0         # requests too large for the pool, dropped
         # per-request goodput SLOs (DESIGN §15), stamped at retirement
         self.sla_requests_met = 0
         self.goodput_tokens = 0
+        self.swap_outs = 0        # victims offloaded to the host pool
+        self.swap_ins = 0         # offloaded requests restored
+        self.swap_out_bytes = 0
+        self.swap_in_bytes = 0
+        self.swap_wait_trace: List[float] = []   # per round trip (s)
+        # the host swap pool, block-major (one host block is one contiguous
+        # slab of every layer's rows): K and V (blocks, L, bs, KV, hd), pos
+        # (blocks, bs); pinned on the card, so its copies do not block
+        self._host_pool: Dict[str, torch.Tensor] = {}
+        if self.swap:
+            for k in POOL_KEYS:
+                v = self.cache[k]
+                rest = v.shape[1:] if k == "pos" else v.shape[:1] \
+                    + v.shape[2:]
+                self._host_pool[k] = torch.empty(
+                    (serve.swap_space_blocks,) + tuple(rest), dtype=v.dtype,
+                    pin_memory=self.device.type == "cuda")
         # contiguous-layout row copies (promotion/compaction/eviction);
-        # stays 0 under paged_kv (DESIGN §9)
+        # stays 0 under paged_kv (DESIGN §9), where copy_bytes counts the
+        # copy-on-write block duplications (DESIGN §10)
         self.copy_rows = 0
         self.copy_bytes = 0
         self._row_bytes = 0 if self.paged else sum(
             v[:, 0].numel() * v.element_size() if k != "pos"
             else v[0].numel() * v.element_size()
             for k, v in self.cache.items())
+        # per-block pool bytes: the unit a copy-on-write duplicates
+        self._blk_bytes = sum(
+            v[0].numel() * v.element_size() if k == "pos"
+            else v[:, 0].numel() * v.element_size()
+            for k, v in self.cache.items() if k in POOL_KEYS) \
+            if self.paged else 0
         self.decode_steps = 0
         self.batch_trace: List[int] = []
         self.tbt_trace: List[float] = []
@@ -264,19 +330,50 @@ class Engine:
             tbl[i, :len(ids)] = ids
         return tbl
 
+    def _ids(self, ids) -> torch.Tensor:
+        """Host ids as a device int64 tensor, staged through the open
+        arena without blocking."""
+        t = torch.empty(len(ids), dtype=torch.int64, device=self.device)
+        self._staging.copy(t, np.fromiter(ids, np.int64, len(ids)))
+        return t
+
+    def _release_blocks(self, freed: List[int]) -> None:
+        """Clear the pos-pool rows of freed blocks so a future tenant never
+        sees stale positions (DESIGN §9)."""
+        if freed and "pos" in self.cache:
+            self.cache["pos"].index_fill_(0, self._ids(freed), -1)
+
+    def _drain_released(self) -> None:
+        """Clear the pos rows of blocks the allocator evicted from the
+        prefix cache for reuse (DESIGN §10), before the first attention
+        read over a table that holds them."""
+        self._release_blocks(self.blocks.take_released())
+
+    def _cow_blocks(self, pairs: List[Tuple[int, int]]) -> None:
+        """Copy-on-write (DESIGN §10, `BlockManager.cow_range`): copy the
+        K, V and pos rows of each shared source block into its private
+        copy, in place. Block-aligned suffixes keep this off the
+        steady-state path."""
+        if not pairs:
+            return
+        src = self._ids([a for a, _ in pairs])
+        dst = self._ids([b for _, b in pairs])
+        for k in POOL_KEYS:
+            ax = 0 if k == "pos" else 1
+            v = self.cache[k]
+            v.index_copy_(ax, dst, v.index_select(ax, src))
+        self.copy_bytes += self._blk_bytes * len(pairs)
+
     def _free_request(self, r: Request) -> None:
-        """Release a request's blocks; in paged mode clear their pos-pool
-        rows so a future tenant never sees stale positions, and return its
-        state slot (DESIGN §9)."""
+        """Release a request's blocks (a decref under prefix sharing:
+        cached blocks keep their pos rows, DESIGN §10); in paged mode
+        clear the truly freed blocks' pos rows and return its state slot
+        (DESIGN §9)."""
         freed = self.blocks.free(r.rid)
         self._pending_tok.pop(r.rid, None)
         if not self.paged:
             return
-        if freed and "pos" in self.cache:
-            ids = torch.empty(len(freed), dtype=torch.int64,
-                              device=self.device)
-            self._staging.copy(ids, np.fromiter(freed, np.int64, len(freed)))
-            self.cache["pos"][ids] = -1
+        self._release_blocks(freed)
         if r.slot >= 0:
             self._free_slots.append(r.slot)
             r.slot = -1
@@ -416,7 +513,8 @@ class Engine:
         readback, then retire the oldest intervals until at most
         `overlap_depth` remain in flight (DESIGN §14). Returns False when
         fully idle."""
-        if not self.waiting and not self.active and not self.prefilling:
+        if not self.waiting and not self.active and not self.prefilling \
+                and not self.swapped:
             # pipeline drain: retirement only patches values, timestamps
             # and telemetry, never schedulable work, so this call still
             # reports idle and run() counts the synchronous loop's steps
@@ -429,7 +527,8 @@ class Engine:
             n_prefill=len(self.waiting) + len(self.prefilling),
             n_decode=len(self.active), free_tokens=self.blocks.free_tokens,
             logical_used_tokens=self.blocks.logical_used_tokens,
-            physical_used_tokens=self.blocks.physical_used_tokens)
+            physical_used_tokens=self.blocks.physical_used_tokens,
+            swapped_tokens=self.blocks.swapped_tokens)
         decision = self.policy.step(tel)
         # sim-mirrored admission (DESIGN §7): the controller's cap rounded
         # to the batch buckets, gated by the shared admission verdict
@@ -438,15 +537,33 @@ class Engine:
         cap = min(cap, decision.max_batch, self.max_slots)
         rec = _StepRec()
 
-        while self.waiting \
+        # swap-in drain (DESIGN §11): offloaded requests re-enter before
+        # any admission, and while any remain `waiting` is held back
+        while self.swapped \
+                and len(self.active) + len(self.prefilling) < cap:
+            if not self._swap_in_next():
+                self.oom_events += 1
+                break
+
+        while self.waiting and not self.swapped \
                 and len(self.active) + len(self.prefilling) < cap:
             r = self.waiting[0]
             # a state-only request holds one block: an admission cap
             need = self.serve.block_size if self.state_only \
                 else r.prompt_len + 1
-            verdict = self.blocks.admission_verdict(
-                self.blocks.blocks_needed(0, need, r.rid), self.max_blocks)
+            # prefix sharing (DESIGN §10): map the indexed full prompt
+            # blocks first, then gate on the unmatched suffix (rolled back
+            # on refusal)
+            cached = 0
+            if self.prefix and r.prompt_tokens:
+                cached = self.blocks.acquire_prefix(r.rid, r.prompt_tokens)
+            nb = self.blocks.blocks_needed(0, need, r.rid)
+            mb = self.max_blocks - len(self.blocks.table(r.rid))
+            verdict = "reject" if mb <= 0 and nb > 0 \
+                else self.blocks.admission_verdict(nb, mb)
             if verdict != "admit":
+                if cached:
+                    self.blocks.free(r.rid)
                 if verdict == "reject":
                     # no pool state can ever hold it: drop it rather than
                     # wedging the queue behind it
@@ -460,14 +577,18 @@ class Engine:
                 self.oom_events += 1
                 break
             self.blocks.allocate(r.rid, 0, need)
+            if self.prefix:
+                self.blocks.note_prefix_query(r.prompt_len, cached)
+            r.cached_prefix_len = cached
             self.waiting.pop(0)
             self.admitted_total += 1
             if self.serve.chunked_prefill:
                 r.state = RequestState.PREFILLING
-                r.prefill_pos = 0
+                r.prefill_pos = cached
                 self.prefilling.append(r)
             else:
                 self._prefill_request(r, rec)
+        self._drain_released()
 
         self._preempt_if_needed()
         if self.serve.chunked_prefill:
@@ -551,6 +672,11 @@ class Engine:
         for _, r, _ in plan:
             if r.prefill_start_time < 0:
                 r.prefill_start_time = self._now()
+        if self.prefix:
+            # copy-on-write guard on each chunk's write range (DESIGN §10)
+            for _, r, take in plan:
+                self._cow_blocks(self.blocks.cow_range(
+                    r.rid, r.prefill_pos, r.prefill_pos + take))
         groups: Dict[int, list] = {}
         for j, r, t in plan:
             groups.setdefault(t, []).append((j, r))
@@ -565,6 +691,10 @@ class Engine:
         rec.lane_tokens = {j: t for j, _, t in plan}
         for _, r, take in plan:
             r.prefill_pos += take
+            if self.prefix:
+                # the chunk's K/V is dispatched: index its full blocks
+                self.blocks.commit_prefill(r.rid, r.prompt_tokens,
+                                           r.prefill_pos)
         # promote finished lanes in lane-index order (deterministic): paged
         # mode is a bookkeeping move; contiguous mode copies the lane row
         # into the compacted decode region
@@ -600,7 +730,15 @@ class Engine:
     # -- internals ---------------------------------------------------------------
     def _prefill_request(self, r: Request, rec: _StepRec):
         """Non-chunked admission: prefill the whole prompt now, in
-        exact-size chunks of `prefill_chunk` tokens."""
+        exact-size chunks of `prefill_chunk` tokens; under prefix sharing
+        only the suffix past the shared blocks (DESIGN §10)."""
+        # blocks admission evicted from the prefix cache into this table
+        # lose their stale pos rows before the first attention read
+        self._drain_released()
+        start0 = r.cached_prefix_len if self.prefix else 0
+        if self.prefix:
+            self._cow_blocks(self.blocks.cow_range(r.rid, start0,
+                                                   r.prompt_len))
         if self.paged:
             self._acquire_slot(r)
         else:
@@ -608,19 +746,22 @@ class Engine:
             self._clear_row(r.slot)
         r.state = RequestState.PREFILLING
         tok = None
-        for start in range(0, r.prompt_len, self.prefill_chunk):
+        for start in range(start0, r.prompt_len, self.prefill_chunk):
             r.prefill_pos = start
             take = min(self.prefill_chunk, r.prompt_len - start)
             tok = self._prefill_group([r], take)[0]
         r.prefill_pos = r.prompt_len
+        if self.prefix:
+            self.blocks.commit_prefill(r.rid, r.prompt_tokens, r.prompt_len)
         r.state = RequestState.RUNNING
         # the synchronous path feeds no TTFT split (no chunked service)
         self._emit_first(r, tok, rec, feed=False)
         self.active.append(r)
 
     def _preempt_if_needed(self):
-        """Recompute preemption: evict the newest request until the next
-        decode step's block growth fits the pool (vLLM order). A state-only
+        """Preempt the newest request until the next decode step's block
+        growth fits the pool (vLLM order, in both modes); per victim the
+        DESIGN §11 crossover picks swap or recompute. A state-only
         family's decode never grows, so it never preempts."""
         if self.state_only:
             return
@@ -629,7 +770,97 @@ class Engine:
                        for r in self.active)
             if need <= self.blocks.free_blocks:
                 return
-            self._evict(len(self.active) - 1, self.active[-1])
+            victim = self.active[-1]
+            if self._should_swap(victim):
+                self._swap_out(len(self.active) - 1, victim)
+            else:
+                self._evict(len(self.active) - 1, victim)
+
+    def _should_swap(self, r: Request) -> bool:
+        """Swap only when the host pool can take the victim whole (shared
+        blocks are never swapped: such a victim recomputes) and the cost
+        model's crossover says the PCIe round trip beats re-prefill;
+        preempt="swap" swaps whenever it can (DESIGN §11)."""
+        if not self.swap \
+                or not self.blocks.can_swap_out(r.rid, self.max_blocks):
+            return False
+        if self.serve.preempt == "swap":
+            return True
+        return self.cost.swap_beats_recompute(
+            len(self.blocks.table(r.rid)), self.serve.block_size,
+            r.context_len)
+
+    def _swap_out(self, slot: int, r: Request) -> None:
+        """Offload active[slot]'s K, V and pos pool rows to the host pool
+        (DESIGN §11): gathered on the device in host-id order into one
+        block-major buffer, each run of consecutive host blocks one
+        non-blocking copy. The stream orders the copies after every step
+        that wrote the rows and before any reuse of the freed blocks. Its
+        generated tokens, pending token and TTFT stand; it re-enters
+        through `swapped` without re-prefill, in the same life."""
+        pairs = sorted(self.blocks.swap_out(r.rid), key=lambda p: p[1])
+        host = [h for _, h in pairs]
+        ids = self._ids([d for d, _ in pairs])
+        for k, hp in self._host_pool.items():
+            v = self.cache[k]
+            rows = v.index_select(0, ids) if k == "pos" \
+                else v.index_select(1, ids).transpose(0, 1).contiguous()
+            for a, b, h0 in host_runs(host):
+                hp[h0:h0 + b - a].copy_(rows[a:b], non_blocking=True)
+        # the device blocks are free: a new tenant must not see the swapped
+        # tenant's positions
+        self._release_blocks([d for d, _ in pairs])
+        # model-level K/V payload bytes, the sim twin's and the cost
+        # model's unit
+        self.swap_out_bytes += self.mem.blocks_to_bytes(len(pairs))
+        self.swap_outs += 1
+        self.preemptions += 1
+        r.state = RequestState.SWAPPED
+        r.swap_out_time = self._now()
+        if r.slot >= 0:
+            self._free_slots.append(r.slot)
+            r.slot = -1
+        self.active.pop(slot)
+        self.swapped.append(r)
+
+    def _swap_in_next(self) -> bool:
+        """Restore the oldest swapped request (FIFO) onto fresh device
+        blocks, gated by admission's watermark verdict: the host runs are
+        copied without blocking into one device buffer and scattered into
+        the pools in place. Returns False when the pool cannot take it
+        yet."""
+        r = self.swapped[0]
+        nb = len(self.blocks.swapped_block_tables[r.rid])
+        if self.blocks.admission_verdict(nb, self.max_blocks) != "admit":
+            return False
+        pairs = sorted(self.blocks.swap_in(r.rid))
+        # pos clears of cache evictions swap_in forced land before the
+        # restore, so they cannot wipe restored rows
+        self._drain_released()
+        host = [h for h, _ in pairs]
+        ids = self._ids([d for _, d in pairs])
+        for k, hp in self._host_pool.items():
+            buf = torch.empty((len(pairs),) + hp.shape[1:], dtype=hp.dtype,
+                              device=self.device)
+            for a, b, h0 in host_runs(host):
+                buf[a:b].copy_(hp[h0:h0 + b - a], non_blocking=True)
+            if k == "pos":
+                self.cache[k].index_copy_(0, ids, buf)
+            else:
+                self.cache[k].index_copy_(1, ids, buf.transpose(0, 1))
+        self.swap_in_bytes += self.mem.blocks_to_bytes(len(pairs))
+        self.swap_ins += 1
+        self._acquire_slot(r)
+        if r.swap_out_time >= 0:
+            wait = self._now() - r.swap_out_time
+            r.swapped_s += wait
+            r.n_swaps += 1
+            r.swap_out_time = -1.0
+            self.swap_wait_trace.append(wait)
+        r.state = RequestState.RUNNING
+        self.swapped.pop(0)
+        self.active.append(r)
+        return True
 
     def _evict(self, slot: int, r: Request):
         """Evict active[slot] for recompute: paged mode releases blocks,
@@ -640,6 +871,8 @@ class Engine:
         self._gen[r.rid] = self._gen.get(r.rid, 0) + 1
         r.output_tokens.clear()
         r.tbt_samples.clear()
+        # the recompute pass re-probes the prefix index (DESIGN §10)
+        r.cached_prefix_len = 0
         r.prefill_start_time = -1.0
         self._remove_active(slot)
         self.waiting.insert(0, r)
@@ -657,6 +890,11 @@ class Engine:
         self.active.pop()
 
     def _decode_once(self, rec: _StepRec):
+        if self.prefix:
+            # copy-on-write guard on the position each row writes
+            for r in self.active:
+                self._cow_blocks(self.blocks.cow_range(
+                    r.rid, r.context_len - 1, r.context_len))
         n = len(self.active)
         ge = [b for b in self.buckets if b >= n]
         bucket = min(ge) if ge else self.max_slots
@@ -674,9 +912,7 @@ class Engine:
         self._stage(st, "tokens", toks)
         self._stage(st, "positions", lens)
         if pend:
-            idx = torch.empty(len(pend), dtype=torch.int64,
-                              device=self.device)
-            self._staging.copy(idx, np.fromiter(pend, np.int64, len(pend)))
+            idx = self._ids(pend)
             st.inputs["tokens"].view(-1).index_copy_(0, idx, torch.stack(
                 [self._pending_tok[self.active[i].rid] for i in pend]))
         if self.paged:
@@ -722,6 +958,8 @@ class Engine:
         for r in grow_failed:
             if r in self.active:
                 self._evict(self.active.index(r), r)
+        # decode grows may have taken cached blocks for reuse
+        self._drain_released()
 
     def _dispatch_readback(self, rec: _StepRec) -> None:
         """Queue the interval's readback behind its steps: the sampled and
@@ -796,8 +1034,8 @@ class Engine:
 
     # -- metrics ---------------------------------------------------------------
     def summary(self) -> Dict[str, float]:
-        """The JAX engine's summary keys; those of features not ported
-        (mesh shards, swap, prefix sharing) read their idle values."""
+        """The JAX engine's summary keys; `model_shards` (mesh serving, not
+        ported) reads its idle value."""
         el = self._now()
         occ = self.tel.lane_occ
         tq, _ = self.tel.ttft_queue.get()
@@ -834,19 +1072,21 @@ class Engine:
             "preemptions": self.preemptions,
             "oom_events": self.oom_events,
             "rejected": self.rejected,
-            "swap_outs": 0,
-            "swap_ins": 0,
-            "swap_out_bytes": 0.0,
-            "swap_in_bytes": 0.0,
-            "swapped_peak": 0.0,
-            "swap_latency_s_mean": 0.0,
+            "swap_outs": self.swap_outs,
+            "swap_ins": self.swap_ins,
+            "swap_out_bytes": float(self.swap_out_bytes),
+            "swap_in_bytes": float(self.swap_in_bytes),
+            "swapped_peak": float(self.blocks.swapped_peak),
+            "swap_latency_s_mean": (sum(self.swap_wait_trace)
+                                    / len(self.swap_wait_trace))
+            if self.swap_wait_trace else 0.0,
             "copy_rows": float(self.copy_rows),
             "copy_bytes": float(self.copy_bytes),
-            "prefix_hit_rate": 0.0,
-            "prefix_hit_tokens": 0.0,
-            "prefix_query_tokens": 0.0,
-            "cached_blocks": 0.0,
-            "cache_evictions": 0.0,
+            "prefix_hit_rate": self.blocks.prefix_hit_rate,
+            "prefix_hit_tokens": float(self.blocks.prefix_hit_tokens),
+            "prefix_query_tokens": float(self.blocks.prefix_query_tokens),
+            "cached_blocks": float(self.blocks.cached_blocks),
+            "cache_evictions": float(self.blocks.cache_evictions),
             "logical_used_tokens": float(self.blocks.logical_used_tokens),
             "physical_used_tokens": float(self.blocks.physical_used_tokens),
             "logical_used_bytes": float(self.mem.tokens_to_bytes(

@@ -333,6 +333,9 @@ def test_rglru_entries_are_one_device_kernel(cuda, entry, T):
         args[:3] = [t.bfloat16() for t in args[:3]]
         fn = lambda: ops.rglru_gated_scan(*args)  # noqa: E731
     names = device_kernels(fn, calls=10)
+    if not names:
+        # the profiler now and then records no kernel at all: profile again
+        names = device_kernels(fn, calls=10)
     # ten calls, one kernel each (the profiler may miss a record or two)
     assert 8 <= len(names) <= 10 and all("rglru_kernel" in n
                                          for n in names), names
@@ -868,3 +871,169 @@ def test_overlap_engine_equals_depth0_on_card(cuda, arch, paged, monkeypatch):
     assert [ev for ev, _, _ in recs] == waits
     deep = [n for _, d, n in recs if d == 2]
     assert deep.count(3) == len(deep) - 2 and deep[-2:] == [2, 1]
+
+
+# ---------------------------------------------------------------------------
+# the memory tiers on the card (DESIGN §10, §11)
+
+
+def _watch_round_trips(eng):
+    """Wrap `_swap_out` / `_swap_in_next` from outside: the victim's K, V
+    and pos pool rows at swap-out, and the rows at its new blocks after
+    the swap-in. Returns the list of (taken, restored) pairs."""
+    taken, pairs = {}, []
+    swap_out, swap_in = eng._swap_out, eng._swap_in_next
+
+    def rows(ids):
+        idx = torch.tensor(ids, device=eng.device)
+        return {k: eng.cache[k].index_select(0 if k == "pos" else 1,
+                                             idx).clone()
+                for k in ("k", "v", "pos")}
+
+    def out_spy(slot, r):
+        taken[r.rid] = rows(eng.blocks.table(r.rid))
+        swap_out(slot, r)
+
+    def in_spy():
+        rid = eng.swapped[0].rid
+        ok = swap_in()
+        if ok:
+            pairs.append((taken.pop(rid), rows(eng.blocks.table(rid))))
+        return ok
+
+    eng._swap_out, eng._swap_in_next = out_spy, in_spy
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 2])
+def test_full_width_swap_round_trip_on_card(cuda, depth):
+    """granite-3-8b at full width, bf16, on CUDA graphs, forced swap under
+    a 1536-token pool (chip_smoke's 12 prompts): every swap-in restores
+    the swapped-out K, V and pos rows bit for bit, the host pool is
+    pinned and ends full, and every request finishes."""
+    from repro_torch.launch import serve
+
+    args = serve.build_parser().parse_args([
+        "--variant", "full", "--policy", "static", "--b-max", "8",
+        "--batch-buckets", "1,2,4,8", "--chunked", "--lanes", "2",
+        "--chunk-budget", "512", "--max-context", "1024", "--paged",
+        "--pool-tokens", "1536", "--swap-space", "256", "--preempt", "swap",
+        "--max-new", "32", "--overlap-depth", str(depth)])
+    from repro_torch.bench.kv_swap import prompts
+
+    eng = serve.build_engine(args)
+    assert all(t.is_pinned() for t in eng._host_pool.values())
+    pairs = _watch_round_trips(eng)
+    for p in prompts(eng.cfg.vocab_size):
+        eng.submit(p)
+    eng.run()
+    torch.cuda.synchronize()
+    assert eng.total_finished == 12 and eng.swap_outs > 0
+    assert len(pairs) == eng.swap_ins == eng.swap_outs
+    for taken, restored in pairs:
+        for k in taken:
+            assert torch.equal(taken[k], restored[k]), k
+    assert eng.blocks.host_free_blocks == 256
+    assert eng.blocks.free_blocks == eng.blocks.num_blocks
+
+
+def _tier_engine(dev, params, prefix, swap):
+    """Reduced granite (fp32) on the paged pool of 10 blocks, chunked on two
+    lanes, with prefix sharing or forced swap; on the card on CUDA graphs
+    captured first."""
+    from repro_torch.config.base import ServeConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+
+    m = build_model(get_config("granite-3-8b", "reduced"), torch.float32,
+                    dev)
+    serve = ServeConfig(policy="static", b_max=4, max_new_tokens=12,
+                        kv_pool_tokens=160, block_size=16,
+                        chunked_prefill=True, chunk_budget_tokens=16,
+                        n_prefill_lanes=2, paged_kv=True,
+                        prefix_cache=prefix,
+                        swap_space_blocks=32 if swap else 0,
+                        preempt="swap" if swap else "auto")
+    eng = Engine(m, params, serve, max_context=96, buckets=(1, 2, 4),
+                 prefill_chunk=8, device=dev)
+    if eng.graphs.enabled:
+        eng.warmup()
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["prefix", "swap"])
+def test_tier_engine_on_card_matches_cpu(cuda, tier):
+    """Reduced granite in fp32, the same weights on the card (CUDA graphs,
+    the port's kernels) and on the CPU: with prefix sharing on over a
+    shared system prompt, or with swap forced under a tight pool, the
+    same tokens and the same tier counters."""
+    from repro_torch.config.registry import get_config
+    from repro_torch.models.model import build_model
+
+    p_cpu = build_model(get_config("granite-3-8b", "reduced"),
+                        torch.float32, "cpu").init(0)
+
+    def to(p, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in p.items()}
+
+    rng = np.random.RandomState(5)
+    system = list(map(int, rng.randint(0, 256, size=40)))
+    prompts = [system + list(map(int, rng.randint(0, 256, size=4 + 2 * i)))
+               if tier == "prefix"
+               else list(map(int, rng.randint(0, 256, size=n)))
+               for i, n in enumerate((40, 44, 38, 46))]
+    runs = []
+    for dev, p in ((cuda, to(p_cpu, cuda)), ("cpu", p_cpu)):
+        eng = _tier_engine(dev, p, tier == "prefix", tier == "swap")
+        hs = [eng.submit(t, arrival_time=0.0) for t in prompts]
+        eng.run(max_steps=5000)
+        s = eng.summary()
+        runs.append(([h.output_tokens for h in hs], {k: s[k] for k in (
+            "finished", "preemptions", "swap_outs", "swap_ins",
+            "prefix_hit_tokens", "copy_bytes", "decode_steps")}))
+    assert runs[0] == runs[1]
+    _, c = runs[0]
+    assert c["finished"] == 4
+    assert (c["prefix_hit_tokens"] > 0) if tier == "prefix" \
+        else (c["swap_outs"] > 0 and c["swap_ins"] == c["swap_outs"])
+    assert ops.LAUNCHES["paged_decode_attention"] > 0
+    assert ops.LAUNCHES["decode_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_replay_after_swap_in_equals_eager_on_card(cuda):
+    """Right after the interval that swapped a request back in, the decode
+    step it ran (its staged inputs as they stand) replays bit for bit as
+    it runs eagerly, logits and cache, from the same cache."""
+    from repro_torch.config.registry import get_config
+    from repro_torch.models.model import build_model
+
+    m = build_model(get_config("granite-3-8b", "reduced"), torch.float32,
+                    cuda)
+    eng = _tier_engine(cuda, m.init(0), False, True)
+    rng = np.random.RandomState(0)
+    for n in (40, 44, 38, 46):
+        eng.submit(list(map(int, rng.randint(0, 256, size=n))),
+                   arrival_time=0.0)
+    while eng.swap_ins == 0:
+        assert eng.step()
+    torch.cuda.synchronize()
+    n = eng.batch_trace[-1]          # the rows of the interval's decode
+    st = eng.graphs.steps[("decode", min(b for b in eng.buckets if b >= n))]
+    assert st.graph is not None
+    start = {k: v.clone() for k, v in eng.cache.items()}
+    want = st.run(eager=True).clone()
+    want_cache = {k: v.clone() for k, v in eng.cache.items()}
+    for k, v in start.items():
+        eng.cache[k].copy_(v)
+    got = st.run().clone()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for k, v in eng.cache.items():
+        assert torch.equal(v, want_cache[k]), k
+    eng.run(max_steps=5000)
+    assert eng.total_finished == 4

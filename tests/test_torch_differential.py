@@ -1,8 +1,9 @@
-"""The port's engine against the port's simulator (DESIGN §7, §14, §15):
-the differential harness of tests/test_differential.py on the port, over
-its swap-free setups, at overlap depth 0, 1 and 2. The same workload (all
-arrivals at 0) runs through the engine (reduced granite-3-8b, fp32, CPU,
-paged) and through its discrete-event twin; the controller-visible
+"""The port's engine against the port's simulator (DESIGN §7, §11, §14,
+§15): the differential harness of tests/test_differential.py on the port,
+at overlap depth 0, 1 and 2, and with the host swap tier on in the cases
+where the JAX file has it. The same workload (all arrivals at 0) runs
+through the engine (reduced granite-3-8b, fp32, CPU, paged) and through
+its discrete-event twin; the controller-visible counters, the swap
 counters, the finished and rejected sets and the goodput verdicts must
 agree exactly.
 """
@@ -127,12 +128,14 @@ def assert_parity(eng, hs, sim, res, ctx=""):
 
 
 def serve_cfg(*, policy="static", b_max=4, pool_tokens=256, chunked=True,
-              lanes=2, budget=24, overlap=0, ttft_sla=0.0):
+              lanes=2, budget=24, overlap=0, ttft_sla=0.0, swap_blocks=0,
+              preempt="auto"):
     return ServeConfig(policy=policy, b_max=b_max, max_new_tokens=6,
                        kv_pool_tokens=pool_tokens, block_size=16,
                        chunked_prefill=chunked, chunk_budget_tokens=budget,
                        n_prefill_lanes=lanes, paged_kv=True,
-                       overlap_depth=overlap, ttft_sla_s=ttft_sla)
+                       overlap_depth=overlap, ttft_sla_s=ttft_sla,
+                       swap_space_blocks=swap_blocks, preempt=preempt)
 
 
 @pytest.mark.parametrize("overlap", [0, 1, 2])
@@ -224,3 +227,93 @@ def test_differential_randomized(seed, n_req, pool_blocks, chunked, policy,
     assert_parity(eng, hs, sim, res,
                   ctx=f"seed={seed} pool={pool_blocks} chunked={chunked} "
                       f"policy={policy} overlap={overlap}")
+
+
+# ---------------------------------------------------------------------------
+# the swap cases of tests/test_differential.py (DESIGN §11)
+
+
+@pytest.mark.parametrize("overlap", [0, 2])
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("swap_blocks,preempt", [(0, "auto"), (16, "swap")])
+def test_differential_tight_pool_swap(swap_blocks, preempt, chunked,
+                                      overlap):
+    """The tight pool with the swap axis: swap pool 0 under `auto`
+    (recompute only) and 16 blocks under forced swap."""
+    serve = serve_cfg(pool_tokens=160, swap_blocks=swap_blocks,
+                      chunked=chunked, preempt=preempt, b_max=4,
+                      overlap=overlap)
+    eng, hs, sim, res = run_pair([40, 44, 38, 46], max_new=12, serve=serve,
+                                 seed=1)
+    assert eng.preemptions > 0
+    if swap_blocks:
+        assert eng.swap_outs > 0 and eng.swap_ins > 0
+    assert_parity(eng, hs, sim, res,
+                  ctx=f"swap={swap_blocks} overlap={overlap}")
+
+
+@pytest.mark.parametrize("overlap", [0, 2])
+def test_differential_memory_policy_swap(overlap):
+    """Alg 1 with a 12-block swap pool under forced swap."""
+    serve = serve_cfg(policy="memory", pool_tokens=256, b_max=8,
+                      swap_blocks=12, preempt="swap", overlap=overlap)
+    eng, hs, sim, res = run_pair([24, 18, 30, 12, 26, 20], max_new=5,
+                                 serve=serve, seed=3)
+    assert_parity(eng, hs, sim, res, ctx=f"overlap={overlap}")
+
+
+@pytest.mark.parametrize("overlap", [0, 1, 2])
+def test_differential_async_overlap_swap(overlap):
+    """Pool pressure under Alg 1 with forced swap, at every depth."""
+    serve = serve_cfg(policy="memory", pool_tokens=160, b_max=4,
+                      swap_blocks=12, preempt="swap", overlap=overlap)
+    eng, hs, sim, res = run_pair([40, 44, 38, 46, 26], max_new=12,
+                                 serve=serve, seed=4)
+    assert eng.oom_events > 0
+    assert_parity(eng, hs, sim, res, ctx=f"overlap={overlap}")
+
+
+@pytest.mark.parametrize("overlap,sla", [(0, 1e-9), (2, 0.0)])
+def test_differential_traced_load_swap(overlap, sla):
+    """The replayed multi-turn trace with a 16-block swap pool: unmeetable
+    TTFT SLO at depth 0, SLA off at depth 2."""
+    events = reference_trace(14, seed=5, vocab_size=512, base_rate=4.0,
+                             burst_rate=16.0, period_s=20.0, duty=0.25,
+                             n_system_prompts=2, system_len=12,
+                             user_mean=8.0, out_mean=5.0, length_cv=0.5,
+                             p_followup=0.7, max_turns=3, turn_gap_s=2.0)
+    serve = serve_cfg(policy="memory", pool_tokens=160, b_max=4,
+                      swap_blocks=16, preempt="swap", overlap=overlap,
+                      ttft_sla=sla)
+    eng, hs, sim, res = run_trace_pair(events, serve)
+    assert all(h.state.value == "finished" or h.rejected for h in hs)
+    if sla > 0.0:
+        assert eng.sla_requests_met == 0 and res.sla_requests_met == 0
+    else:
+        assert eng.sla_requests_met == eng.total_finished
+    assert_parity(eng, hs, sim, res, ctx=f"overlap={overlap} sla={sla}")
+
+
+@given(st.integers(0, 10_000),
+       st.integers(2, 5),
+       st.sampled_from([10, 12, 16]),          # pool blocks
+       st.sampled_from([0, 8, 24]),            # swap space blocks
+       st.booleans(),                          # chunked prefill
+       st.sampled_from(["static", "memory"]),
+       st.sampled_from(["auto", "swap"]),
+       st.sampled_from([0, 1, 2]))             # overlap depth
+@settings(max_examples=8, deadline=None)
+def test_differential_randomized_swap(seed, n_req, pool_blocks, swap_blocks,
+                                      chunked, policy, preempt, overlap):
+    rng = np.random.RandomState(seed)
+    prompt_lens = [int(rng.randint(6, 44)) for _ in range(n_req)]
+    serve = serve_cfg(policy=policy, b_max=4, pool_tokens=pool_blocks * 16,
+                      swap_blocks=swap_blocks, chunked=chunked,
+                      lanes=int(rng.randint(1, 3)), preempt=preempt,
+                      overlap=overlap)
+    eng, hs, sim, res = run_pair(prompt_lens, max_new=int(rng.randint(2, 7)),
+                                 serve=serve, seed=seed)
+    assert_parity(eng, hs, sim, res,
+                  ctx=f"seed={seed} pool={pool_blocks} swap={swap_blocks} "
+                      f"chunked={chunked} policy={policy} preempt={preempt} "
+                      f"overlap={overlap}")

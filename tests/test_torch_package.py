@@ -101,9 +101,19 @@ def test_cli_flags_are_the_jax_cli_flags_plus_device():
 @pytest.mark.parametrize("argv", [["--prefix-cache"], ["--swap-space", "4"],
                                   ["--mesh", "1,2"]])
 def test_unported_features_raise(argv):
-    args = port_serve.build_parser().parse_args(argv + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        port_serve.run(args)
+    """Mesh serving is not ported and raises; the memory tiers' flags,
+    ported since, serve every request on the paged pool."""
+    args = port_serve.build_parser().parse_args(
+        argv + ["--device", "cpu", "--paged", "--requests", "3",
+                "--max-new", "3"])
+    if argv[0] == "--mesh":
+        with pytest.raises(NotImplementedError):
+            port_serve.run(args)
+        return
+    eng = port_serve.run(args)
+    assert eng.summary()["finished"] == 3
+    assert eng.prefix == (argv[0] == "--prefix-cache")
+    assert eng.swap == (argv[0] == "--swap-space")
 
 
 def test_unported_archs_raise():
