@@ -36,26 +36,39 @@ Phases, one JSON line each:
              kernel and its plain version, and the gated rows the device
              and host time of the eager chain the model ran before (the
              gates op by op, then the scan kernel). The launch-floor cases
-             (RMSNorm and the fused add 8 x 4096, decode B 8 S 1024, gated
-             RG-LRU B 8 T 1) also carry graph_ms: 100 launches captured in
-             one CUDA graph, replay time / 100, beside stream_ms, the same
-             100 launches queued eagerly behind a spin kernel (warm L2 in
-             both).
-4. reference per family, full width with depth cut to one layer pattern
-             (granite-3-8b 2 layers, mamba2-2.7b 2, recurrentgemma-9b 3):
+             (RMSNorm and the fused add 8 x 4096, decode B 8 S 1024, paged
+             decode B 8, the Tq 16 chunks, gated RG-LRU B 8 T 1) also
+             carry graph_ms: 100 launches captured in one CUDA graph,
+             replay time / 100, beside stream_ms, the same 100 launches
+             queued eagerly behind a spin kernel (warm L2 in both). The
+             other decoder-only families add decode, paged decode and Tq
+             16 chunks at hd 128 on G 9 / KV 4 (starcoder2-7b), G 1 / KV 40
+             (qwen1.5-32b) and G 1 / KV 16 (qwen2-moe-a2.7b), rows filled to
+             33-1024; a wrapped ring (mistral-nemo's sliding variant:
+             window 256 on 271 slots, positions past 1024) in decode and a
+             chunk; the norms at d 4608 and 2048.
+4. reference per arch, full width with depth cut to one layer pattern
+             (granite-3-8b, starcoder2-7b, mistral-nemo-12b,
+             qwen2-moe-a2.7b and mamba2-2.7b 2 layers, qwen1.5-32b 1,
+             recurrentgemma-9b 3):
              the kernels' path on the card in bf16 against the plain path
              on the CPU in fp32 with the same weights, over a prefill and a
              few decode steps (mamba2 and recurrentgemma prefill 300 tokens:
              two SSD chunks, the second padded); recurrentgemma's prefill
              and decode steps launch the gated RG-LRU kernel once a
              recurrent layer and the plain scan kernel never.
+             sliding_reference: mistral-nemo-12b's sliding(window=256) at
+             2 layers, 1040 tokens in 16-token chunks then 4 decode steps:
+             the contiguous ring (271 slots, wrapped) and the paged pool
+             on the card against the fp32 ring on the CPU, 5e-2.
 5. serve_<arch>_contiguous / serve_<arch>_paged
              the engine at full width and depth (random weights from seed
              0) through `repro_torch.launch.serve.build_engine`, its CUDA
              graphs captured by `Engine.warmup` (every decode bucket and
              full-chunk lane shape; tail chunks at first use), for
-             granite-3-8b
-             (12 requests), mamba2-2.7b and recurrentgemma-9b (8 each):
+             granite-3-8b, starcoder2-7b, mistral-nemo-12b, qwen1.5-32b
+             and qwen2-moe-a2.7b (12 requests each), mamba2-2.7b and
+             recurrentgemma-9b (8 each):
              prompts of 32-480 tokens, 32 new tokens, chunked prefill on 2
              lanes, policy `memory`, each path's kernel launches counted.
              Every request finishes, the structural counters agree across
@@ -64,20 +77,32 @@ Phases, one JSON line each:
              only (paged decode and paged chunks, no contiguous attention
              launch); contiguous runs launch no paged kernel; every
              forward launches the fused add + RMSNorm and the plain RMSNorm
-             its family's number of times (granite 80 + 1, mamba2 64 + 65,
-             recurrentgemma 76 + 1), and recurrentgemma launches the gated
+             its family's number of times (granite 80 + 1, starcoder2
+             64 + 1, mistral-nemo 80 + 1, qwen1.5 128 + 1, qwen2-moe 48 + 1,
+             mamba2 64 + 65, recurrentgemma 76 + 1), and recurrentgemma
+             launches the gated
              RG-LRU kernel 26 times a forward and the plain scan kernel
              never (it is the TPU kernel's direct counterpart, checked in
              the kernels phase only). Every step is a graph replay, which
              adds the launches its capture recorded. Each line carries
              step_host_s_mean, step_device_s_mean (the readback wait, the
              TBT sample), their sum (the interval's wall time), build_s
-             (model, engine, warmup) and the graph counts.
+             (model, engine, warmup) and the graph counts. Each engine is
+             built alone, the one before it freed: qwen1.5-32b's 70.4 GB of
+             weights leave room for one cache.
+             sliding_mistral-nemo-12b-swa
+             mistral-nemo-12b's sliding(window=256) through
+             `build_engine`'s config argument, served in both layouts: the
+             contiguous ring wraps (a request's context passes its 271
+             slots), the counters agree across layouts; the requests with
+             equal tokens are counted.
 6. graphs_<arch>_<layout>
              on each serve run's engine: decode at bucket 8 and a lane's
              full chunk, from random cache contents and inputs, replayed
              and run eagerly: logits and cache bit for bit equal; the
-             graph count, capture seconds and the shared pool's bytes.
+             graph count, capture seconds and the shared pool's bytes. The
+             cache's copies stay in host memory where two do not fit
+             beside the weights (qwen1.5-32b).
 7. serve_granite-3-8b_contiguous_eager
              granite's contiguous run again with every step eager
              (`cuda_graphs=False`): the graph run's tokens and structural
@@ -89,14 +114,15 @@ Phases, one JSON line each:
              bit for bit and its structural counters; each line carries
              its host, device and interval means and tokens/s with the
              depth-0 run's beside them (`depth0`).
-9. twin_granite-3-8b_<layout>
+9. twin_<arch>_<layout> (granite-3-8b, qwen2-moe-a2.7b)
              the port's simulator (`serving/sim.py`) on the same
              ServeConfig, prompt lengths, capped max_new_tokens,
              max_context and prefill chunk, prior-free telemetry, every
              arrival at 0, at depth 0 and 2: admitted, preemptions,
              oom_events, rejected, the finished, rejected and SLA-met sets,
              sla_requests_met and goodput_tokens equal the engine's at the
-             same depth; decode_steps and mean_batch printed beside.
+             same depth (qwen2-moe at depth 0); decode_steps and
+             mean_batch printed beside.
 10. prefix_reference
              (run after phase 4) granite-3-8b at 2 layers, full width,
              bf16, paged: request B reads request A's 16 system-prompt
@@ -184,6 +210,28 @@ SERVE_ARGS = ["--variant", "full", "--policy", "memory", "--b-max", "8",
               "--block-size", "16", "--pool-tokens", "8192",
               "--max-new", "32", "--seed", "0", "--device", "cuda"]
 PROMPT_LO, PROMPT_HI = 32, 480
+#: cuts of the serve flags where an arch's weights leave too little of the
+#: card: qwen1.5-32b's 65.6 GiB leave 13.5 GiB. Its contiguous cache of
+#: 8 + 2 rows of 1024 tokens (12.5 GiB) does not fit beside the steps'
+#: buffers, nor do 4 + 2 rows (7.5 GiB) beside the two lanes' gathered
+#: rows (2.5 GiB in the graph pool), so it serves b_max 2 (4 rows, 5 GiB)
+#: in both layouts
+SERVE_CUTS = {"qwen1.5-32b": ["--b-max", "2"]}
+
+
+def serve_args(arch: str, cut: bool = True):
+    """chip_smoke's serve flags for `arch`, its cut included if `cut`."""
+    return SERVE_ARGS + ["--arch", arch] + (SERVE_CUTS.get(arch, [])
+                                            if cut else [])
+
+
+#: serve runs of a cut arch in one layout without its cut, served beside
+#: the cut pair: the paged pool is --pool-tokens whatever b_max, so
+#: qwen1.5-32b's paged engine fits b_max 8 (the pair takes the cut in both
+#: layouts so that their structural counters compare)
+UNCUT = (("qwen1.5-32b", True),)
+
+
 #: arch -> (requests served, kernels its main path must launch in both
 #: layouts, whether it attends (the layout's decode and chunk kernels are
 #: then added), (fused add + RMSNorm, plain RMSNorm) launches per forward,
@@ -191,6 +239,10 @@ PROMPT_LO, PROMPT_HI = 32, 480
 #: alike)
 FAMILIES = {
     "granite-3-8b": (12, ("rmsnorm", "add_rmsnorm"), True, (80, 1), {}),
+    "starcoder2-7b": (12, ("rmsnorm", "add_rmsnorm"), True, (64, 1), {}),
+    "mistral-nemo-12b": (12, ("rmsnorm", "add_rmsnorm"), True, (80, 1), {}),
+    "qwen1.5-32b": (12, ("rmsnorm", "add_rmsnorm"), True, (128, 1), {}),
+    "qwen2-moe-a2.7b": (12, ("rmsnorm", "add_rmsnorm"), True, (48, 1), {}),
     "mamba2-2.7b": (8, ("ssd_intra", "rmsnorm", "add_rmsnorm"), False,
                     (64, 65), {}),
     "recurrentgemma-9b": (8, ("rglru_gated_scan", "rmsnorm", "add_rmsnorm"),
@@ -215,8 +267,13 @@ OVERLAP_DEPTH = 2
 #: `assert_parity`); the finished, rejected and SLA-met sets are compared too
 TWIN = ("admitted", "preemptions", "oom_events", "rejected",
         "sla_requests_met", "goodput_tokens")
-#: serve runs held against the port's simulator
-TWINNED = ("granite-3-8b",)
+#: serve runs held against the port's simulator (in both layouts, at
+#: every depth served)
+TWINNED = ("granite-3-8b", "qwen2-moe-a2.7b")
+#: the sliding-window run: mistral-nemo-12b's `sliding(window=...)` through
+#: `build_engine`'s config argument, served like FAMILIES' runs; its
+#: contiguous ring (window + chunk - 1 slots) wraps under the prompts
+SLIDING = ("mistral-nemo-12b", 256)
 
 
 def emit(phase: str, **fields) -> None:
@@ -414,14 +471,28 @@ def kernel_cases(dev):
 
     cases = []
 
-    def decode(B, S, H, KV, hd, label, window=0, fill=None):
+    def ring_pos(B, S, Tq):
+        """(q_pos (B, Tq), k_pos (B, S)) of a wrapped ring of S slots: row
+        b's last query at position 1100 + 37 b, slot s holding the newest
+        position <= it that is s mod S."""
+        last = 1100 + 37 * torch.arange(B, dtype=torch.int32, device=dev)
+        ar = torch.arange(S, dtype=torch.int32, device=dev)
+        kp = last[:, None] - (last[:, None] - ar) % S
+        qp = last[:, None] - Tq + 1 + torch.arange(Tq, dtype=torch.int32,
+                                                   device=dev)
+        return qp, kp
+
+    def decode(B, S, H, KV, hd, label, window=0, fill=None, ring=False):
         """One query per row at position q_pos over an S-slot ring row; or,
         with `fill`, row b filled to fill[b] slots (the rest empty) and its
-        query at fill[b] - 1, the bound counting the visible slots' K/V and
-        every slot's k_pos."""
+        query at fill[b] - 1; or, with `ring`, a wrapped ring (`ring_pos`).
+        The bound counts the visible slots' K/V and every slot's k_pos."""
         q, k, v = rn(B, H, hd), rn(B, S, KV, hd), rn(B, S, KV, hd)
         ar = torch.arange(S, dtype=torch.int32, device=dev)
-        if fill is None:
+        if ring:
+            qp, kp = ring_pos(B, S, 1)
+            qp = qp[:, 0]
+        elif fill is None:
             last = S - 1 + (window // 2 if window else 0)
             qp = torch.full((B,), last, dtype=torch.int32, device=dev)
             kp = torch.where(ar + S <= last, ar + S, ar).repeat(B, 1)
@@ -432,8 +503,6 @@ def kernel_cases(dev):
         vis = (kp >= 0) & (kp <= qp[:, None])
         if window:
             vis &= kp > qp[:, None] - window
-        kv_bytes = nbytes(k, v) if fill is None \
-            else int(vis.sum()) * KV * hd * 2 * 2
         a = (q, k, v, qp, kp)
         cases.append((
             "decode_attention", label,
@@ -444,8 +513,8 @@ def kernel_cases(dev):
                 F.scaled_dot_product_attention(
                     q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                     attn_mask=m, enable_gqa=True),
-            nbytes(q, qp, kp, q) + kv_bytes, 4 * hd * H * int(vis.sum()),
-            "bf16"))
+            nbytes(q, qp, kp, q) + int(vis.sum()) * KV * hd * 2 * 2,
+            4 * hd * H * int(vis.sum()), "bf16"))
 
     def pools(KV, hd, lens):
         """The serving pool (8192 tokens in blocks of 16) and tables of 64
@@ -514,27 +583,37 @@ def kernel_cases(dev):
             lambda a=a: ref.paged_flash_attention_ref(*f32(*a)),
             None, read + nbytes(q, qp, q), 4 * hd * H * n_vis, "bf16"))
 
-    def flash(Tq, H, KV, hd, label):
+    def flash(Tq, H, KV, hd, label, window=0, ring=0):
         """A chunk of Tq queries ending at position 496 (or Tq) against a
-        1024-slot cache row filled up to it (slots past it empty)."""
-        Tk = 1024
-        end = max(496, Tq)
+        1024-slot cache row filled up to it (slots past it empty); or, with
+        `ring`, the last Tq queries of a wrapped ring of that many slots
+        (`ring_pos`). The bound counts the K/V and k_pos of the slots some
+        query sees."""
+        Tk = ring or 1024
         q, k, v = rn(1, Tq, H, hd), rn(1, Tk, KV, hd), rn(1, Tk, KV, hd)
-        qp = torch.arange(end - Tq, end, dtype=torch.int32, device=dev)[None]
-        ar = torch.arange(Tk, dtype=torch.int32, device=dev)
-        kp = torch.where(ar < end, ar, -1)[None]
-        mask = ((kp[:, None, :] >= 0)
-                & (kp[:, None, :] <= qp[:, :, None]))[:, None]
+        if ring:
+            qp, kp = ring_pos(1, Tk, Tq)
+        else:
+            end = max(496, Tq)
+            qp = torch.arange(end - Tq, end, dtype=torch.int32,
+                              device=dev)[None]
+            ar = torch.arange(Tk, dtype=torch.int32, device=dev)
+            kp = torch.where(ar < end, ar, -1)[None]
+        mask = (kp[:, None, :] >= 0) & (kp[:, None, :] <= qp[:, :, None])
+        if window:
+            mask &= kp[:, None, :] > qp[:, :, None] - window
+        mask = mask[:, None]
+        seen = int(mask.any(2).sum())
         a = (q, k, v, qp, kp)
         cases.append((
             "flash_attention", label,
-            lambda a=a: ops.flash_attention(*a),
-            lambda a=a: ref.flash_attention_ref(*a),
-            lambda a=a: ref.flash_attention_ref(*f32(*a)),
+            lambda a=a: ops.flash_attention(*a, window=window),
+            lambda a=a: ref.flash_attention_ref(*a, window=window),
+            lambda a=a: ref.flash_attention_ref(*f32(*a), window=window),
             lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=m, enable_gqa=True),
-            nbytes(q, q, qp) + end * KV * hd * 2 * 2 + end * 4,
+            nbytes(q, q, qp) + seen * (KV * hd * 2 * 2 + 4),
             4 * hd * H * int(mask.sum()), "bf16"))
 
     # granite-3-8b
@@ -559,10 +638,29 @@ def kernel_cases(dev):
         flash(Tq, 16, 1, 256, f"Tq={Tq} Tk=1024 hd=256")
         paged_chunk(Tq, 16, 1, 256, f"Tq={Tq} MB=64 bs=16 hd=256")
 
-    # RMSNorm at d 4096: a decode step's rows and a long prefill's; the
-    # fused add's library call is the add then the norm
-    d = 4096
-    for rows in (8, 4096):
+    # the other decoder-only families at hd 128: starcoder2-7b (36 heads on
+    # 4 kv heads, G 9), qwen1.5-32b (MHA on 40 kv heads) and qwen2-moe (MHA
+    # on 16); rows filled to 33-1024, as a serving batch at max_context
+    fill = [33, 100, 160, 240, 384, 512, 777, 1024]
+    for H, KV in ((36, 4), (40, 40), (16, 16)):
+        g_kv = f"G={H // KV} KV={KV}"
+        decode(8, 1024, H, KV, 128, f"B=8 S=1024 fill=33-1024 {g_kv}",
+               fill=fill)
+        paged(H, KV, 128, f"B=8 fill=33-1024 {g_kv} blocks=", lens=fill)
+        flash(16, H, KV, 128, f"Tq=16 Tk=1024 {g_kv}")
+        paged_chunk(16, H, KV, 128, f"Tq=16 MB=64 bs=16 {g_kv}")
+    # mistral-nemo-12b's sliding variant (32 heads on 8, window 256) on the
+    # ring a 16-token chunk needs (256 + 16 - 1 slots), wrapped: positions
+    # past 1024, each slot holding the newest position of its residue
+    decode(8, 271, 32, 8, 128, "B=8 S=271 window=256 ring", window=256,
+           ring=True)
+    flash(16, 32, 8, 128, "Tq=16 S=271 window=256 ring", window=256,
+          ring=271)
+
+    # RMSNorm at d 4096: a decode step's rows and a long prefill's, and a
+    # decode step's at starcoder2-7b's and qwen2-moe's widths; the fused
+    # add's library call is the add then the norm
+    for rows, d in ((8, 4096), (4096, 4096), (8, 4608), (8, 2048)):
         x, y, w = rn(rows, d), rn(rows, d), rn(d) * 0.1
         w1 = 1.0 + w
         cases.append((
@@ -570,15 +668,16 @@ def kernel_cases(dev):
             lambda x=x, w=w: ops.rmsnorm(x, w),
             lambda x=x, w=w: ref.rmsnorm_ref(x, w),
             lambda x=x, w=w: ref.rmsnorm_ref(x.float(), w.float()),
-            lambda x=x, w1=w1: F.rms_norm(x, (d,), weight=w1, eps=1e-6),
+            lambda x=x, w1=w1, d=d: F.rms_norm(x, (d,), weight=w1,
+                                               eps=1e-6),
             nbytes(x, w, x), 4 * rows * d, "bf16"))
         cases.append((
             "add_rmsnorm", f"rows={rows} d={d}",
             lambda x=x, y=y, w=w: ops.add_rmsnorm(x, y, w),
             lambda x=x, y=y, w=w: ref.add_rmsnorm_ref(x, y, w),
             lambda x=x, y=y, w=w: ref.add_rmsnorm_ref(*f32(x, y, w)),
-            lambda x=x, y=y, w1=w1: F.rms_norm(x + y, (d,), weight=w1,
-                                               eps=1e-6),
+            lambda x=x, y=y, w1=w1, d=d: F.rms_norm(x + y, (d,), weight=w1,
+                                                    eps=1e-6),
             nbytes(x, y, w, x, x), 5 * rows * d, "bf16"))
 
     # mamba2-2.7b: 80 heads of P 64, N 128; the serving chunk (Q 16), two
@@ -657,6 +756,9 @@ def eager_gated_scan(ga, gi, x, lam, b_a, b_i, h0, scan=None):
 #: launch-floor cases also timed as 100 launches in one CUDA graph
 GRAPH_CASES = {("rmsnorm", "rows=8 d=4096"), ("add_rmsnorm", "rows=8 d=4096"),
                ("decode_attention", "B=8 S=1024"),
+               ("paged_decode_attention", "B=8 blocks=241"),
+               ("flash_attention", "Tq=16 Tk=1024"),
+               ("paged_flash_attention", "Tq=16 MB=64 bs=16"),
                ("rglru_gated_scan", "B=8 T=1 W=4096 bf16")}
 
 #: kernel -> (route, source, the TPU kernel it replaces, main-path case)
@@ -735,15 +837,80 @@ def run_kernels(dev):
 
 #: arch -> (layers kept, prefill tokens, decode steps)
 REFERENCE = {"granite-3-8b": (2, 64, 4), "mamba2-2.7b": (2, 300, 4),
-             "recurrentgemma-9b": (3, 300, 4)}
+             "recurrentgemma-9b": (3, 300, 4), "starcoder2-7b": (2, 64, 4),
+             "mistral-nemo-12b": (2, 64, 4), "qwen1.5-32b": (1, 64, 4),
+             "qwen2-moe-a2.7b": (2, 64, 4)}
+
+
+#: a replayed MoE pick may fall short of the fp32 router's own k-th largest
+#: probability by at most this share of it (a near tie): 3.3x the worst
+#: shortfall measured on the card (0.0090), under half the median gap
+#: (0.067) between the fp32 k-th and (k+1)-th probabilities, which a top-k
+#: taking the wrong rank would fall short by (PERF.md §6)
+NEAR_TIE = 0.03
+#: and at most this share of the routed (token, k) picks may differ (7 of
+#: 544 measured; a top-k off by one rank would differ on every token)
+NEAR_TIE_PICKS = 0.03
+
+
+class Routing:
+    """The MoE router's picks (`layers.top_k`), taken from outside. The
+    router's top-k is discontinuous: where two experts' probabilities
+    nearly tie, bf16 rounding upstream may swap them, and the token then
+    adds another expert's output. So the card's run records its picks and
+    the CPU's fp32 run replays them (gates from its own probabilities at
+    those experts): both add the same experts, and the logits compare the
+    arithmetic. A replayed pick that is not among the fp32 router's own
+    top-k must be a near tie (NEAR_TIE), and few (NEAR_TIE_PICKS); `gaps`
+    holds each token's relative gap between its fp32 k-th and (k+1)-th
+    probabilities, what a pick of the wrong rank would fall short by."""
+
+    def __init__(self, layers):
+        self.layers, self.top_k = layers, layers.top_k
+        self.picks, self.replay = [], False
+        self.routed, self.differ, self.shortfall = 0, 0, 0.0
+        self.gaps = []
+
+    def __enter__(self):
+        self.layers.top_k = self
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.top_k = self.top_k
+
+    def __call__(self, x, k):
+        if not self.replay:
+            v, i = self.top_k(x, k)
+            self.picks.append(i.cpu())
+            return v, i
+        i = self.picks.pop(0).to(x.device)
+        own, own_i = self.top_k(x, k + 1)
+        kth, own_i = own[..., k - 1:k], own_i[..., :k]
+        self.gaps.append(((kth - own[..., k:]) / kth).flatten())
+        v = x.gather(-1, i)
+        miss = ~(i[..., :, None] == own_i[..., None, :]).any(-1)
+        self.routed += i.numel()
+        if bool(miss.any()):
+            short = ((kth - v).clamp_min(0) / kth)[miss]
+            self.differ += int(miss.sum())
+            self.shortfall = max(self.shortfall, float(short.max()))
+        return v, i
+
+
+def to_cpu(t):
+    """A param tree on the CPU in fp32."""
+    return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) \
+        else t.float().cpu()
 
 
 def run_reference(dev, arch: str):
     """Full width, depth cut to one layer pattern: the kernels' path (bf16,
-    card) against the plain path (fp32, CPU) with the same weights."""
+    card) against the plain path (fp32, CPU) with the same weights; a MoE
+    arch's fp32 run takes the card's expert picks (`Routing`)."""
     import dataclasses
     from repro_torch.config.registry import get_config
     from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
     from repro_torch.models.model import build_model
 
     layers, T, n_dec = REFERENCE[arch]
@@ -751,28 +918,40 @@ def run_reference(dev, arch: str):
     m = build_model(cfg, torch.bfloat16, dev)
     params = m.init(0)
     m_cpu = build_model(cfg, torch.float32, "cpu")
-
-    def to_cpu(t):
-        return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t.float().cpu()
-
     p_cpu = to_cpu(params)
     toks = torch.randint(0, cfg.vocab_size, (1, T + n_dec),
                          generator=torch.Generator().manual_seed(0))
     pos = torch.arange(T + n_dec, dtype=torch.int32)[None]
     outs = []
     ops.reset_launches()
-    for model, p, d in ((m, params, dev), (m_cpu, p_cpu, "cpu")):
-        cache = model.init_cache(1, 2 * T, prefill_chunk=T)
-        lg, cache = model.prefill(p, toks[:, :T].to(d), pos[:, :T].to(d),
-                                  cache, last_only=True)
-        seq = [lg[0, -1]]
-        for t in range(T, T + n_dec):
-            lg, cache = model.decode_step(p, toks[:, t].to(d),
-                                          pos[:, t].to(d), cache)
-            seq.append(lg[0])
-        outs.append(torch.stack(seq).float().cpu())
+    with Routing(L) as routing:
+        for model, p, d in ((m, params, dev), (m_cpu, p_cpu, "cpu")):
+            cache = model.init_cache(1, 2 * T, prefill_chunk=T)
+            lg, cache = model.prefill(p, toks[:, :T].to(d),
+                                      pos[:, :T].to(d), cache, last_only=True)
+            seq = [lg[0, -1]]
+            for t in range(T, T + n_dec):
+                lg, cache = model.decode_step(p, toks[:, t].to(d),
+                                              pos[:, t].to(d), cache)
+                seq.append(lg[0])
+            outs.append(torch.stack(seq).float().cpu())
+            routing.replay = True
     got, want = outs
+    moe = {}
+    if cfg.moe is not None:
+        gaps = torch.cat(routing.gaps)
+        moe = dict(routed_calls=layers * (1 + n_dec),
+                   routed_picks=routing.routed,
+                   picks_replayed_differing=routing.differ,
+                   max_shortfall=routing.shortfall, near_tie=NEAR_TIE,
+                   near_tie_picks=NEAR_TIE_PICKS,
+                   kth_gap_median=float(gaps.median()),
+                   kth_gap_below_near_tie=float(
+                       (gaps < NEAR_TIE).float().mean()))
+        if routing.picks or routing.shortfall > NEAR_TIE \
+                or routing.differ > NEAR_TIE_PICKS * routing.routed:
+            raise AssertionError(f"{arch}: the card's expert picks are not "
+                                 f"the fp32 router's up to near ties: {moe}")
     launches = {k: n for k, n in ops.LAUNCHES.items() if n}
     if got.shape != (n_dec + 1, cfg.vocab_size) or not bool(
             torch.isfinite(got).all()):
@@ -786,7 +965,7 @@ def run_reference(dev, arch: str):
     same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
     emit("reference", arch=arch, layers=layers, d_model=cfg.d_model,
          prefill_tokens=T, rel_max_err=rel, tol=5e-2,
-         argmax_agreement=same, launches=launches)
+         argmax_agreement=same, launches=launches, **moe)
     if rel > 5e-2:
         raise AssertionError(f"{arch}: kernel path vs fp32 plain path: "
                              f"rel err {rel}")
@@ -794,6 +973,79 @@ def run_reference(dev, arch: str):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(arch=arch, rel_max_err=rel, argmax_agreement=same)
+
+
+def run_sliding_reference(dev):
+    """mistral-nemo-12b's sliding variant (SLIDING's window) at full width,
+    2 layers: 1040 prompt tokens prefilled in chunks of 16 (the contiguous
+    ring of window + 15 slots wraps), then 4 decode steps past position
+    1040. The kernels' path on the card in bf16, contiguous ring and paged
+    (the window mask over a block table of every token), against the plain
+    path on the CPU in fp32 on the ring, the same weights: each chunk's
+    last logits and each step's within 5e-2 of max|logit|."""
+    import dataclasses
+    from repro_torch.configs.mistral_nemo_12b import sliding
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    _, window = SLIDING
+    cfg = dataclasses.replace(sliding(window=window), num_layers=2)
+    T, chunk, n_dec, bs = 1040, 16, 4, 16
+    n = T + n_dec
+    m = build_model(cfg, torch.bfloat16, dev)
+    params = m.init(0)
+    m_cpu = build_model(cfg, torch.float32, "cpu")
+    p_cpu = to_cpu(params)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g)
+    pos = torch.arange(n, dtype=torch.int32)[None]
+    tables = torch.randperm(-(-n // bs), generator=g).to(torch.int32)[None]
+
+    def serve(model, p, d, paged):
+        """(the logits, the kernels launched, the K/V slots a cache row
+        holds: the ring's when contiguous)."""
+        tb = tables.to(d)
+        cache = model.init_paged_cache(tables.shape[1], bs) if paged \
+            else model.init_cache(1, n, prefill_chunk=chunk)
+        ops.reset_launches()
+        seq = []
+        for s_ in range(0, T, chunk):
+            t_, p_ = toks[:, s_:s_ + chunk].to(d), pos[:, s_:s_ + chunk].to(d)
+            lg, cache = model.prefill_paged(p, t_, p_, tb, cache,
+                                            last_only=True) if paged \
+                else model.prefill(p, t_, p_, cache, last_only=True)
+            seq.append(lg[0, -1])
+        for t in range(T, n):
+            t_, p_ = toks[:, t].to(d), pos[:, t].to(d)
+            lg, cache = model.decode_step_paged(p, t_, p_, tb, cache) \
+                if paged else model.decode_step(p, t_, p_, cache)
+            seq.append(lg[0])
+        return (torch.stack(seq).float().cpu(),
+                {k: v for k, v in ops.LAUNCHES.items() if v},
+                cache["k"].shape[2])
+
+    want, _, ring_slots = serve(m_cpu, p_cpu, "cpu", False)
+    out = dict(window=window, layers=2, prompt_tokens=T, chunk=chunk,
+               decode_steps=n_dec, ring_slots=ring_slots, tol=5e-2)
+    if ring_slots != window + chunk - 1 or ring_slots >= T:
+        raise AssertionError(f"sliding reference: a ring of {ring_slots} "
+                             f"slots for {T} tokens")
+    for paged in (False, True):
+        got, launches, _ = serve(m, params, dev, paged)
+        rel = float((got - want).abs().max() / want.abs().max())
+        out["paged" if paged else "contiguous"] = dict(
+            rel_max_err=rel, launches=launches,
+            argmax_agreement=float((got.argmax(-1) == want.argmax(-1))
+                                   .float().mean()))
+        if rel > 5e-2 or not bool(torch.isfinite(got).all()) \
+                or any(launches.get(k, 0) == 0 for k in ATTENTION[paged]) \
+                or any(launches.get(k, 0) for k in ATTENTION[not paged]):
+            raise AssertionError(f"sliding reference {out}")
+    emit("sliding_reference", **out)
+    del m, params, m_cpu, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -809,21 +1061,25 @@ def serve_prompts(arch: str):
 
 
 def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
-              depth: int = 0, beside: Optional[dict] = None):
+              depth: int = 0, beside: Optional[dict] = None, cfg=None,
+              cut: bool = True, dtype=None):
     """Serve the family's prompts through `launch.serve.build_engine` (its
     graphs captured by `warmup` first), `depth` intervals dispatched ahead
     (DESIGN §14), and check the run. `beside`: the depth-0 run's figures,
-    printed on the line. Returns (the emitted fields, the engine, the
-    requests)."""
+    printed on the line. `cfg`: a variant of the arch's full config (the
+    run is named after it). `cut`: take the arch's SERVE_CUTS. `dtype`:
+    the weights' type, if not bf16. Returns (the emitted fields, the
+    engine, the requests)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     n_req, path, attends, (fused, plain), per_forward = FAMILIES[arch]
     args = serve.build_parser().parse_args(
-        SERVE_ARGS + ["--arch", arch] + (["--paged"] if paged else [])
+        serve_args(arch, cut) + (["--paged"] if paged else [])
         + ["--overlap-depth", str(depth)])
     t0 = time.perf_counter()
-    eng = serve.build_engine(args, cuda_graphs=cuda_graphs)
+    eng = serve.build_engine(args, cuda_graphs=cuda_graphs, cfg=cfg,
+                             dtype=dtype)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     warm = eng.graphs.stats()
@@ -837,9 +1093,12 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
     launches = dict(ops.LAUNCHES)
     s = eng.summary()
     allocator_full = eng.blocks.free_blocks == eng.blocks.num_blocks
-    name = f"serve_{arch}_{'paged' if paged else 'contiguous'}" \
+    name = f"serve_{cfg.name if cfg else arch}_" \
+        f"{'paged' if paged else 'contiguous'}" \
         + ("" if cuda_graphs else "_eager") \
-        + (f"_overlap{depth}" if depth else "")
+        + (f"_overlap{depth}" if depth else "") \
+        + ("" if cut or arch not in SERVE_CUTS else "_uncut") \
+        + ("_fp32" if dtype == torch.float32 else "")
     n_int = len(eng.step_host_trace)
     caught = eng.graphs.capture_s - warm["capture_s"]
     fields = dict(summary=s, launches=launches, build_s=build_s,
@@ -925,8 +1184,7 @@ def run_twin(arch: str, layout: str, runs: dict):
     out, bad = {}, {}
     for depth, (fields, reqs) in runs.items():
         args = serve.build_parser().parse_args(
-            SERVE_ARGS + ["--arch", arch]
-            + (["--paged"] if layout == "paged" else [])
+            serve_args(arch) + (["--paged"] if layout == "paged" else [])
             + ["--overlap-depth", str(depth)])
         ctx = fields["max_context"]
         sim = ServingSimulator(
@@ -1300,14 +1558,21 @@ def fill_cache(eng, seed: int) -> None:
 
 def run_graph_check(eng, name: str):
     """Replay against eager run of the same step, bit for bit, from the
-    same cache and inputs: decode at bucket 8 and a lane's full chunk, on
-    random cache contents and inputs (distinct blocks and state slots)."""
+    same cache and inputs: decode at the largest bucket (8, or the arch's
+    cut b_max) and a lane's full chunk, on
+    random cache contents and inputs (distinct blocks and state slots).
+    The cache's two copies (the start, the eager run's result) are kept on
+    the card, or in host memory where they do not fit beside the weights
+    (qwen1.5-32b)."""
     import numpy as np
 
     rng = np.random.RandomState(0)
+    cache_bytes = sum(nbytes(v) for v in eng.cache.values())
+    keep = eng.device if 2 * cache_bytes < 0.8 * torch.cuda.mem_get_info()[0] \
+        else torch.device("cpu")
     lane = ("chunk", 1, eng.prefill_chunk, -1 if eng.paged else eng.max_slots)
     checks = []
-    for key in (("decode", 8), lane):
+    for key in (("decode", max(eng.buckets)), lane):
         st = eng.graphs.steps[key]
         fill_cache(eng, seed=len(checks))
         rows, T = st.inputs["tokens"].shape
@@ -1321,16 +1586,16 @@ def run_graph_check(eng, name: str):
             host["slots"] = rng.permutation(eng.n_slots)[:rows]
         for k, v in host.items():
             eng._stage(st, k, v.astype(np.int64))
-        start = {k: v.clone() for k, v in eng.cache.items()}
+        start = {k: v.to(keep, copy=True) for k, v in eng.cache.items()}
         want = st.run(eager=True).clone()
-        want_cache = {k: v.clone() for k, v in eng.cache.items()}
+        want_cache = {k: v.to(keep, copy=True) for k, v in eng.cache.items()}
         for k, v in start.items():
             eng.cache[k].copy_(v)
         del start
         got = st.run().clone()
         torch.cuda.synchronize()
         same = bool(torch.equal(got, want))
-        cache_same = all(bool(torch.equal(v, want_cache[k]))
+        cache_same = all(bool(torch.equal(v.to(keep), want_cache[k]))
                          for k, v in eng.cache.items())
         del want_cache
         launch_us, device_ms = replay_times(st)
@@ -1340,7 +1605,8 @@ def run_graph_check(eng, name: str):
                            max_abs_diff=float((got - want).abs().max()),
                            replay_launch_us=launch_us,
                            replay_device_ms=device_ms))
-    emit(f"graphs_{name}", checks=checks, **eng.graphs.stats())
+    emit(f"graphs_{name}", checks=checks, cache_copies_on=keep.type,
+         **eng.graphs.stats())
     bad = [c for c in checks if not (c["logits_bit_equal"]
                                      and c["cache_bit_equal"]
                                      and c["finite"])]
@@ -1456,7 +1722,7 @@ def run_profile(arch: str, paged: bool, depth: int = 0):
     from repro_torch.launch import serve
 
     eng = serve.build_engine(serve.build_parser().parse_args(
-        SERVE_ARGS + ["--arch", arch] + (["--paged"] if paged else [])
+        serve_args(arch) + (["--paged"] if paged else [])
         + ["--overlap-depth", str(depth)]))
     rng = np.random.RandomState(1)
     for _ in range(8):
@@ -1672,11 +1938,23 @@ def main() -> int:
 
     kres = run_kernels(dev)
     refs = [run_reference(dev, arch) for arch in REFERENCE]
+    sliding_ref = run_sliding_reference(dev)
     prefix_ref = run_prefix_reference(dev)
     serves, runs, launches, graphs, served = {}, {}, {}, {}, {}
 
     def tokens(key):
         return [r.output_tokens for r in served[key][1]]
+
+    def agreement(arch):
+        """How far the two layouts' greedy tokens agree: bf16 logits of
+        random weights are flat, so a near tie flips between the layouts'
+        kernels and the request's tokens part from there."""
+        pairs = list(zip(tokens((arch, "contiguous")),
+                         tokens((arch, "paged"))))
+        return dict(requests_with_equal_tokens=sum(a == b for a, b in pairs),
+                    equal_leading_tokens=[next(
+                        (i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                        len(a)) for a, b in pairs], requests=len(pairs))
 
     for arch in FAMILIES:
         layouts = {}
@@ -1699,6 +1977,61 @@ def main() -> int:
             raise AssertionError(f"{arch}: structural counters differ "
                                  f"between cache layouts: {diff}")
         serves[arch] = layouts
+    for arch, paged in UNCUT:
+        layout = "paged" if paged else "contiguous"
+        fields, eng, _ = run_serve(arch, paged, cut=False)
+        runs[f"{arch}_{layout}_uncut"] = fields
+        for k, n in fields["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    layout_tokens = {arch: agreement(arch) for arch in FAMILIES}
+    emit("layout_tokens", **layout_tokens)
+    # the sliding variant: the contiguous ring wraps, the paged pool masks
+    # by window; both layouts serve the same counters. In bf16 their tokens
+    # part where a near tie flips, because the ring sums its keys in
+    # another order than the pool's walk (rotated, and split by the plan of
+    # 271 slots, not 1024; the dense archs' layouts sum in one order and
+    # agree bit for bit, `layout_tokens`). In fp32 they must be equal.
+    arch, window = SLIDING
+    from repro_torch.configs.mistral_nemo_12b import sliding
+    swa = sliding(window=window)
+    for dtype in (None, torch.float32):
+        key = swa.name + ("_fp32" if dtype else "")
+        layouts = {}
+        for paged in (False, True):
+            layout = "paged" if paged else "contiguous"
+            fields, eng, reqs = run_serve(arch, paged, cfg=swa, dtype=dtype)
+            if not paged:
+                ring = eng.cache["k"].shape[2]
+                reach = max(r.prompt_len + len(r.output_tokens)
+                            for r in reqs)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            served[key, layout] = (fields, reqs)
+            layouts[layout] = fields["summary"]
+            runs[f"{key}_{layout}"] = fields
+            for k, n in fields["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        s_c, s_p = layouts["contiguous"], layouts["paged"]
+        diff = {k: (s_c[k], s_p[k]) for k in STRUCTURAL if s_c[k] != s_p[k]}
+        layout_tokens[key] = agreement(key)
+        emit(f"sliding_{key}", window=window, ring_slots=ring,
+             longest_context=reach, structural_diff=diff,
+             **layout_tokens[key], control={arch: layout_tokens[arch]})
+        if not ring < reach:
+            raise AssertionError(f"{key}: the ring of {ring} slots never "
+                                 f"wrapped (longest context {reach})")
+        if diff:
+            raise AssertionError(f"{key}: structural counters differ "
+                                 f"between cache layouts: {diff}")
+        agree = layout_tokens[key]
+        if dtype and agree["requests_with_equal_tokens"] != agree["requests"]:
+            raise AssertionError(f"{key}: the layouts' tokens differ: "
+                                 f"{agree}")
+        serves[key] = layouts
     if any((n > 0) == (k in OFF_PATH) for k, n in launches.items()):
         raise AssertionError(f"a path kernel never launched, or an "
                              f"off-path one did: {launches}")
@@ -1738,9 +2071,10 @@ def main() -> int:
         overlap[f"{arch}_{layout}"] = fields
         served[arch, layout, OVERLAP_DEPTH] = (fields, reqs)
     twins = {f"{arch}_{layout}": run_twin(arch, layout, {
-        0: served[arch, layout],
-        OVERLAP_DEPTH: served[arch, layout, OVERLAP_DEPTH]})
-        for arch, layout in OVERLAPPED if arch in TWINNED}
+        depth: served[key] for depth, key in (
+            (0, (arch, layout)), (OVERLAP_DEPTH, (arch, layout, OVERLAP_DEPTH)))
+        if key in served})
+        for arch in TWINNED for layout in ("contiguous", "paged")}
     # the memory tiers (DESIGN §10, §11), their launches on the main path
     tiers, tier_launches, (swap_eng, swap_log, _) = run_tiers()
     for k, n in tier_launches.items():
@@ -1779,6 +2113,7 @@ def main() -> int:
          "graphs": graphs, "profile": profile,
          "profile_overlap": profile_overlap, "serve_overlap": overlap,
          "twin": twins, "tiers": tiers, "prefix_reference": prefix_ref,
+         "sliding_reference": sliding_ref, "layout_tokens": layout_tokens,
          "profile_swap": profile_swap,
          "serve_eager": {f"{arch}_{layout}": eager}},
         indent=1))

@@ -61,7 +61,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
     flags = serve.build_parser().parse_args(
-        chip_smoke.SERVE_ARGS + ["--arch", args.arch]
+        chip_smoke.serve_args(args.arch)
         + (["--paged"] if args.paged else [])
         + (["--overlap-depth", str(args.overlap_depth)]
            if args.overlap_depth else []))

@@ -28,7 +28,8 @@ _ARCH_MODULES = {
 }
 
 #: arch ids whose model path the port runs (ROADMAP.md lists the rest)
-_PORTED = ("granite-3-8b",
+_PORTED = ("granite-3-8b", "starcoder2-7b", "mistral-nemo-12b", "qwen1.5-32b",
+           "qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
            "mamba2-2.7b", "recurrentgemma-9b")
 
 

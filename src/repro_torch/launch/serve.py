@@ -22,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config.base import ServeConfig
+from repro_torch.config.base import ModelConfig, ServeConfig
 from repro_torch.config.registry import get_config, list_archs
 from repro_torch.serving.cost_model import PROFILES
 
@@ -160,19 +160,26 @@ def serve_config(args) -> ServeConfig:
                        mesh_shape=args.mesh or ())
 
 
-def build_engine(args, cuda_graphs: Optional[bool] = None):
+def build_engine(args, cuda_graphs: Optional[bool] = None,
+                 cfg: Optional[ModelConfig] = None,
+                 dtype: Optional[torch.dtype] = None):
     """The model (random weights from --seed) and the engine the flags
     describe, its step graphs captured on the card (`Engine.warmup`).
-    `cuda_graphs=False` runs the steps eagerly on the card."""
+    `cuda_graphs=False` runs the steps eagerly on the card. `cfg` replaces
+    the --arch / --variant configuration (a variant the registry does not
+    name, e.g. `mistral_nemo_12b.sliding(window=256)`). `dtype` replaces
+    the weights' and activations' type (fp32 for --variant reduced, else
+    bf16)."""
     from repro_torch.models.model import build_model
     from repro_torch.serving.cost_model import CostModel
     from repro_torch.serving.engine import Engine, check_ported
 
     serve = serve_config(args)
     check_ported(serve)
-    cfg = get_config(args.arch, args.variant)
-    model = build_model(cfg, dtype=torch.float32 if args.variant == "reduced"
-                        else torch.bfloat16, device=args.device)
+    cfg = cfg or get_config(args.arch, args.variant)
+    dtype = dtype or (torch.float32 if args.variant == "reduced"
+                      else torch.bfloat16)
+    model = build_model(cfg, dtype=dtype, device=args.device)
     eng = Engine(model, model.init(args.seed), serve,
                  max_context=args.max_context, buckets=serve.batch_buckets,
                  prefill_chunk=16, seed=args.seed, device=args.device,

@@ -2,7 +2,10 @@
 pass (chunked prefill and decode share one path; decode = a chunk of
 length 1).
 
-* DENSE: attention + SwiGLU layers (granite-3-8b).
+* DENSE: attention + SwiGLU layers (granite-3-8b, starcoder2-7b,
+  mistral-nemo-12b, qwen1.5-32b).
+* MOE: the same attention layers with the SwiGLU swapped for the GShard
+  dense-dispatch MoE (qwen2-moe-a2.7b, kimi-k2-1t-a32b).
 * SSM: Mamba2 layers (mamba2-2.7b), no attention and no K/V.
 * HYBRID: RG-LRU recurrent layers and local-attention layers in the
   config's block pattern (recurrentgemma-9b).
@@ -33,10 +36,14 @@ Cache = Dict[str, torch.Tensor]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-PORTED_FAMILIES = (ArchFamily.DENSE, ArchFamily.SSM, ArchFamily.HYBRID)
+PORTED_FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.SSM,
+                   ArchFamily.HYBRID)
+#: the families whose every layer is an attention layer
+ATTENTION_ONLY = (ArchFamily.DENSE, ArchFamily.MOE)
 
 #: leaves the JAX package keeps in fp32 whatever the working dtype
-FP32_LEAVES = frozenset({"A_log", "dt_bias", "D", "lam", "b_a", "b_i"})
+FP32_LEAVES = frozenset({"A_log", "dt_bias", "D", "lam", "b_a", "b_i",
+                         "router"})
 
 #: per-request state of the recurrent families (constant size per request)
 STATE_KEYS = ("conv", "ssm", "rec")
@@ -79,28 +86,33 @@ def layer_counts(cfg: ModelConfig) -> Tuple[int, int]:
 # params
 
 
-def _dense_layers(init: L.ParamInit, cfg: ModelConfig, n: int) -> Params:
+def _dense_layers(init: L.ParamInit, cfg: ModelConfig, n: int,
+                  moe: bool = False) -> Params:
+    """n stacked attention layers, their SwiGLU (`mlp`) or MoE (`moe`)."""
     return {"ln1": init.zeros(n, cfg.d_model),
             "ln2": init.zeros(n, cfg.d_model),
             "attn": L.init_attention(init, cfg, n),
-            "mlp": L.init_mlp(init, cfg, n)}
+            **({"moe": L.init_moe(init, cfg, n)} if moe
+               else {"mlp": L.init_mlp(init, cfg, n)})}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
                 device="cpu") -> Params:
     """Random weights from a seeded torch.Generator with the JAX package's
     scales: normal / sqrt(fan_in), the output projections at
-    0.02 / sqrt(2 L), the embedding at 0.02, norms at zero, and the SSM /
-    RG-LRU constants as the JAX package draws them (in fp32). Each weight
-    is drawn in place, layer by layer, in the working dtype on `device`,
-    so peak memory stays at the weights themselves."""
+    0.02 / sqrt(2 L), the embedding at 0.02, norms at zero, the MoE
+    router at 0.02 and the SSM / RG-LRU constants as the JAX package draws
+    them (in fp32). Each weight is drawn in place, layer by layer, in the
+    working dtype on `device`, so peak memory stays at the weights
+    themselves."""
     require_ported(cfg)
     init = L.ParamInit(seed, cfg_dtype(cfg, dtype), device)
     d = cfg.d_model
     p: Params = {"embed": init.normal((cfg.vocab_size, d), 0.02),
                  "ln_f": init.zeros(d)}
-    if cfg.family == ArchFamily.DENSE:
-        p["layers"] = _dense_layers(init, cfg, cfg.num_layers)
+    if cfg.family in ATTENTION_ONLY:
+        p["layers"] = _dense_layers(init, cfg, cfg.num_layers,
+                                    moe=cfg.family == ArchFamily.MOE)
     elif cfg.family == ArchFamily.SSM:
         p["layers"] = {"ln1": init.zeros(cfg.num_layers, d),
                        "mixer": S.init_mamba2_block(init, cfg,
@@ -257,6 +269,11 @@ def _attn_layer(lp, x, pending, positions, cache, i, widx, cfg, window,
                                    cache["v"][i], cache["pos"], tables, widx,
                                    cfg, window=window)
     x, h = L.add_rms_norm(x, a, lp["ln2"], cfg.rms_eps)
+    if "moe" in lp:
+        # no_drop: serving is chunking-invariant (`layers.moe_apply`)
+        y, _ = L.moe_apply(lp["moe"], h, cfg,
+                           no_drop=cfg.moe.inference_no_drop)
+        return x, y
     return x, L.mlp(lp["mlp"], h)
 
 
@@ -334,7 +351,7 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     widx = _write_index(positions, cache, tables) if "k" in cache else None
     st = _State(cache, rows if tables is not None else None)
     y = None  # the branch output pending for the next norm
-    if cfg.family == ArchFamily.DENSE:
+    if cfg.family in ATTENTION_ONLY:
         for i in range(cfg.num_layers):
             x, y = _attn_layer(layer_params(p["layers"], i), x, y, positions,
                                cache, i, widx, cfg, win, tables)

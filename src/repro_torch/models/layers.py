@@ -1,5 +1,6 @@
 """Transformer layers: seeded parameter init, RMSNorm, RoPE, GQA attention
-through a contiguous (possibly ring) or paged KV cache, SwiGLU MLP.
+through a contiguous (possibly ring) or paged KV cache, SwiGLU MLP, and the
+GShard dense-dispatch MoE.
 
 Conventions (those of the JAX package's `models/layers.py`):
 
@@ -10,8 +11,9 @@ Conventions (those of the JAX package's `models/layers.py`):
   positions before the write, which makes ring wrap-around transparent.
 
 Attention and RMSNorm go through `kernels.ops`: the Hopper kernels for CUDA
-tensors, their plain versions for CPU tensors. The projections stay
-`torch.matmul`. Caches are updated in place.
+tensors, their plain versions for CPU tensors. The projections and the
+MoE's expert products stay `torch.matmul` / `einsum`, as the JAX package
+computes them outside any Pallas kernel. Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -39,14 +41,19 @@ class ParamInit:
         return torch.empty(shape, dtype=self.dtype, device=self.device
                            ).normal_(0.0, scale, generator=self.g)
 
-    def stacked(self, n: int, shape, scale: Optional[float] = None):
-        """n layers of `shape`, each normal / sqrt(fan_in = shape[0]) unless
-        `scale` is given."""
-        w = torch.empty((n,) + tuple(shape), dtype=self.dtype,
+    def stacked(self, n: int, shape, scale: Optional[float] = None,
+                dtype: Optional[torch.dtype] = None):
+        """n layers of `shape`, each normal / sqrt(fan_in) unless `scale` is
+        given; fan_in is shape[-2] (shape[-1] for a vector), as the JAX
+        package's `dense_init` takes it: the input width of a matrix, and
+        of each expert's matrix in an (E, d, f) stack. `dtype` overrides
+        the working dtype (the fp32 router)."""
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        w = torch.empty((n,) + tuple(shape), dtype=dtype or self.dtype,
                         device=self.device)
         for i in range(n):
             w[i].normal_(0.0, scale if scale is not None
-                         else 1 / math.sqrt(shape[0]), generator=self.g)
+                         else 1 / math.sqrt(fan_in), generator=self.g)
         return w
 
     def uniform(self, shape, lo: float, hi: float):
@@ -74,8 +81,9 @@ def init_attention(init: ParamInit, cfg: ModelConfig, n: int):
     return p
 
 
-def init_mlp(init: ParamInit, cfg: ModelConfig, n: int):
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(init: ParamInit, cfg: ModelConfig, n: int, f: int = 0):
+    """n stacked SwiGLU blocks of width `f` (default cfg.d_ff)."""
+    d, f = cfg.d_model, f or cfg.d_ff
     return {"w_gate": init.stacked(n, (d, f)), "w_up": init.stacked(n, (d, f)),
             "w_down": init.stacked(n, (f, d), out_scale(cfg))}
 
@@ -144,6 +152,118 @@ def attention_qkv(p, x, cfg: ModelConfig):
 
 def mlp(p, x):
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: the JAX package's GShard dense dispatch, in static shapes
+
+
+def init_moe(init: ParamInit, cfg: ModelConfig, n: int):
+    """n stacked MoE blocks: the router (d, E) in fp32 at 0.02, the
+    experts' SwiGLU stacks (gate and up (E, d, f) at 1/sqrt(d), down
+    (E, f, d) at `out_scale`), and the shared expert where the config has
+    one."""
+    d, m = cfg.d_model, cfg.moe
+    E, f = m.num_experts, m.expert_ff_dim
+    p = {"router": init.stacked(n, (d, E), 0.02, dtype=torch.float32),
+         "w_gate": init.stacked(n, (E, d, f)),
+         "w_up": init.stacked(n, (E, d, f)),
+         "w_down": init.stacked(n, (E, f, d), out_scale(cfg))}
+    if m.shared_ff_dim:
+        p["shared"] = init_mlp(init, cfg, n, m.shared_ff_dim)
+    return p
+
+
+#: tokens per dispatch group (GShard's S); bounds the (G, E, C) tensors
+MOE_GROUP = 128
+
+
+def moe_capacity(group: int, cfg: ModelConfig, no_drop: bool) -> int:
+    """Slots per expert in a group: the whole group under `no_drop` (every
+    token could pick one expert), else top-k x group x capacity_factor / E,
+    rounded up."""
+    m = cfg.moe
+    if no_drop:
+        return group
+    return max(int(math.ceil(m.num_experts_per_tok * group
+                             * m.capacity_factor / m.num_experts)), 1)
+
+
+def top_k(x, k: int):
+    """(values, indices) of the k largest entries along the last axis, in
+    descending order; a tie goes to the lower index, as `jax.lax.top_k`
+    breaks it (`torch.topk` promises no order among ties). k passes of
+    max, each masking the entry it took: no sort, no host sync."""
+    ar = torch.arange(x.shape[-1], device=x.device)
+    vals, idx = [], []
+    for _ in range(k):
+        v, i = x.max(-1)
+        vals.append(v)
+        idx.append(i)
+        x = torch.where(ar == i[..., None], float("-inf"), x)
+    return torch.stack(vals, -1), torch.stack(idx, -1)
+
+
+def moe_apply(p, x, cfg: ModelConfig, *, no_drop: bool = False,
+              group_size: int = MOE_GROUP):
+    """x: (B, T, d) -> (y, aux loss), as the JAX package's `moe_apply`.
+
+    The B*T tokens are cut into groups of `group_size` (the last padded
+    with zero rows); in each group every token takes its top-k experts by
+    the fp32 router's softmax, gates renormalised over the k, and a slot
+    in each chosen expert's queue of C (`moe_capacity`), earlier choices
+    first; a choice past the queue is dropped. The one-hots are
+    comparisons with aranges, so a position of -1 or >= C gives a zero
+    row (as `jax.nn.one_hot`; `F.one_hot` would raise) and nothing reads
+    the device from the host. Every expert multiplies its whole queue,
+    empty slots too: the products read all E experts' weights each call,
+    as the reference's do."""
+    B, T, d = x.shape
+    m = cfg.moe
+    E, K = m.num_experts, m.num_experts_per_tok
+    S = B * T
+    G = min(group_size, S)
+    pad = (-S) % G
+    xf = x.reshape(S, d)
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros(pad, d)])
+    nG = (S + pad) // G
+    xg = xf.reshape(nG, G, d)
+    C = moe_capacity(G, cfg, no_drop)
+
+    probs = torch.softmax(xg.float() @ p["router"], dim=-1)     # (nG, G, E)
+    gate, idx = top_k(probs, K)                                  # (nG, G, K)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    ar_e = torch.arange(E, device=x.device)
+    ar_c = torch.arange(C, device=x.device)
+    counts = torch.zeros((nG, 1, E), dtype=torch.int64, device=x.device)
+    dispatch = torch.zeros((nG, G, E, C), dtype=torch.bool, device=x.device)
+    combine = torch.zeros((nG, G, E, C), dtype=torch.float32,
+                          device=x.device)
+    for j in range(K):
+        oh = (idx[:, :, j, None] == ar_e).long()                 # (nG, G, E)
+        pos = oh.cumsum(1) - 1 + counts
+        keep = (pos < C) & (oh > 0)
+        pos_oh = (pos[..., None] == ar_c) & keep[..., None]      # (nG,G,E,C)
+        dispatch = dispatch | pos_oh
+        combine = combine + pos_oh.float() * gate[:, :, j, None, None]
+        counts = counts + oh.sum(1, keepdim=True)
+
+    xin = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xin, p["w_gate"])) \
+        * torch.einsum("gecd,edf->gecf", xin, p["w_up"])
+    out_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])       # (nG,E,C,d)
+    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), out_e)
+    y = y.reshape(nG * G, d)[:S].reshape(B, T, d)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x)
+
+    # the load-balance aux loss (Switch / GShard)
+    frac_tokens = (idx[:, :, 0, None] == ar_e).float().mean((0, 1))
+    aux = E * (frac_tokens * probs.mean((0, 1))).sum() \
+        * m.router_aux_loss_coef
+    return y, aux
 
 
 #: a write index: (B, T) tensors of one fixed shape per chunk shape, built

@@ -643,11 +643,119 @@ def test_paged_decode_bf16_matches_contiguous_kernel_on_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the other decoder-only families' head layouts at hd 128 (bf16):
+# starcoder2-7b's G 9 on 4 kv heads, qwen1.5-32b's MHA on 40, and
+# mistral-nemo-12b's sliding window on a wrapped ring
+
+FAMILY_HEADS = [(36, 4), (40, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV", FAMILY_HEADS, ids=["G9", "KV40"])
+def test_decode_bf16_family_heads_on_card(cuda, H, KV):
+    """Contiguous and paged decode, rows filled to 1024 / 700 / 351 / 41
+    of 1024 slots."""
+    lens = [1024, 700, 351, 41]
+    ar = np.arange(1024)[None]
+    q_pos = np.array(lens) - 1
+    _decode_bf16(cuda, np.random.RandomState(11), 1024, H, KV, 128, q_pos,
+                 np.where(ar <= q_pos[:, None], ar, -1))
+    ops.reset_launches()
+    _paged_bf16(cuda, np.random.RandomState(12), 1, H, KV, 128, 16, lens,
+                lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq", [16, 17])
+@pytest.mark.parametrize("H,KV", FAMILY_HEADS, ids=["G9", "KV40"])
+def test_chunk_bf16_family_heads_on_card(cuda, H, KV, Tq):
+    """A chunk of Tq tokens ending at 600 in a row filled to it, contiguous
+    and through the block table."""
+    rng = np.random.RandomState(13)
+    Tk, end = 1024, 600
+    qp = np.arange(end - Tq, end, dtype=np.int32)[None]
+    kp = np.where(np.arange(Tk) < end, np.arange(Tk), -1)[None]
+    q, k, v, qpt, kpt = _on(cuda, rng.randn(1, Tq, H, 128),
+                            rng.randn(1, Tk, KV, 128),
+                            rng.randn(1, Tk, KV, 128), qp, kp.astype(np.int32))
+    got = ops.flash_attention(q, k, v, qpt, kpt)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), qpt, kpt)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    _paged_bf16(cuda, rng, Tq, H, KV, 128, 16, [end], [end])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq", [1, 16])
+def test_wrapped_ring_bf16_on_card(cuda, Tq):
+    """mistral-nemo's sliding variant (32 heads on 8, window 256) on the
+    ring of 256 + 16 - 1 = 271 slots that a 16-token chunk needs: rows'
+    last queries at 1100-1211, every slot holding the newest position of
+    its residue; decode (Tq 1) and a chunk."""
+    rng = np.random.RandomState(14)
+    B, S, H, KV, hd, window = 4, 271, 32, 8, 128, 256
+    last = 1100 + 37 * np.arange(B)
+    kp = (last[:, None] - (last[:, None] - np.arange(S)) % S).astype(np.int32)
+    qp = (last[:, None] - Tq + 1 + np.arange(Tq)).astype(np.int32)
+    q, k, v, qpt, kpt = _on(cuda, rng.randn(B, Tq, H, hd),
+                            rng.randn(B, S, KV, hd), rng.randn(B, S, KV, hd),
+                            qp, kp)
+    f32 = (q.float(), k.float(), v.float(), qpt, kpt)
+    if Tq == 1:
+        got = ops.decode_attention(q[:, 0], k, v, qpt[:, 0], kpt,
+                                   window=window)
+        want = ref.decode_attention_ref(f32[0][:, 0], *f32[1:3], qpt[:, 0],
+                                        kpt, window=window)
+    else:
+        got = ops.flash_attention(q, k, v, qpt, kpt, window=window)
+        want = ref.flash_attention_ref(*f32, window=window)
+    assert ops.LAUNCHES["decode_attention" if Tq == 1
+                        else "flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_moe_apply_bf16_on_card_matches_cpu(cuda):
+    """The MoE layer at reduced qwen2-moe widths in bf16 on the card (its
+    router in fp32) against the fp32 CPU version on the same weights: the
+    same experts picked, the output within 2e-2."""
+    from repro_torch.config.registry import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config("qwen2-moe-a2.7b", "reduced")
+    p = L.init_moe(L.ParamInit(0, torch.bfloat16, cuda), cfg, 1)
+    p = {k: v[0] if not isinstance(v, dict) else {n: w[0] for n, w
+                                                   in v.items()}
+         for k, v in p.items()}
+    x = torch.randn(3, 40, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0)).to(torch.bfloat16)
+
+    def cpu(t):
+        return {k: cpu(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.float().cpu()
+
+    K = cfg.moe.num_experts_per_tok
+    _, picked = L.top_k(torch.softmax(x.to(cuda).float() @ p["router"], -1),
+                        K)
+    _, want_picked = L.top_k(torch.softmax(x.float() @ p["router"].cpu(),
+                                           -1), K)
+    assert torch.equal(picked.cpu(), want_picked)
+    for no_drop in (True, False):
+        got, aux = L.moe_apply(p, x.to(cuda), cfg, no_drop=no_drop,
+                               group_size=16)
+        want, aux_w = L.moe_apply(cpu(p), x.float(), cfg, no_drop=no_drop,
+                                  group_size=16)
+        torch.testing.assert_close(got.float().cpu(), want, rtol=2e-2,
+                                   atol=2e-2)
+        torch.testing.assert_close(aux.cpu(), aux_w, rtol=1e-3, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
 # RMSNorm in CUDA C++, with and without the fused residual add
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [2560, 4096, 5120])
+@pytest.mark.parametrize("d", [2048, 2560, 4096, 4608, 5120])
 @pytest.mark.parametrize("rows", [1, 8, 4096])
 def test_add_rmsnorm_bf16_on_card(cuda, rows, d):
     """The fused sum is bit for bit PyTorch's bf16 `x + y`; both norms are
@@ -684,7 +792,8 @@ def test_add_rmsnorm_fp32_on_card(cuda, d):
 # the compiled serving step: CUDA graph replays against eager runs of the
 # same steps, reduced models of the three families in both cache layouts
 
-GRAPH_FAMILIES = ("granite-3-8b", "mamba2-2.7b", "recurrentgemma-9b")
+GRAPH_FAMILIES = ("granite-3-8b", "mamba2-2.7b", "recurrentgemma-9b",
+                  "qwen2-moe-a2.7b")
 GRAPH_COUNTERS = ("decode_steps", "mean_batch", "admitted", "preemptions",
                   "prefill_tokens", "finished", "copy_rows")
 

@@ -2,6 +2,7 @@
 its entry points run on the card unless asked for the CPU, its CLI has the
 JAX CLI's flags plus --device, and features it has not ported raise."""
 import ast
+import dataclasses
 import re
 import subprocess
 import sys
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.config.base import ServeConfig
+from repro_torch.config.base import AttentionKind, ServeConfig
 from repro_torch.config.registry import get_config
 from repro_torch.launch import serve as port_serve
 from repro_torch.models.model import build_model
@@ -116,9 +117,51 @@ def test_unported_features_raise(argv):
     assert eng.swap == (argv[0] == "--swap-space")
 
 
-def test_unported_archs_raise():
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
+def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("qwen2-moe-a2.7b", "reduced")
+        get_config(arch, "reduced")
+
+
+@pytest.mark.parametrize("arch,per_token", [
+    ("starcoder2-7b", 2 * 32 * 4 * 128 * 2),
+    ("mistral-nemo-12b", 2 * 40 * 8 * 128 * 2),   # head_dim 128, not 160
+    ("qwen1.5-32b", 2 * 64 * 40 * 128 * 2),
+    ("qwen2-moe-a2.7b", 2 * 24 * 16 * 128 * 2)])
+def test_attention_archs_memory_model_and_cli(arch, per_token, capsys):
+    """The memory model's K/V bytes a token at full width (bf16), and the
+    CLI serves the reduced config on the CPU."""
+    from repro_torch.core.memory_model import MemoryModel
+
+    mem = MemoryModel(get_config(arch, "full"), hbm_budget_bytes=0,
+                      eta_tokens=4096)
+    assert mem.bytes_per_token == per_token
+    assert mem.fixed_bytes_per_request() == 0
+    port_serve.main(["--device", "cpu", "--arch", arch, "--requests", "3",
+                     "--max-new", "3", "--chunked", "--lanes", "2",
+                     "--paged"])
+    assert "'finished': 3" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_build_engine_takes_a_config_and_dtype(dtype):
+    """`build_engine` serves a config the registry does not name (a
+    sliding variant) in the weights' type asked for (fp32 for a reduced
+    variant by default): its contiguous ring holds window + chunk - 1
+    slots."""
+    cfg = dataclasses.replace(get_config("mistral-nemo-12b", "reduced"),
+                              attention=AttentionKind.SLIDING,
+                              sliding_window=8)
+    args = port_serve.build_parser().parse_args(
+        ["--device", "cpu", "--arch", "mistral-nemo-12b"])
+    eng = port_serve.build_engine(args, cfg=cfg, dtype=dtype)
+    assert eng.model.cfg is cfg
+    assert eng.params["embed"].dtype == (dtype or torch.float32)
+    assert eng.cache["k"].shape[2] == 8 + 16 - 1
+    hs = [eng.submit(list(range(1, 30)), max_new_tokens=3)]
+    eng.run()
+    assert len(hs[0].output_tokens) == 3
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])

@@ -230,11 +230,12 @@ def _tables(eng, port):
             {r: list(t) for r, t in eng.blocks.swapped_tables.items()})
 
 
-def lockstep(kw, prompts, max_new=12):
+def lockstep(kw, prompts, max_new=12, w=None):
     """The port and the JAX engine on the same ServeConfig and prompts,
     stepped together: the same block tables and swap ledgers after every
-    step(), then (returned) both engines and their requests."""
-    jcfg, jm, jp, m, p = weights()
+    step(), then (returned) both engines and their requests. `w`: other
+    weights than `weights()`, in its layout."""
+    jcfg, jm, jp, m, p = w or weights()
     ref = JEngine(jm, jp, JServeConfig(**kw), **ENGINE_KW)
     ours = Engine(m, p, ServeConfig(**kw), device="cpu", **ENGINE_KW)
     hs = [(ours.submit(t, max_new_tokens=max_new, arrival_time=0.0),
