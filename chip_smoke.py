@@ -46,7 +46,16 @@ Phases, one JSON line each:
              (qwen1.5-32b) and G 1 / KV 16 (qwen2-moe-a2.7b), rows filled to
              33-1024; a wrapped ring (mistral-nemo's sliding variant:
              window 256 on 271 slots, positions past 1024) in decode and a
-             chunk; the norms at d 4608 and 2048.
+             chunk; the norms at d 4608, 2048, 1024 and 8192. The VLM
+             and enc-dec families add non-causal attention (`causal=
+             False`, every key visible): seamless-m4t's encoder over 1024
+             frames (Tq = Tk = 1024, 16 heads of 64, G 1) and its cross
+             reads (a Tq 16 chunk and decode B 8 over 1024 keys), the
+             VLM's (64 on 8 heads of 128: decode B 8 and a Tq 16 chunk
+             over 1601 patches, a ragged last tile), and the paged cross
+             read (each request's cross row one block of 1024 or 1601
+             slots of the per-slot rows, tables = rows.view(B, 1)), each
+             beside SDPA where one call computes it.
 4. reference per arch, full width with depth cut to one layer pattern
              (granite-3-8b, starcoder2-7b, mistral-nemo-12b,
              qwen2-moe-a2.7b and mamba2-2.7b 2 layers, qwen1.5-32b 1,
@@ -57,6 +66,14 @@ Phases, one JSON line each:
              two SSD chunks, the second padded); recurrentgemma's prefill
              and decode steps launch the gated RG-LRU kernel once a
              recurrent layer and the plain scan kernel never.
+             cross_reference: seamless-m4t-medium (2 encoder + 2 decoder
+             layers) and llama-3.2-vision-90b (4 self + 1 cross) at full
+             width, every gate at 0.5: a first 16-token chunk with extras
+             at the real lengths (1024 frames, 1601 patches), three more
+             chunks and 4 decode steps, contiguous and paged against the
+             fp32 plain path on the CPU, 5e-2 of max|logit|; the norm
+             launches as counted below, and in a paged run no contiguous
+             attention launch but the encoder's.
              sliding_reference: mistral-nemo-12b's sliding(window=256) at
              2 layers, 1040 tokens in 16-token chunks then 4 decode steps:
              the contiguous ring (271 slots, wrapped) and the paged pool
@@ -68,7 +85,10 @@ Phases, one JSON line each:
              full-chunk lane shape; tail chunks at first use), for
              granite-3-8b, starcoder2-7b, mistral-nemo-12b, qwen1.5-32b
              and qwen2-moe-a2.7b (12 requests each), mamba2-2.7b and
-             recurrentgemma-9b (8 each):
+             recurrentgemma-9b (8 each), seamless-m4t-medium and
+             llama-3.2-vision-90b (12 each; the VLM's depth cut to 16
+             self + 4 cross layers, `DEPTH_CUTS`; each request's extras
+             at the real length, gates at 0.5):
              prompts of 32-480 tokens, 32 new tokens, chunked prefill on 2
              lanes, policy `memory`, each path's kernel launches counted.
              Every request finishes, the structural counters agree across
@@ -79,7 +99,9 @@ Phases, one JSON line each:
              forward launches the fused add + RMSNorm and the plain RMSNorm
              its family's number of times (granite 80 + 1, starcoder2
              64 + 1, mistral-nemo 80 + 1, qwen1.5 128 + 1, qwen2-moe 48 + 1,
-             mamba2 64 + 65, recurrentgemma 76 + 1), and recurrentgemma
+             mamba2 64 + 65, recurrentgemma 76 + 1, seamless 48 + 1 and
+             its encoder's 1 + 23 once a first chunk, the cut VLM
+             40 + 1), and recurrentgemma
              launches the gated
              RG-LRU kernel 26 times a forward and the plain scan kernel
              never (it is the TPU kernel's direct counterpart, checked in
@@ -99,7 +121,9 @@ Phases, one JSON line each:
 6. graphs_<arch>_<layout>
              on each serve run's engine: decode at bucket 8 and a lane's
              full chunk, from random cache contents and inputs, replayed
-             and run eagerly: logits and cache bit for bit equal; the
+             and run eagerly (and, for the families with extras, a lane's
+             first chunk with random extras): logits and cache bit for
+             bit equal; the
              graph count, capture seconds and the shared pool's bytes. The
              cache's copies stay in host memory where two do not fit
              beside the weights (qwen1.5-32b).
@@ -114,7 +138,8 @@ Phases, one JSON line each:
              bit for bit and its structural counters; each line carries
              its host, device and interval means and tokens/s with the
              depth-0 run's beside them (`depth0`).
-9. twin_<arch>_<layout> (granite-3-8b, qwen2-moe-a2.7b)
+9. twin_<arch>_<layout> (granite-3-8b, qwen2-moe-a2.7b,
+             seamless-m4t-medium)
              the port's simulator (`serving/sim.py`) on the same
              ServeConfig, prompt lengths, capped max_new_tokens,
              max_context and prefill chunk, prior-free telemetry, every
@@ -248,6 +273,12 @@ FAMILIES = {
     "recurrentgemma-9b": (8, ("rglru_gated_scan", "rmsnorm", "add_rmsnorm"),
                           True, (76, 1),
                           {"rglru_gated_scan": 26, "rglru_scan": 0}),
+    # 12 decoder + 12 cross layers (the encoder's norms: FIRST_CHUNK)
+    "seamless-m4t-medium": (12, ("rmsnorm", "add_rmsnorm"), True, (48, 1),
+                            {}),
+    # 16 self + 4 cross layers (DEPTH_CUTS)
+    "llama-3.2-vision-90b": (12, ("rmsnorm", "add_rmsnorm"), True, (40, 1),
+                             {}),
 }
 #: kernels no serve run launches: the TPU kernel's direct counterpart,
 #: which the model's gated entry replaced on the path
@@ -269,7 +300,17 @@ TWIN = ("admitted", "preemptions", "oom_events", "rejected",
         "sla_requests_met", "goodput_tokens")
 #: serve runs held against the port's simulator (in both layouts, at
 #: every depth served)
-TWINNED = ("granite-3-8b", "qwen2-moe-a2.7b")
+TWINNED = ("granite-3-8b", "qwen2-moe-a2.7b", "seamless-m4t-medium")
+#: depth cuts of serve runs whose whole model does not fit the card:
+#: llama-3.2-vision-90b's 80 self + 20 cross layers (175 GB in bf16) cut
+#: to 16 + 4 (38 GB), a cross layer after every 4 self layers as whole
+DEPTH_CUTS = {"llama-3.2-vision-90b": dict(num_layers=16,
+                                           num_cross_layers=4)}
+#: launches a first chunk (the step that carries a request's extras) adds
+#: to its forward's: seamless-m4t's encoder, 12 layers (the first ln1
+#: plain, 23 fused norms, 12 non-causal flash calls, in either layout)
+FIRST_CHUNK = {"seamless-m4t-medium": {"rmsnorm": 1, "add_rmsnorm": 23,
+                                       "flash_attention": 12}}
 #: the sliding-window run: mistral-nemo-12b's `sliding(window=...)` through
 #: `build_engine`'s config argument, served like FAMILIES' runs; its
 #: contiguous ring (window + chunk - 1 slots) wraps under the prompts
@@ -657,10 +698,72 @@ def kernel_cases(dev):
     flash(16, 32, 8, 128, "Tq=16 S=271 window=256 ring", window=256,
           ring=271)
 
+    def noncausal(B, Tq, Tk, H, KV, hd, label, encoder=False):
+        """Non-causal attention over Tk keys, every key visible: the
+        encoder's self-attention (`encoder`: queries and keys at positions
+        0..Tk-1, Tq = Tk) or a cross-attention read (queries and keys all
+        at position 0). The bound counts every key's K/V and k_pos."""
+        q, k, v = rn(B, Tq, H, hd), rn(B, Tk, KV, hd), rn(B, Tk, KV, hd)
+        if encoder:
+            kp = torch.arange(Tk, dtype=torch.int32, device=dev).repeat(B, 1)
+            qp = kp
+        else:
+            qp = torch.zeros((B, Tq), dtype=torch.int32, device=dev)
+            kp = torch.zeros((B, Tk), dtype=torch.int32, device=dev)
+        a = (q, k, v, qp, kp)
+        cases.append((
+            "flash_attention", label,
+            lambda a=a: ops.flash_attention(*a, causal=False),
+            lambda a=a: ref.flash_attention_ref(*a, causal=False),
+            lambda a=a: ref.flash_attention_ref(*f32(*a), causal=False),
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                enable_gqa=True),
+            nbytes(q, q, qp, k, v, kp), 4 * hd * H * B * Tq * Tk, "bf16"))
+
+    def paged_cross(B, Tq, Tk, H, KV, hd, label):
+        """The paged cross read: B requests' cross K/V rows of 13 slots
+        (the engine's 10 state slots, padded), each row one block of Tk
+        keys (tables = rows.view(B, 1)), an all-zero position map."""
+        N = 13
+        kpool, vpool = rn(N, Tk, KV, hd), rn(N, Tk, KV, hd)
+        rows = torch.randperm(N - 1, generator=g, device=dev)[:B]
+        tables = rows.to(torch.int32).view(B, 1)
+        kpos = torch.zeros((N, Tk), dtype=torch.int32, device=dev)
+        q = rn(B, Tq, H, hd)
+        qp = torch.zeros((B, Tq), dtype=torch.int32, device=dev)
+        a = (q, kpool, vpool, qp, kpos, tables)
+        cases.append((
+            "paged_flash_attention", label,
+            lambda a=a: ops.paged_flash_attention(*a, causal=False),
+            lambda a=a: ref.paged_flash_attention_ref(*a, causal=False),
+            lambda a=a: ref.paged_flash_attention_ref(*f32(*a),
+                                                      causal=False),
+            None, nbytes(q, q, qp, tables) + B * Tk * (KV * hd * 2 * 2 + 4),
+            4 * hd * H * B * Tq * Tk, "bf16"))
+
+    # seamless-m4t-medium (16 heads of 64 on 16 kv heads): the encoder over
+    # 1024 audio frames, and the decoder's cross-attention to them, a 16-
+    # token chunk and a decode step at bucket 8, contiguous and paged;
+    # llama-3.2-vision-90b (64 heads of 128 on 8): cross-attention to 1601
+    # image patches (a ragged last tile), decode at bucket 8 and a chunk
+    noncausal(1, 1024, 1024, 16, 16, 64, "encoder Tq=Tk=1024 hd=64 G=1",
+              encoder=True)
+    noncausal(1, 16, 1024, 16, 16, 64, "cross Tq=16 Tk=1024 hd=64 G=1")
+    noncausal(8, 1, 1024, 16, 16, 64, "cross B=8 Tq=1 Tk=1024 hd=64 G=1")
+    noncausal(8, 1, 1601, 64, 8, 128, "cross B=8 Tq=1 Tk=1601 G=8")
+    noncausal(1, 16, 1601, 64, 8, 128, "cross Tq=16 Tk=1601 G=8")
+    paged_cross(8, 1, 1024, 16, 16, 64,
+                "cross B=8 Tq=1 bs=1024 hd=64 G=1")
+    paged_cross(8, 1, 1601, 64, 8, 128, "cross B=8 Tq=1 bs=1601 G=8")
+    paged_cross(1, 16, 1601, 64, 8, 128, "cross Tq=16 bs=1601 G=8")
+
     # RMSNorm at d 4096: a decode step's rows and a long prefill's, and a
-    # decode step's at starcoder2-7b's and qwen2-moe's widths; the fused
-    # add's library call is the add then the norm
-    for rows, d in ((8, 4096), (4096, 4096), (8, 4608), (8, 2048)):
+    # decode step's at starcoder2-7b's, qwen2-moe's, seamless-m4t's and
+    # llama-3.2-vision's widths; the fused add's library call is the add
+    # then the norm
+    for rows, d in ((8, 4096), (4096, 4096), (8, 4608), (8, 2048), (8, 1024),
+                    (8, 8192)):
         x, y, w = rn(rows, d), rn(rows, d), rn(d) * 0.1
         w1 = 1.0 + w
         cases.append((
@@ -975,6 +1078,114 @@ def run_reference(dev, arch: str):
     return dict(arch=arch, rel_max_err=rel, argmax_agreement=same)
 
 
+#: the cross families' reference: arch -> (depth cut, prompt tokens,
+#: decode steps); the prompt is prefilled in chunks of 16, the extras
+#: (at the stub frontend's real length) on the first
+CROSS_REFERENCE = {
+    "seamless-m4t-medium": (dict(num_layers=2, encoder_layers=2), 64, 4),
+    "llama-3.2-vision-90b": (dict(num_layers=4, num_cross_layers=1), 64, 4)}
+
+
+def set_gates(params, value: float = 0.5) -> None:
+    """Every cross layer's tanh gate at `value`, in place: at its initial
+    zero the VLM's cross-attention adds nothing (enc-dec has no gate in
+    its forward; its gates are set all the same)."""
+    for key in ("cross_layers", "dec_cross"):
+        if key in params:
+            params[key]["attn"]["gate"].fill_(value)
+
+
+def run_cross_reference(dev, arch: str):
+    """The VLM / enc-dec families at full width, depth cut to one pattern
+    (CROSS_REFERENCE), every gate at 0.5: a first chunk with extras (1601
+    image patches, or 1024 audio frames through the encoder), three more
+    chunks, then decode steps. The kernels' path on the card in bf16,
+    contiguous and paged (the cross K/V read in place through the
+    request's slot), against the plain path on the CPU in fp32, the same
+    weights and extras: each chunk's last logits and each step's within
+    5e-2 of max|logit|. Each forward launches its norms as the serve
+    phase counts them; only the encoder launches contiguous attention in
+    a paged run."""
+    import dataclasses
+    from repro_torch.config.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.backbone import extras_key, n_cross_layers
+    from repro_torch.models.model import build_model, default_enc_len
+
+    cut, T, n_dec = CROSS_REFERENCE[arch]
+    cfg = dataclasses.replace(get_config(arch, "full"), **cut)
+    enc_len, chunk, bs = default_enc_len(cfg), 16, 16
+    n = T + n_dec
+    m = build_model(cfg, torch.bfloat16, dev)
+    params = m.init(0)
+    set_gates(params)
+    m_cpu = build_model(cfg, torch.float32, "cpu")
+    p_cpu = to_cpu(params)
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g)
+    pos = torch.arange(n, dtype=torch.int32)[None]
+    extras = torch.randn((1, enc_len, cfg.d_model), generator=g)
+    key = extras_key(cfg)
+    nb = -(-n // bs)
+
+    def serve(model, p, d, paged):
+        tb = torch.arange(nb, dtype=torch.int32, device=d)[None]
+        rows = torch.zeros(1, dtype=torch.int64, device=d)
+        cache = model.init_paged_cache(nb, bs, n_slots=1, enc_len=enc_len) \
+            if paged else model.init_cache(1, n, enc_len=enc_len,
+                                           prefill_chunk=chunk)
+        ops.reset_launches()
+        seq = []
+        for s_ in range(0, T, chunk):
+            t_, p_ = toks[:, s_:s_ + chunk].to(d), pos[:, s_:s_ + chunk].to(d)
+            ex = {key: extras.to(d)} if s_ == 0 else None
+            lg, cache = model.prefill_paged(p, t_, p_, tb, cache, rows=rows,
+                                            extras=ex, last_only=True) \
+                if paged else model.prefill(p, t_, p_, cache, extras=ex,
+                                            last_only=True)
+            seq.append(lg[0, -1])
+        for t in range(T, n):
+            t_, p_ = toks[:, t].to(d), pos[:, t].to(d)
+            lg, cache = model.decode_step_paged(p, t_, p_, tb, cache,
+                                                rows=rows) \
+                if paged else model.decode_step(p, t_, p_, cache)
+            seq.append(lg[0])
+        return (torch.stack(seq).float().cpu(),
+                {k: v for k, v in ops.LAUNCHES.items() if v})
+
+    want, _ = serve(m_cpu, p_cpu, "cpu", False)
+    forwards = T // chunk + n_dec
+    enc = cfg.encoder_layers
+    norms = (forwards + (1 if enc else 0),
+             2 * (cfg.num_layers + n_cross_layers(cfg)) * forwards
+             + (2 * enc - 1 if enc else 0))
+    out = dict(arch=arch, layers=cut, d_model=cfg.d_model, enc_len=enc_len,
+               prompt_tokens=T, chunk=chunk, decode_steps=n_dec, gate=0.5,
+               tol=5e-2, norms_expected=norms)
+    for paged in (False, True):
+        got, launches = serve(m, params, dev, paged)
+        rel = float((got - want).abs().max() / want.abs().max())
+        out["paged" if paged else "contiguous"] = dict(
+            rel_max_err=rel, launches=launches,
+            argmax_agreement=float((got.argmax(-1) == want.argmax(-1))
+                                   .float().mean()))
+        other = {k: launches.get(k, 0) for k in ATTENTION[not paged]}
+        if paged:
+            other["flash_attention"] -= enc   # the encoder's, once
+        if rel > 5e-2 or not bool(torch.isfinite(got).all()) \
+                or any(launches.get(k, 0) == 0 for k in ATTENTION[paged]) \
+                or any(other.values()) or (launches.get("rmsnorm"),
+                                           launches.get("add_rmsnorm")) \
+                != norms:
+            emit("cross_reference", **out)
+            raise AssertionError(f"cross reference {arch}: {out}")
+    emit("cross_reference", **out)
+    del m, params, m_cpu, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_sliding_reference(dev):
     """mistral-nemo-12b's sliding variant (SLIDING's window) at full width,
     2 layers: 1040 prompt tokens prefilled in chunks of 16 (the contiguous
@@ -1070,28 +1281,53 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
     run is named after it). `cut`: take the arch's SERVE_CUTS. `dtype`:
     the weights' type, if not bf16. Returns (the emitted fields, the
     engine, the requests)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.config.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.models.model import default_enc_len
+    from repro_torch.serving.graphs import WARMUP_RUNS
 
     n_req, path, attends, (fused, plain), per_forward = FAMILIES[arch]
     args = serve.build_parser().parse_args(
         serve_args(arch, cut) + (["--paged"] if paged else [])
         + ["--overlap-depth", str(depth)])
+    if cfg is None and arch in DEPTH_CUTS:
+        cfg = dataclasses.replace(get_config(arch, "full"),
+                                  **DEPTH_CUTS[arch])
     t0 = time.perf_counter()
-    eng = serve.build_engine(args, cuda_graphs=cuda_graphs, cfg=cfg,
-                             dtype=dtype)
+    eng = serve.build_engine(
+        args, cuda_graphs=cuda_graphs, cfg=cfg, dtype=dtype,
+        enc_len=default_enc_len(cfg or get_config(arch, "full")))
+    set_gates(eng.params)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     warm = eng.graphs.stats()
+    warm_keys = set(eng.graphs.steps)
+    # the extras (1, enc_len, d) of each request, drawn before the clock
+    mk_extras = serve.extras_drawer(eng, np.random.RandomState(1))
+    reqs = [(p, mk_extras()) for p in serve_prompts(arch)]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    handles = [eng.submit(p) for p in serve_prompts(arch)]
+    handles = [eng.submit(p, extras=x) for p, x in reqs]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
     s = eng.summary()
+    raw = dict(ops.LAUNCHES)
+    # every admission prefills from position 0, so its first chunk (with
+    # extras) runs once, and a first-chunk shape captured at first use
+    # runs WARMUP_RUNS more times eagerly: the launches of a forward are
+    # what remains
+    captured = sum(1 for k in eng.graphs.steps if k[0] == "xchunk"
+                   and k not in warm_keys) if eng.graphs.enabled else 0
+    first_chunks = s["admitted"] + WARMUP_RUNS * captured \
+        if arch in FIRST_CHUNK else 0
+    launches = {k: n - FIRST_CHUNK.get(arch, {}).get(k, 0) * first_chunks
+                for k, n in raw.items()}
     allocator_full = eng.blocks.free_blocks == eng.blocks.num_blocks
     name = f"serve_{cfg.name if cfg else arch}_" \
         f"{'paged' if paged else 'contiguous'}" \
@@ -1101,7 +1337,7 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
         + ("_fp32" if dtype == torch.float32 else "")
     n_int = len(eng.step_host_trace)
     caught = eng.graphs.capture_s - warm["capture_s"]
-    fields = dict(summary=s, launches=launches, build_s=build_s,
+    fields = dict(summary=s, launches=raw, build_s=build_s,
                   serve_s=wall, intervals=n_int,
                   step_host_s_mean_without_captures=(
                       sum(eng.step_host_trace) - caught) / max(n_int, 1),
@@ -1112,7 +1348,11 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
                   tokens_out=eng.total_decoded,
                   allocator_full=allocator_full, overlap_depth=depth,
                   prefill_chunk=eng.prefill_chunk,
-                  max_context=eng.max_context)
+                  max_context=eng.max_context, enc_len=eng.enc_len,
+                  layers=eng.cfg.num_layers,
+                  cross_layers=eng.cfg.num_cross_layers,
+                  first_chunks=first_chunks,
+                  forward_launches=launches if first_chunks else None)
     if beside is not None:
         fields["depth0"] = beside
     emit(name, **fields)
@@ -1539,9 +1779,10 @@ def run_prefix_reference(dev):
 
 
 def fill_cache(eng, seed: int) -> None:
-    """Random K/V, positions and state wherever a request could look (the
-    paged spare block's positions stay empty, the sentinel state zero)."""
-    from repro_torch.models.backbone import STATE_KEYS
+    """Random K/V, positions, state and cross K/V wherever a request could
+    look (the paged spare block's positions stay empty, the sentinel slot
+    zero)."""
+    from repro_torch.models.backbone import CROSS_KEYS, STATE_KEYS
 
     g = torch.Generator(device=eng.device).manual_seed(seed)
     for k, v in eng.cache.items():
@@ -1552,15 +1793,17 @@ def fill_cache(eng, seed: int) -> None:
                 v[-1] = -1
         else:
             v.normal_(generator=g)
-            if eng.paged and k in STATE_KEYS:
+            if eng.paged and k in STATE_KEYS + CROSS_KEYS:
                 v[:, eng.n_slots] = 0
 
 
 def run_graph_check(eng, name: str):
     """Replay against eager run of the same step, bit for bit, from the
     same cache and inputs: decode at the largest bucket (8, or the arch's
-    cut b_max) and a lane's full chunk, on
-    random cache contents and inputs (distinct blocks and state slots).
+    cut b_max), a lane's full chunk and, for a family with extras, a
+    lane's full first chunk with random extras (the encoder and the cross
+    K/V write), on random cache contents and inputs (distinct blocks and
+    state slots).
     The cache's two copies (the start, the eager run's result) are kept on
     the card, or in host memory where they do not fit beside the weights
     (qwen1.5-32b)."""
@@ -1571,8 +1814,11 @@ def run_graph_check(eng, name: str):
     keep = eng.device if 2 * cache_bytes < 0.8 * torch.cuda.mem_get_info()[0] \
         else torch.device("cpu")
     lane = ("chunk", 1, eng.prefill_chunk, -1 if eng.paged else eng.max_slots)
+    keys = [("decode", max(eng.buckets)), lane]
+    if eng.enc_len:
+        keys.append(("xchunk",) + lane[1:])
     checks = []
-    for key in (("decode", max(eng.buckets)), lane):
+    for key in keys:
         st = eng.graphs.steps[key]
         fill_cache(eng, seed=len(checks))
         rows, T = st.inputs["tokens"].shape
@@ -1586,6 +1832,8 @@ def run_graph_check(eng, name: str):
             host["slots"] = rng.permutation(eng.n_slots)[:rows]
         for k, v in host.items():
             eng._stage(st, k, v.astype(np.int64))
+        if "extras" in st.inputs:
+            eng._stage(st, "extras", rng.randn(*st.inputs["extras"].shape))
         start = {k: v.to(keep, copy=True) for k, v in eng.cache.items()}
         want = st.run(eager=True).clone()
         want_cache = {k: v.to(keep, copy=True) for k, v in eng.cache.items()}
@@ -1938,6 +2186,7 @@ def main() -> int:
 
     kres = run_kernels(dev)
     refs = [run_reference(dev, arch) for arch in REFERENCE]
+    cross_refs = [run_cross_reference(dev, arch) for arch in CROSS_REFERENCE]
     sliding_ref = run_sliding_reference(dev)
     prefix_ref = run_prefix_reference(dev)
     serves, runs, launches, graphs, served = {}, {}, {}, {}, {}
@@ -2109,7 +2358,8 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "ptxas": ptxas, "kernels": kres, "summary": summary,
-         "reference": refs, "serve": runs, "launches": launches,
+         "reference": refs, "cross_reference": cross_refs, "serve": runs,
+         "launches": launches,
          "graphs": graphs, "profile": profile,
          "profile_overlap": profile_overlap, "serve_overlap": overlap,
          "twin": twins, "tiers": tiers, "prefix_reference": prefix_ref,

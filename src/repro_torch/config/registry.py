@@ -1,8 +1,8 @@
 """Architecture registry: --arch <id> -> ModelConfig (full + reduced variants).
 
 The port knows every arch id the JAX package knows, so the serving CLI
-offers the same `--arch` choices; only the ids in `_PORTED` have a
-configuration module here yet, and the others raise "not yet ported".
+offers the same `--arch` choices, and each has its configuration module
+here.
 """
 from __future__ import annotations
 
@@ -27,11 +27,6 @@ _ARCH_MODULES = {
     "llama-3.2-vision-90b": "llama_3p2_vision_90b",
 }
 
-#: arch ids whose model path the port runs (ROADMAP.md lists the rest)
-_PORTED = ("granite-3-8b", "starcoder2-7b", "mistral-nemo-12b", "qwen1.5-32b",
-           "qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
-           "mamba2-2.7b", "recurrentgemma-9b")
-
 
 def register(arch_id: str, full: Callable[[], ModelConfig],
              reduced: Callable[[], ModelConfig]) -> None:
@@ -44,10 +39,6 @@ def _ensure_loaded(arch_id: str) -> None:
     mod = _ARCH_MODULES.get(arch_id)
     if mod is None:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCH_MODULES)}")
-    if arch_id not in _PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not yet ported to repro_torch; "
-            f"ported: {list(_PORTED)}")
     importlib.import_module(f"repro_torch.configs.{mod}")
 
 

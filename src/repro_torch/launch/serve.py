@@ -12,7 +12,9 @@ attention-only families: `--prefix-cache` shares indexed prompt blocks
 (DESIGN §10), `--swap-space N --preempt auto|swap|recompute` offloads
 preemption victims to an N-block host pool, `--profile` pricing the
 swap-vs-recompute crossover (DESIGN §11). `--mesh` (mesh serving, not
-ported yet) raises NotImplementedError.
+ported yet) raises NotImplementedError. The VLM and enc-dec archs serve
+with 16 cross keys a request, each request's extras drawn from --seed
+after its prompt, as the JAX CLI draws them.
 """
 from __future__ import annotations
 
@@ -160,17 +162,24 @@ def serve_config(args) -> ServeConfig:
                        mesh_shape=args.mesh or ())
 
 
+#: cross keys a request of the CLI's VLM and enc-dec runs, as the JAX CLI
+CLI_ENC_LEN = 16
+
+
 def build_engine(args, cuda_graphs: Optional[bool] = None,
                  cfg: Optional[ModelConfig] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 enc_len: Optional[int] = None):
     """The model (random weights from --seed) and the engine the flags
     describe, its step graphs captured on the card (`Engine.warmup`).
     `cuda_graphs=False` runs the steps eagerly on the card. `cfg` replaces
     the --arch / --variant configuration (a variant the registry does not
     name, e.g. `mistral_nemo_12b.sliding(window=256)`). `dtype` replaces
     the weights' and activations' type (fp32 for --variant reduced, else
-    bf16)."""
-    from repro_torch.models.model import build_model
+    bf16). `enc_len`: cross keys a request of a VLM or enc-dec arch
+    (default CLI_ENC_LEN; `model.default_enc_len` gives the stub
+    frontends' real lengths)."""
+    from repro_torch.models.model import build_model, default_enc_len
     from repro_torch.serving.cost_model import CostModel
     from repro_torch.serving.engine import Engine, check_ported
 
@@ -180,10 +189,14 @@ def build_engine(args, cuda_graphs: Optional[bool] = None,
     dtype = dtype or (torch.float32 if args.variant == "reduced"
                       else torch.bfloat16)
     model = build_model(cfg, dtype=dtype, device=args.device)
+    if not default_enc_len(cfg):
+        enc_len = 0
+    elif enc_len is None:
+        enc_len = CLI_ENC_LEN
     eng = Engine(model, model.init(args.seed), serve,
                  max_context=args.max_context, buckets=serve.batch_buckets,
-                 prefill_chunk=16, seed=args.seed, device=args.device,
-                 cuda_graphs=cuda_graphs,
+                 prefill_chunk=16, enc_len=enc_len, seed=args.seed,
+                 device=args.device, cuda_graphs=cuda_graphs,
                  cost=CostModel(cfg, PROFILES[args.profile]))
     if eng.graphs.enabled:
         # every decode bucket and full-chunk lane shape before any request
@@ -204,25 +217,43 @@ def trace_requests(path: str, vocab_size: int, seed: int,
         load_trace_events(path), vocab_size, seed=seed)]
 
 
+def extras_drawer(eng, rng: np.random.RandomState):
+    """A function drawing one request's extras from `rng` (standard
+    normal, (1, enc_len, d), fp32), or None for a family without them:
+    the JAX CLI's `mk_extras`."""
+    from repro_torch.models.backbone import extras_key
+
+    if not eng.enc_len:
+        return lambda: None
+    key = extras_key(eng.cfg)
+    return lambda: {key: rng.randn(1, eng.enc_len, eng.cfg.d_model)
+                    .astype(np.float32)}
+
+
 def run(args, prompts: Optional[Sequence[List[int]]] = None,
         cuda_graphs: Optional[bool] = None):
     """`build_engine`, then submit `prompts` (default: the requests of
     --trace, or --requests random prompts of 4-23 tokens from --seed, as
-    the JAX CLI draws them) and serve them to completion. Returns the
-    engine."""
+    the JAX CLI draws them) and serve them to completion; a VLM or enc-dec
+    request's extras come from the same --seed stream right after its
+    prompt's draw (after every prompt's with `prompts` or --trace), as the
+    JAX CLI's. Returns the engine."""
     eng = build_engine(args, cuda_graphs)
+    rng = np.random.RandomState(args.seed)
+    mk_extras = extras_drawer(eng, rng)
     if prompts is not None:
-        reqs = [(p, 0) for p in prompts]
+        reqs = [(p, 0, mk_extras()) for p in prompts]
     elif args.trace is not None:
-        reqs = trace_requests(args.trace, eng.cfg.vocab_size, args.seed,
-                              args.max_new)
+        reqs = [(p, n, mk_extras()) for p, n in trace_requests(
+            args.trace, eng.cfg.vocab_size, args.seed, args.max_new)]
     else:
-        rng = np.random.RandomState(args.seed)
-        reqs = [(list(map(int, rng.randint(0, eng.cfg.vocab_size,
-                                           size=rng.randint(4, 24)))), 0)
-                for _ in range(args.requests)]
-    for p, max_new in reqs:
-        eng.submit(p, max_new_tokens=max_new)
+        reqs = []
+        for _ in range(args.requests):
+            p = list(map(int, rng.randint(0, eng.cfg.vocab_size,
+                                          size=rng.randint(4, 24))))
+            reqs.append((p, 0, mk_extras()))
+    for p, max_new, extras in reqs:
+        eng.submit(p, max_new_tokens=max_new, extras=extras)
     eng.run()
     return eng
 

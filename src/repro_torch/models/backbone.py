@@ -9,6 +9,12 @@ length 1).
 * SSM: Mamba2 layers (mamba2-2.7b), no attention and no K/V.
 * HYBRID: RG-LRU recurrent layers and local-attention layers in the
   config's block pattern (recurrentgemma-9b).
+* VLM: dense self-attention layers with a tanh-gated cross-attention
+  layer to the request's image embeddings after every
+  num_layers // num_cross_layers of them (llama-3.2-vision-90b).
+* ENCDEC: a bidirectional encoder over the request's audio frame
+  embeddings, and decoder layers each followed by a cross-attention layer
+  to the encoder output (seamless-m4t-medium).
 
 Layer params are stacked on a leading L axis, in the JAX package's nested
 layout, so both packages can run the same weights. Attention caches store
@@ -16,8 +22,10 @@ absolute positions per slot (-1 = empty); padding tokens carry position -1
 and change no visible slot (the write index has one shape per chunk shape:
 a padding token writes a slot's own value back, or the paged pools' spare
 block). Per-request state (SSM `conv`/`ssm`, RG-LRU
-`conv`/`rec`) has one row per cache slot on axis 1. Caches are updated in
-place.
+`conv`/`rec`) has one row per cache slot on axis 1, and so do the
+cross-attention K/V (`cross_k`/`cross_v`), written only by the call that
+carries the request's extras (its first prefill chunk). Caches are updated
+in place.
 """
 from __future__ import annotations
 
@@ -36,10 +44,10 @@ Cache = Dict[str, torch.Tensor]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-PORTED_FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.SSM,
-                   ArchFamily.HYBRID)
 #: the families whose every layer is an attention layer
 ATTENTION_ONLY = (ArchFamily.DENSE, ArchFamily.MOE)
+#: the families with cross-attention to per-request extras
+CROSS_FAMILIES = (ArchFamily.VLM, ArchFamily.ENCDEC)
 
 #: leaves the JAX package keeps in fp32 whatever the working dtype
 FP32_LEAVES = frozenset({"A_log", "dt_bias", "D", "lam", "b_a", "b_i",
@@ -47,16 +55,26 @@ FP32_LEAVES = frozenset({"A_log", "dt_bias", "D", "lam", "b_a", "b_i",
 
 #: per-request state of the recurrent families (constant size per request)
 STATE_KEYS = ("conv", "ssm", "rec")
+#: per-request cross-attention K/V of the VLM and enc-dec families
+CROSS_KEYS = ("cross_k", "cross_v")
 
 
 def cfg_dtype(cfg: ModelConfig, override=None) -> torch.dtype:
     return override if override is not None else DTYPES[cfg.dtype]
 
 
-def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family.value!r} is not yet ported to repro_torch")
+def extras_key(cfg: ModelConfig) -> str:
+    """The name of a request's extras: audio frames for enc-dec, image
+    embeddings for the VLM."""
+    return "enc_frames" if cfg.family == ArchFamily.ENCDEC else "images"
+
+
+def n_cross_layers(cfg: ModelConfig) -> int:
+    """Cross-attention layers: one a decoder layer (enc-dec), or
+    num_cross_layers (VLM); 0 elsewhere."""
+    if cfg.family == ArchFamily.ENCDEC:
+        return cfg.num_layers
+    return cfg.num_cross_layers if cfg.family == ArchFamily.VLM else 0
 
 
 def window_of(cfg: ModelConfig) -> int:
@@ -87,11 +105,12 @@ def layer_counts(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 def _dense_layers(init: L.ParamInit, cfg: ModelConfig, n: int,
-                  moe: bool = False) -> Params:
-    """n stacked attention layers, their SwiGLU (`mlp`) or MoE (`moe`)."""
+                  moe: bool = False, cross: bool = False) -> Params:
+    """n stacked attention layers, their SwiGLU (`mlp`) or MoE (`moe`);
+    `cross`: cross-attention layers (no biases, a `gate` each)."""
     return {"ln1": init.zeros(n, cfg.d_model),
             "ln2": init.zeros(n, cfg.d_model),
-            "attn": L.init_attention(init, cfg, n),
+            "attn": L.init_attention(init, cfg, n, cross=cross),
             **({"moe": L.init_moe(init, cfg, n)} if moe
                else {"mlp": L.init_mlp(init, cfg, n)})}
 
@@ -101,11 +120,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
     """Random weights from a seeded torch.Generator with the JAX package's
     scales: normal / sqrt(fan_in), the output projections at
     0.02 / sqrt(2 L), the embedding at 0.02, norms at zero, the MoE
-    router at 0.02 and the SSM / RG-LRU constants as the JAX package draws
-    them (in fp32). Each weight is drawn in place, layer by layer, in the
-    working dtype on `device`, so peak memory stays at the weights
-    themselves."""
-    require_ported(cfg)
+    router at 0.02, the cross-attention gates at zero, and the SSM /
+    RG-LRU constants as the JAX package draws them (in fp32). Each weight
+    is drawn in place, layer by layer, in the working dtype on `device`,
+    so peak memory stays at the weights themselves. The VLM has `layers`
+    and `cross_layers`, enc-dec `enc_layers`, `dec_layers` and
+    `dec_cross`, as in the JAX package."""
     init = L.ParamInit(seed, cfg_dtype(cfg, dtype), device)
     d = cfg.d_model
     p: Params = {"embed": init.normal((cfg.vocab_size, d), 0.02),
@@ -117,6 +137,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
         p["layers"] = {"ln1": init.zeros(cfg.num_layers, d),
                        "mixer": S.init_mamba2_block(init, cfg,
                                                     cfg.num_layers)}
+    elif cfg.family == ArchFamily.VLM:
+        p["layers"] = _dense_layers(init, cfg, cfg.num_layers)
+        p["cross_layers"] = _dense_layers(init, cfg, cfg.num_cross_layers,
+                                          cross=True)
+    elif cfg.family == ArchFamily.ENCDEC:
+        p["enc_layers"] = _dense_layers(init, cfg, cfg.encoder_layers)
+        p["dec_layers"] = _dense_layers(init, cfg, cfg.num_layers)
+        p["dec_cross"] = _dense_layers(init, cfg, cfg.num_layers, cross=True)
     else:
         n_att, n_rec = layer_counts(cfg)
         p["rec_layers"] = {"ln1": init.zeros(n_rec, d),
@@ -167,11 +195,23 @@ def _state_cache(cfg: ModelConfig, rows: int, dt, device) -> Cache:
     return {}
 
 
+def _cross_cache(cfg: ModelConfig, rows: int, enc_len: int, dt,
+                 device) -> Cache:
+    """Cross-attention K/V with `rows` rows on axis 1: (n_cross, rows,
+    enc_len, KV, hd), in the working dtype."""
+    n = n_cross_layers(cfg)
+    if not n:
+        return {}
+    shape = (n, rows, enc_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k in CROSS_KEYS}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_context: int, dtype=None,
-               device="cpu", chunk: int = 1) -> Cache:
+               device="cpu", chunk: int = 1, enc_len: int = 0) -> Cache:
     """Contiguous serving cache: K/V rows (a ring for windowed attention)
-    and `pos` for the attention layers, plus the per-request state."""
-    require_ported(cfg)
+    and `pos` for the attention layers, plus the per-request state and the
+    cross-attention K/V of `enc_len` keys a row."""
     dt = cfg_dtype(cfg, dtype)
     c: Cache = {}
     n_att, _ = layer_counts(cfg)
@@ -183,11 +223,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_context: int, dtype=None,
         c["pos"] = torch.full((batch, S_), -1, dtype=torch.int32,
                               device=device)
     c.update(_state_cache(cfg, batch, dt, device))
+    c.update(_cross_cache(cfg, batch, enc_len, dt, device))
     return c
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     dtype=None, device="cpu", n_slots: int = 0) -> Cache:
+                     dtype=None, device="cpu", n_slots: int = 0,
+                     enc_len: int = 0) -> Cache:
     """Physically paged serving cache (DESIGN §9): K/V in
     (layers, num_blocks + 1, block_size, KV, hd) pools shared by every
     request and indexed through per-request block tables; `pos` is the
@@ -196,10 +238,10 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     padding tokens and tokens of unallocated blocks write there, so the
     write index keeps one shape (`layers.paged_write_index`).
 
-    Per-request state stays per slot, pinned to a request for its life:
-    `n_slots` rows plus row `n_slots`, the padding sentinel, which reads
-    zeros and is never written (`forward_cached(rows=...)`)."""
-    require_ported(cfg)
+    Per-request state and cross-attention K/V stay per slot, pinned to a
+    request for its life: `n_slots` rows plus row `n_slots`, the padding
+    sentinel, which reads zeros and is never written
+    (`forward_cached(rows=...)`)."""
     dt = cfg_dtype(cfg, dtype)
     c: Cache = {}
     n_att, _ = layer_counts(cfg)
@@ -211,12 +253,14 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
         c["pos"] = torch.full((num_blocks + 1, block_size), -1,
                               dtype=torch.int32, device=device)
     c.update(_state_cache(cfg, n_slots + 1, dt, device))
+    c.update(_cross_cache(cfg, n_slots + 1, enc_len, dt, device))
     return c
 
 
-def cache_bytes(cfg: ModelConfig, batch: int, max_context: int) -> int:
+def cache_bytes(cfg: ModelConfig, batch: int, max_context: int,
+                enc_len: int = 0) -> int:
     """Bytes of a contiguous cache, from its shapes (no allocation)."""
-    c = init_cache(cfg, batch, max_context, device="meta")
+    c = init_cache(cfg, batch, max_context, device="meta", enc_len=enc_len)
     return sum(v.numel() * v.element_size() for v in c.values())
 
 
@@ -278,7 +322,8 @@ def _attn_layer(lp, x, pending, positions, cache, i, widx, cfg, window,
 
 
 class _State:
-    """Layer-wise access to the per-request state of one call.
+    """Layer-wise access to the per-request state of one call (recurrent
+    state and cross-attention K/V alike).
 
     Contiguous layout (`rows` None): the batch rows ARE cache rows, read
     and written in place. Paged layout: batch row b is state slot rows[b];
@@ -287,7 +332,7 @@ class _State:
 
     def __init__(self, cache: Cache, rows: Optional[torch.Tensor]):
         self.cache, self.rows = cache, rows
-        key = next((k for k in STATE_KEYS if k in cache), None)
+        key = next((k for k in STATE_KEYS + CROSS_KEYS if k in cache), None)
         if rows is not None and key is not None:
             self.real = rows < cache[key].shape[1] - 1
 
@@ -325,11 +370,54 @@ def _rec_layer(lp, x, pending, cfg, st: _State, i):
     return x, L.mlp(lp["mlp"], h)
 
 
+def encode(p: Params, frames, cfg: ModelConfig):
+    """The enc-dec family's bidirectional encoder over stub frame
+    embeddings (B, S, d), RoPE at positions 0..S-1. As the JAX package's
+    `encode`, it has no final norm: it returns the residual stream after
+    the last MLP add, which the fused-norm layers leave pending."""
+    B, S, _ = frames.shape
+    pos = torch.arange(S, dtype=torch.int32, device=frames.device
+                       ).expand(B, S)
+    x, y = frames, None
+    for i in range(cfg.encoder_layers):
+        lp = layer_params(p["enc_layers"], i)
+        x, h = _norm_in(x, y, lp["ln1"], cfg)
+        a = L.encoder_attention(lp["attn"], h, pos, cfg)
+        x, h = L.add_rms_norm(x, a, lp["ln2"], cfg.rms_eps)
+        y = L.mlp(lp["mlp"], h)
+    return x + y
+
+
+def _write_cross(p_cross: Params, src, cfg: ModelConfig,
+                 st: _State) -> None:
+    """Project src (B, S, d), the image embeddings or the encoder output,
+    through every cross layer's wk / wv into the batch rows' cross K/V (a
+    paged padding row's sentinel slot is left as it is)."""
+    for j in range(n_cross_layers(cfg)):
+        k, v = L.cross_kv(layer_params(p_cross, j)["attn"], src, cfg)
+        for key, val in zip(CROSS_KEYS, (k, v)):
+            st.put(key, j, st.get(key, j) if st.rows is not None else None,
+                   val)
+
+
+def _cross_layer(lp, x, pending, cache, j, cfg, rows, kpos):
+    """A cross-attention layer (the VLM's tanh-gated, enc-dec's not) and
+    its MLP, reading layer j's cross K/V of the batch rows."""
+    x, h = _norm_in(x, pending, lp["ln1"], cfg)
+    a = L.cross_attention(lp["attn"], h, cache["cross_k"][j],
+                          cache["cross_v"][j], cfg,
+                          gated=cfg.family == ArchFamily.VLM, rows=rows,
+                          kpos=kpos)
+    x, h = L.add_rms_norm(x, a, lp["ln2"], cfg.rms_eps)
+    return x, L.mlp(lp["mlp"], h)
+
+
 def forward_cached(p: Params, tokens, positions, cache: Cache,
                    cfg: ModelConfig, *, decode: bool = False,
                    last_only: bool = False,
                    tables: Optional[torch.Tensor] = None,
-                   rows: Optional[torch.Tensor] = None
+                   rows: Optional[torch.Tensor] = None,
+                   extras: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, Cache]:
     """tokens: (B, T); positions: (B, T) absolute, -1 for padding.
 
@@ -339,19 +427,49 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     tables: optional (B, MB) per-request physical block tables; with them
     the cache is the paged pools of `init_paged_cache` (DESIGN §9), and
     `rows` (B,) names each batch row's state slot (the sentinel slot for a
-    padding row) in families with per-request state."""
-    require_ported(cfg)
+    padding row) in families with per-request state or cross K/V.
+    extras: the VLM's {"images": (B, S, d)} or enc-dec's {"enc_frames":
+    (B, S, d)}, given on a request's first chunk only: the images are
+    projected (the frames encoded, then projected) into the rows' cross
+    K/V, which later calls read. Cast to the working dtype."""
     if decode and tokens.shape[1] != 1:
         raise ValueError("decode takes one token per row")
     if tables is not None and rows is None \
-            and any(k in cache for k in STATE_KEYS):
+            and any(k in cache for k in STATE_KEYS + CROSS_KEYS):
         raise ValueError("the paged cache's per-request state needs `rows`")
     x = p["embed"][tokens]
     win = window_of(cfg)
     widx = _write_index(positions, cache, tables) if "k" in cache else None
     st = _State(cache, rows if tables is not None else None)
     y = None  # the branch output pending for the next norm
-    if cfg.family in ATTENTION_ONLY:
+    if cfg.family in CROSS_FAMILIES:
+        crows = st.rows
+        kpos = None if crows is None else torch.zeros(
+            cache["cross_k"].shape[1:3], dtype=torch.int32, device=x.device)
+        src = (extras or {}).get(extras_key(cfg))
+        if cfg.family == ArchFamily.VLM:
+            if src is not None:
+                _write_cross(p["cross_layers"], src.to(x.dtype), cfg, st)
+            per = cfg.num_layers // cfg.num_cross_layers
+            for i in range(cfg.num_layers):
+                x, y = _attn_layer(layer_params(p["layers"], i), x, y,
+                                   positions, cache, i, widx, cfg, win,
+                                   tables)
+                if (i + 1) % per == 0:
+                    x, y = _cross_layer(
+                        layer_params(p["cross_layers"], i // per), x, y,
+                        cache, i // per, cfg, crows, kpos)
+        else:
+            if src is not None:
+                _write_cross(p["dec_cross"], encode(p, src.to(x.dtype), cfg),
+                             cfg, st)
+            for i in range(cfg.num_layers):
+                x, y = _attn_layer(layer_params(p["dec_layers"], i), x, y,
+                                   positions, cache, i, widx, cfg, win,
+                                   tables)
+                x, y = _cross_layer(layer_params(p["dec_cross"], i), x, y,
+                                    cache, i, cfg, crows, kpos)
+    elif cfg.family in ATTENTION_ONLY:
         for i in range(cfg.num_layers):
             x, y = _attn_layer(layer_params(p["layers"], i), x, y, positions,
                                cache, i, widx, cfg, win, tables)

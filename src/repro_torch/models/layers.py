@@ -66,18 +66,23 @@ class ParamInit:
                            device=self.device)
 
 
-def init_attention(init: ParamInit, cfg: ModelConfig, n: int):
+def init_attention(init: ParamInit, cfg: ModelConfig, n: int,
+                   cross: bool = False):
     """n stacked GQA attention blocks: wq/wk/wv at 1/sqrt(d), wo at
-    0.02/sqrt(2 L), zero biases where the config has them."""
+    0.02/sqrt(2 L), zero biases where the config has them. `cross`: a
+    cross-attention block, with no biases and a scalar `gate` a layer at
+    zero (the VLM's tanh gate)."""
     d, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     p = {"wq": init.stacked(n, (d, H * hd)),
          "wk": init.stacked(n, (d, KV * hd)),
          "wv": init.stacked(n, (d, KV * hd)),
          "wo": init.stacked(n, (H * hd, d), out_scale(cfg))}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
             p[name] = init.zeros(n, width)
+    if cross:
+        p["gate"] = init.zeros(n)
     return p
 
 
@@ -339,6 +344,18 @@ def self_attention_cached(p, x, positions, cache_k, cache_v, cache_pos,
     return out @ p["wo"]
 
 
+def encoder_attention(p, x, positions, cfg: ModelConfig):
+    """Bidirectional self-attention of an encoder layer: x (B, S, d) at
+    `positions` (B, S), RoPE on q and k, every key visible to every query
+    (the flash kernel with causal=False). No cache."""
+    B, S, _ = x.shape
+    q, k, v = attention_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, positions, positions, causal=False)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
 def _pool_write(pool, flat_slots, val):
     """Write per-token values into a paged pool (NB, bs, ...) at flat slot
     indices into NB*bs, in place."""
@@ -372,3 +389,43 @@ def self_attention_paged(p, x, positions, pool_k, pool_v, pool_pos, tables,
                                         pool_pos, tables, window=window,
                                         causal=True).reshape(B, T, -1)
     return out @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (enc-dec and VLM): fixed keys, computed once a request
+
+
+def cross_kv(p, enc_out, cfg: ModelConfig):
+    """K and V (B, S, KV, hd) of the encoder output or image embeddings
+    (B, S, d): plain projections, no RoPE."""
+    B, S, _ = enc_out.shape
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return ((enc_out @ p["wk"]).reshape(B, S, KV, hd),
+            (enc_out @ p["wv"]).reshape(B, S, KV, hd))
+
+
+def cross_attention(p, x, cross_k, cross_v, cfg: ModelConfig, *,
+                    gated: bool = False, rows=None, kpos=None):
+    """Cross-attention of x (B, T, d) to a request's fixed keys (no RoPE,
+    every query sees every key: the queries and keys all sit at position
+    0, non-causal). Contiguous (`rows` None): cross_k/v (B, S, KV, hd), the
+    batch's own rows. Paged: cross_k/v are the per-slot rows (N, S, KV,
+    hd) read in place through `rows` (B,), each slot a block of S keys
+    (tables = rows.view(B, 1)) and `kpos` (N, S) the all-zero position map.
+    `gated`: the VLM's output scaled by tanh(gate), taken in fp32."""
+    B, T, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, T, H, hd)
+    q_pos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    if rows is None:
+        k_pos = torch.zeros(cross_k.shape[:2], dtype=torch.int32,
+                            device=x.device)
+        out = ops.flash_attention(q, cross_k, cross_v, q_pos, k_pos,
+                                  causal=False)
+    else:
+        out = ops.paged_flash_attention(q, cross_k, cross_v, q_pos, kpos,
+                                        rows.view(B, 1), causal=False)
+    out = out.reshape(B, T, H * hd) @ p["wo"]
+    if gated:
+        out = torch.tanh(p["gate"].float()).to(out.dtype) * out
+    return out

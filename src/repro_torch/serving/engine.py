@@ -55,6 +55,14 @@ preemption victim's K, V and position rows into a block-major host pool
 engine's one stream, which orders them after the steps that wrote those
 rows and before any later reuse: the swap path adds no synchronisation.
 Mesh serving is not ported yet and raises when asked for.
+
+The VLM and enc-dec families take per-request extras (image patch or
+audio frame embeddings, `submit(..., extras=)`), cast to the working dtype
+and kept for the request's life: a recompute preemption prefills again
+from position 0. As in the reference, a first chunk that carries extras
+runs as a single-row step of its own shape key ("xchunk"), whose static
+(1, enc_len, d) input the extras are staged into; it alone writes the
+request's cross-attention K/V row, which every later step reads.
 """
 from __future__ import annotations
 
@@ -72,7 +80,7 @@ from repro_torch.core.batching import bucketize, make_policy
 from repro_torch.core.lanes import lane_order, pack_chunks
 from repro_torch.core.memory_model import MemoryModel
 from repro_torch.core.telemetry import Telemetry
-from repro_torch.models.backbone import STATE_KEYS
+from repro_torch.models.backbone import CROSS_KEYS, STATE_KEYS, extras_key
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serving.cost_model import PROFILES, CostModel
 from repro_torch.serving.graphs import Staging, Step, StepGraphs
@@ -92,12 +100,13 @@ def cache_rows(cache: Dict[str, torch.Tensor],
 
 def put_cache_rows(cache: Dict[str, torch.Tensor], rows,
                    sub: Dict[str, torch.Tensor]) -> None:
-    """Write `sub` into rows `rows` of a contiguous cache, in place."""
-    for k, v in cache.items():
+    """Write the keys of `sub` into rows `rows` of a contiguous cache, in
+    place."""
+    for k, v in sub.items():
         if k == "pos":
-            v[rows] = sub[k]
+            cache[k][rows] = v
         else:
-            v[:, rows] = sub[k]
+            cache[k][:, rows] = v
 
 
 #: the paged pools a swap or a copy-on-write moves, block axis 0 for `pos`
@@ -154,15 +163,16 @@ class Engine:
     def __init__(self, model: Model, params, serve: ServeConfig,
                  max_context: int = 256,
                  buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64),
-                 prefill_chunk: int = 32, seed: int = 0,
+                 prefill_chunk: int = 32, enc_len: int = 0, seed: int = 0,
                  temperature: float = 0.0, device=None,
                  cuda_graphs: Optional[bool] = None,
                  cost: Optional[CostModel] = None):
-        """`cuda_graphs`: run each step as a CUDA graph replay (default on
-        the card); False runs the same steps eagerly, as on the CPU, where
-        True raises. `cost`: the swap-vs-recompute crossover's cost model
-        (DESIGN §11), the a100x8 profile by default, as in the
-        reference."""
+        """`enc_len`: cross keys a request (VLM, enc-dec; 0 for the
+        family's default). `cuda_graphs`: run each step as a CUDA graph
+        replay (default on the card); False runs the same steps eagerly, as
+        on the CPU, where True raises. `cost`: the swap-vs-recompute
+        crossover's cost model (DESIGN §11), the a100x8 profile by default,
+        as in the reference."""
         check_ported(serve)
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -207,11 +217,19 @@ class Engine:
         self.state_only = self.mem.bytes_per_token == 0
         if self.paged:
             self.cache = model.init_paged_cache(
-                self.mem.num_blocks, serve.block_size, n_slots=self.n_slots)
+                self.mem.num_blocks, serve.block_size, n_slots=self.n_slots,
+                enc_len=enc_len)
             self._free_slots = list(range(self.n_slots))
         else:
             self.cache = model.init_cache(self.n_slots, max_context,
+                                          enc_len=enc_len,
                                           prefill_chunk=prefill_chunk)
+        # a request's extras: (1, enc_len, d) in the working dtype
+        self.enc_len = self.cache["cross_k"].shape[2] \
+            if "cross_k" in self.cache else 0
+        self._extras_shape = (1, self.enc_len, self.cfg.d_model)
+        extras_bytes = self.enc_len * self.cfg.d_model \
+            * torch.empty((), dtype=model.dtype).element_size()
         self.tel = Telemetry()
         self.policy = make_policy(serve, self.mem)
         self.graphs = StepGraphs(self.device, self.device.type == "cuda"
@@ -220,7 +238,10 @@ class Engine:
         # intervals stay un-retired while the host schedules the next
         self.overlap_depth = max(0, int(serve.overlap_depth))
         self._inflight: "collections.deque[_StepRec]" = collections.deque()
-        self._staging = Staging(self.device, depth=self.overlap_depth)
+        # each arena holds a lane's extras per lane without growing
+        self._staging = Staging(self.device,
+                                nbytes=(1 << 16) + self.n_lanes * extras_bytes,
+                                depth=self.overlap_depth)
 
         self.waiting: List[Request] = []
         self.active: List[Request] = []          # compact: slot i = active[i]
@@ -383,7 +404,8 @@ class Engine:
         """The step of shape key `key`, built (and on the card captured) at
         first use: ("decode", bucket) or ("chunk", rows, take, cache row),
         the cache row set only for a one-row contiguous chunk, which runs
-        on a view of that row (-1 otherwise)."""
+        on a view of that row (-1 otherwise); ("xchunk", 1, take, cache
+        row): a first chunk that carries its request's extras."""
         st = self.graphs.steps.get(key)
         if st is None:
             st = self._build_step(key)
@@ -406,6 +428,14 @@ class Engine:
                                      device=dev),
                "positions": torch.full((rows, take), -1, dtype=torch.int32,
                                        device=dev)}
+        if key[0] == "xchunk":
+            inp["extras"] = torch.zeros(self._extras_shape,
+                                        dtype=self.model.dtype, device=dev)
+
+        def extras(i):
+            return {extras_key(self.cfg): i["extras"]} if "extras" in i \
+                else None
+
         m, p = self.model, self.params
         kept = None
         if self.paged:
@@ -417,7 +447,8 @@ class Engine:
             def fn(i):
                 return m(p, i["tokens"], i["positions"], self.cache,
                          decode=decode, last_only=not decode,
-                         tables=i["block_table"], rows=i["slots"])[0][:, -1]
+                         tables=i["block_table"], rows=i["slots"],
+                         extras=extras(i))[0][:, -1]
         elif decode or row >= 0:
             start = 0 if decode else row
             kept = slice(start, start + rows)
@@ -425,9 +456,10 @@ class Engine:
 
             def fn(i):
                 return m(p, i["tokens"], i["positions"], view, decode=decode,
-                         last_only=not decode)[0][:, -1]
+                         last_only=not decode, extras=extras(i))[0][:, -1]
         else:
             # lane rows need not be adjacent: gather, run, scatter back
+            # (the cross K/V rows are only read here)
             kept = slice(self.max_slots, self.max_slots + rows)
             inp["slots"] = torch.arange(kept.start, kept.stop, device=dev)
 
@@ -435,7 +467,8 @@ class Engine:
                 sub = cache_rows(self.cache, i["slots"])
                 logits, sub = m(p, i["tokens"], i["positions"], sub,
                                 last_only=True)
-                put_cache_rows(self.cache, i["slots"], sub)
+                put_cache_rows(self.cache, i["slots"], {
+                    k: v for k, v in sub.items() if k not in CROSS_KEYS})
                 return logits[:, -1]
         return Step(key, inp, fn, cache_rows=kept)
 
@@ -444,10 +477,13 @@ class Engine:
         """Keep the per-request state of the contiguous rows `st` writes
         across the eager runs that precede its capture: an all-padding step
         writes no K/V or position, but the recurrent layers step every
-        row's state."""
+        row's state, and an extras step writes its row's cross K/V (from
+        the encoder run on zeros). A paged step's padding rows hold the
+        sentinel slot, which no step writes."""
         rows = st.cache_rows
+        keys = STATE_KEYS + (CROSS_KEYS if "extras" in st.inputs else ())
         kept = {} if rows is None else {
-            k: self.cache[k][:, rows].clone() for k in STATE_KEYS
+            k: self.cache[k][:, rows].clone() for k in keys
             if k in self.cache}
         yield
         for k, v in kept.items():
@@ -476,27 +512,57 @@ class Engine:
             groups = range(1, self.n_lanes + 1) \
                 if self.serve.chunked_prefill else (1,)
             keys += [("chunk", g, C, -1) for g in groups]
+            ones = [-1]
         elif self.serve.chunked_prefill:
-            keys += [("chunk", 1, C, self.max_slots + j)
-                     for j in range(self.n_lanes)]
+            ones = [self.max_slots + j for j in range(self.n_lanes)]
+            keys += [("chunk", 1, C, r) for r in ones]
             keys += [("chunk", g, C, -1) for g in range(2, self.n_lanes + 1)]
         else:
-            keys += [("chunk", 1, C, r) for r in range(self.max_slots)]
+            ones = list(range(self.max_slots))
+            keys += [("chunk", 1, C, r) for r in ones]
+        if self.enc_len:
+            # a full first chunk with extras, on each row one may take
+            keys += [("xchunk", 1, C, r) for r in ones]
         for key in keys:
             self._step(key)
 
     # -- public API -------------------------------------------------------------
     def submit(self, prompt_tokens: List[int], max_new_tokens: int = 0,
+               extras: Optional[Dict[str, object]] = None,
                arrival_time: Optional[float] = None) -> Request:
+        """Queue a request. `extras` (VLM {"images": ...}, enc-dec
+        {"enc_frames": ...}, (1, enc_len, d), a tensor or an array of any
+        float type) are cast to the working dtype and kept on the host for
+        the request's life."""
         t = arrival_time if arrival_time is not None else self._now()
         mx = max_new_tokens or self.serve.max_new_tokens
         mx = min(mx, self.max_context - len(prompt_tokens) - 1)
         r = Request(rid=self._next_rid, arrival_time=t,
                     prompt_tokens=list(prompt_tokens), max_new_tokens=mx)
+        if extras is not None:
+            r.extras = self._host_extras(extras)
         self._next_rid += 1
         self.waiting.append(r)
         self.tel.on_arrival(t, r.prompt_len)
         return r
+
+    def _host_extras(self, extras: Dict[str, object]) -> torch.Tensor:
+        """A request's extras as one (1, enc_len, d) host tensor in the
+        working dtype; raises for a family without them, another key or
+        another shape."""
+        if not self.enc_len:
+            raise ValueError(f"{self.cfg.name} takes no extras")
+        key = extras_key(self.cfg)
+        if set(extras) != {key}:
+            raise ValueError(f"{self.cfg.name} takes extras {key!r}, got "
+                             f"{sorted(extras)}")
+        x = extras[key]
+        x = x if isinstance(x, torch.Tensor) \
+            else torch.as_tensor(x, dtype=torch.float32)
+        if tuple(x.shape) != self._extras_shape:
+            raise ValueError(f"extras {key!r} of shape {tuple(x.shape)}, "
+                             f"not {self._extras_shape}")
+        return x.detach().to("cpu", self.model.dtype).contiguous()
 
     def _now(self) -> float:
         return time.perf_counter() - self.now0
@@ -637,14 +703,19 @@ class Engine:
             r.lane = j
             self.lanes[j] = r
 
-    def _prefill_group(self, reqs: List[Request], take: int) -> torch.Tensor:
+    def _prefill_group(self, reqs: List[Request], take: int,
+                       extras: bool = False) -> torch.Tensor:
         """One prefill chunk of `take` tokens for each request (same-size
-        lane chunks batched into one step). Returns each row's greedy next
-        token (len(reqs),) on the device: the step's logits are consumed
-        here, before any other step runs (the graphs share one pool)."""
+        lane chunks batched into one step; `extras`: one request's first
+        chunk, its extras staged into the step). Returns each row's greedy
+        next token (len(reqs),) on the device: the step's logits are
+        consumed here, before any other step runs (the graphs share one
+        pool)."""
         g = len(reqs)
         row = reqs[0].slot if g == 1 and not self.paged else -1
-        st = self._step(("chunk", g, take, row))
+        st = self._step(("xchunk" if extras else "chunk", g, take, row))
+        if extras:
+            self._stage(st, "extras", reqs[0].extras)
         self._stage(st, "tokens", np.array(
             [r.prompt_tokens[r.prefill_pos:r.prefill_pos + take]
              for r in reqs], np.int64))
@@ -677,10 +748,18 @@ class Engine:
             for _, r, take in plan:
                 self._cow_blocks(self.blocks.cow_range(
                     r.rid, r.prefill_pos, r.prefill_pos + take))
+        # same-size chunks run as one multi-row step; a first chunk that
+        # carries extras (they differ per request) runs alone, first
+        first_tok: Dict[int, torch.Tensor] = {}   # lane -> next token
         groups: Dict[int, list] = {}
         for j, r, t in plan:
-            groups.setdefault(t, []).append((j, r))
-        first_tok: Dict[int, torch.Tensor] = {}   # lane -> next token
+            if r.prefill_pos == 0 and r.extras is not None:
+                toks = self._prefill_group([r], t, extras=True)
+                rec.dispatched = True
+                rec.probe = toks
+                first_tok[j] = toks[0]
+            else:
+                groups.setdefault(t, []).append((j, r))
         for take, entries in groups.items():
             toks = self._prefill_group([r for _, r in entries], take)
             rec.dispatched = True
@@ -749,7 +828,8 @@ class Engine:
         for start in range(start0, r.prompt_len, self.prefill_chunk):
             r.prefill_pos = start
             take = min(self.prefill_chunk, r.prompt_len - start)
-            tok = self._prefill_group([r], take)[0]
+            tok = self._prefill_group(
+                [r], take, extras=start == 0 and r.extras is not None)[0]
         r.prefill_pos = r.prompt_len
         if self.prefix:
             self.blocks.commit_prefill(r.rid, r.prompt_tokens, r.prompt_len)

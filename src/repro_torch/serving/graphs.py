@@ -192,10 +192,13 @@ class Staging:
                                f"flight")
         return self._ring[self._open]
 
-    def copy(self, dst: torch.Tensor, host: np.ndarray) -> None:
-        """dst.copy_(host) through the open arena (host converted to dst's
-        dtype on the host first, so the device copy is a plain one)."""
-        src = torch.from_numpy(np.ascontiguousarray(host)).to(dst.dtype)
+    def copy(self, dst: torch.Tensor, host) -> None:
+        """dst.copy_(host) through the open arena: `host` an array or a CPU
+        tensor, converted to dst's dtype on the host first, so the device
+        copy is a plain one."""
+        src = host if isinstance(host, torch.Tensor) \
+            else torch.from_numpy(np.ascontiguousarray(host))
+        src = src.to(dst.dtype)
         pinned = self._arena().take(src.dtype, src.shape)
         pinned.copy_(src)
         dst.copy_(pinned, non_blocking=True)

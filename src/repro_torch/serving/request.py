@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List, Optional
+from typing import Any, List, Optional
 
 
 class RequestState(enum.Enum):
@@ -41,6 +41,10 @@ class Request:
     first_token_time: float = -1.0
     finish_time: float = -1.0
     tbt_samples: List[float] = dataclasses.field(default_factory=list)
+    # VLM / enc-dec: the request's image or audio embeddings, (1, enc_len,
+    # d) on the host in the working dtype, kept for its life (a recompute
+    # preemption prefills again from position 0)
+    extras: Optional[Any] = None
     # two-tier swap (DESIGN §11): per-request swap latency accounting
     swap_out_time: float = -1.0                  # pending swap-out timestamp
     swapped_s: float = 0.0                       # total time spent offloaded

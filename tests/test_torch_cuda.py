@@ -1146,3 +1146,171 @@ def test_replay_after_swap_in_equals_eager_on_card(cuda):
         assert torch.equal(v, want_cache[k]), k
     eng.run(max_steps=5000)
     assert eng.total_finished == 4
+
+
+# ---------------------------------------------------------------------------
+# the VLM and enc-dec families: non-causal attention (the encoder, the
+# cross-attention reads), the paged cross read, the reduced models
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,enc", [
+    (1, 1024, 1024, 16, 16, 64, True),     # seamless's encoder
+    (1, 16, 1024, 16, 16, 64, False),      # its cross chunk
+    (8, 1, 1024, 16, 16, 64, False),       # its cross decode
+    (2, 40, 1024, 16, 16, 64, True),       # Tq * G > 16 at hd 64, ragged
+    (8, 1, 1601, 64, 8, 128, False),       # the VLM's cross decode
+    (1, 16, 1601, 64, 8, 128, False),      # its cross chunk
+    (1, 1601, 1601, 8, 8, 64, True)])      # Tq = Tk = 1601, both tails
+def test_flash_noncausal_on_card(cuda, dtype, B, Tq, Tk, H, KV, hd, enc):
+    """Non-causal flash attention at the cross families' shapes: every key
+    visible, as the encoder (positions 0..Tk-1) or a cross read (all at
+    position 0) calls it."""
+    rng = np.random.RandomState(7)
+    if enc:
+        qp = np.tile(np.arange(Tq, dtype=np.int32), (B, 1))
+        kp = np.tile(np.arange(Tk, dtype=np.int32), (B, 1))
+    else:
+        qp = np.zeros((B, Tq), np.int32)
+        kp = np.zeros((B, Tk), np.int32)
+    dt = getattr(torch, dtype)
+    q, k, v, qpt, kpt = _on(cuda, rng.randn(B, Tq, H, hd),
+                            rng.randn(B, Tk, KV, hd),
+                            rng.randn(B, Tk, KV, hd), qp, kp, dtype=dt)
+    got = ops.flash_attention(q, k, v, qpt, kpt, causal=False)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), qpt,
+                                   kpt, causal=False)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Tq,S,H,KV,hd", [(1, 1024, 16, 16, 64),
+                                          (16, 1024, 16, 16, 64),
+                                          (1, 1601, 64, 8, 128),
+                                          (16, 1601, 64, 8, 128)])
+def test_paged_cross_read_on_card(cuda, dtype, Tq, S, H, KV, hd):
+    """The paged cross read: each row's cross K/V is one block of S slots
+    of the per-slot rows (tables = rows.view(B, 1)), positions all 0, a
+    padding row on the zero sentinel slot; equal to the contiguous kernel
+    on the gathered rows (bf16) and to the plain version."""
+    rng = np.random.RandomState(8)
+    N, rows = 6, np.array([3, 0, 5, 2], np.int64)   # 5: the sentinel
+    B = len(rows)
+    kp, vp = rng.randn(2, N, S, KV, hd)
+    kp[5] = vp[5] = 0
+    dt = getattr(torch, dtype)
+    q, kpool, vpool, qp, kpos, r = _on(
+        cuda, rng.randn(B, Tq, H, hd), kp, vp, np.zeros((B, Tq), np.int32),
+        np.zeros((N, S), np.int32), rows, dtype=dt)
+    got = ops.paged_flash_attention(q, kpool, vpool, qp, kpos, r.view(B, 1),
+                                    causal=False)
+    want = ref.paged_flash_attention_ref(q.float(), kpool.float(),
+                                         vpool.float(), qp, kpos,
+                                         r.view(B, 1), causal=False)
+    assert ops.LAUNCHES["paged_flash_attention"] == 1
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    assert bool((got[2] == 0).all())
+    if dt == torch.bfloat16:
+        flat = ops.flash_attention(q, kpool[r], vpool[r], qp,
+                                   torch.zeros((B, S), dtype=torch.int32,
+                                               device=cuda), causal=False)
+        torch.testing.assert_close(got, flat, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llama-3.2-vision-90b"])
+def test_cross_model_on_card_matches_cpu(cuda, arch, paged):
+    """The reduced VLM and enc-dec models in fp32, gates at 0.5: a first
+    chunk with extras (16 frames or patches), more chunks, decode, through
+    the kernels on the card, give the CPU plain path's logits."""
+    from repro_torch.config.registry import get_config
+    from repro_torch.models.backbone import extras_key
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(arch, "reduced")
+    m_gpu = build_model(cfg, torch.float32, cuda)
+    m_cpu = build_model(cfg, torch.float32, "cpu")
+    p_cpu = m_cpu.init(0)
+    for key in ("cross_layers", "dec_cross"):
+        if key in p_cpu:
+            p_cpu[key]["attn"]["gate"].fill_(0.5)
+
+    def to(p, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in p.items()}
+
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 30), generator=g)
+    pos = torch.arange(30, dtype=torch.int32)[None].repeat(2, 1)
+    extras = torch.randn((2, 16, cfg.d_model), generator=g)
+    outs = []
+    for m, p, dev in ((m_gpu, to(p_cpu, cuda), cuda), (m_cpu, p_cpu, "cpu")):
+        rows = torch.tensor([2, 0], device=dev)
+        if paged:
+            cache = m.init_paged_cache(8, 16, n_slots=3, enc_len=16)
+            tables = torch.tensor([[0, 1, -1, -1], [5, 3, -1, -1]],
+                                  dtype=torch.int32, device=dev)
+        else:
+            cache = m.init_cache(2, 64, enc_len=16)
+        seq = []
+        for s, e in ((0, 24), (24, 25), (25, 26), (26, 30)):
+            ex = {extras_key(cfg): extras.to(dev)} if s == 0 else None
+            t, q = toks[:, s:e].to(dev), pos[:, s:e].to(dev)
+            lg, cache = m.prefill_paged(p, t, q, tables, cache, rows=rows,
+                                        extras=ex) if paged \
+                else m.prefill(p, t, q, cache, extras=ex)
+            seq.append(lg.cpu())
+        outs.append(torch.cat(seq, 1))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+    attn = "paged_flash_attention" if paged else "flash_attention"
+    assert ops.LAUNCHES[attn] > 0 and ops.LAUNCHES["add_rmsnorm"] > 0
+    if paged:
+        # the encoder's own attention is the only contiguous launch
+        assert ops.LAUNCHES["flash_attention"] \
+            == cfg.encoder_layers, ops.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_cross_engine_on_graphs_matches_eager_on_card(cuda, paged):
+    """The reduced enc-dec engine with extras on CUDA graphs gives the
+    eager engine's tokens and counters (the extras step replays its
+    staged input; warmup's captures keep every live cross row)."""
+    from repro_torch.config.base import ServeConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+
+    m = build_model(get_config("seamless-m4t-medium", "reduced"),
+                    torch.float32, cuda)
+    p = m.init(0)
+    rng = np.random.RandomState(2)
+    prompts = [list(map(int, rng.randint(0, 256, size=n)))
+               for n in (20, 9, 33, 16)]
+    extras = [{"enc_frames": rng.randn(1, 16, m.cfg.d_model)}
+              for _ in prompts]
+    runs = []
+    for graphs in (True, False):
+        serve = ServeConfig(policy="memory", b_max=4, max_new_tokens=6,
+                            kv_pool_tokens=1024, chunked_prefill=True,
+                            chunk_budget_tokens=16, n_prefill_lanes=2,
+                            paged_kv=paged)
+        eng = Engine(m, p, serve, max_context=64, buckets=(1, 2, 4),
+                     prefill_chunk=8, enc_len=16, device=cuda,
+                     cuda_graphs=graphs)
+        if graphs:
+            eng.warmup()
+        hs = [eng.submit(t, extras=x) for t, x in zip(prompts, extras)]
+        eng.run(max_steps=5000)
+        s = eng.summary()
+        runs.append(([h.output_tokens for h in hs],
+                     {k: s[k] for k in ("finished", "decode_steps",
+                                        "prefill_tokens")}))
+    assert runs[0] == runs[1] and runs[0][1]["finished"] == 4

@@ -1,6 +1,7 @@
 """Guards of the port package: it imports neither JAX nor the JAX package,
 its entry points run on the card unless asked for the CPU, its CLI has the
-JAX CLI's flags plus --device, and features it has not ported raise."""
+JAX CLI's flags plus --device, every arch id builds, and features it has
+not ported raise."""
 import ast
 import dataclasses
 import re
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.config.base import AttentionKind, ServeConfig
-from repro_torch.config.registry import get_config
+from repro_torch.config.registry import get_config, list_archs
 from repro_torch.launch import serve as port_serve
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Engine
@@ -117,11 +118,47 @@ def test_unported_features_raise(argv):
     assert eng.swap == (argv[0] == "--swap-space")
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
-                                  "seamless-m4t-medium"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config(arch, "reduced")
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_arch_builds_in_the_port(arch):
+    """Both variants configure; the full model builds without allocating;
+    the reduced one runs a 3-token prefill (with extras where the family
+    takes them) to finite logits on the CPU."""
+    from repro_torch.models.backbone import cache_bytes, extras_key
+    from repro_torch.models.model import default_enc_len
+
+    full, small = get_config(arch, "full"), get_config(arch, "reduced")
+    assert build_model(full, device="meta").cfg is full
+    enc_len = default_enc_len(full)
+    assert cache_bytes(full, 1, 16, enc_len=enc_len) > 0
+    m = build_model(small, torch.float32, device="cpu")
+    extras = {extras_key(small): torch.randn(1, 5, small.d_model)} \
+        if enc_len else None
+    lg, cache = m.prefill(m.init(0), torch.tensor([[1, 2, 3]]),
+                          torch.arange(3, dtype=torch.int32)[None],
+                          m.init_cache(1, 16, enc_len=5), extras=extras)
+    assert lg.shape == (1, 3, small.vocab_size)
+    assert bool(torch.isfinite(lg).all())
+    assert ("cross_k" in cache) == bool(enc_len)
+
+
+@pytest.mark.parametrize("arch,per_token,fixed", [
+    # decoder self-attention K/V only; 12 cross layers x 1024 frames
+    ("seamless-m4t-medium", 2 * 12 * 16 * 64 * 2,
+     2 * 12 * 1024 * 16 * 64 * 2),
+    # 80 self layers; 20 cross layers x 1601 patches
+    ("llama-3.2-vision-90b", 2 * 80 * 8 * 128 * 2,
+     2 * 20 * 1601 * 8 * 128 * 2)])
+def test_cross_archs_memory_model(arch, per_token, fixed):
+    """The memory model's K/V bytes a token and cross K/V bytes a request
+    at full width (bf16), at the stub frontends' lengths."""
+    from repro_torch.core.memory_model import MemoryModel
+    from repro_torch.models.model import default_enc_len
+
+    cfg = get_config(arch, "full")
+    mem = MemoryModel(cfg, hbm_budget_bytes=0, eta_tokens=4096)
+    assert mem.bytes_per_token == per_token
+    assert mem.fixed_bytes_per_request(default_enc_len(cfg)) == fixed
+    assert mem.fixed_bytes_per_request() == 0
 
 
 @pytest.mark.parametrize("arch,per_token", [
