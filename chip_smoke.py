@@ -195,6 +195,23 @@ Phases, one JSON line each:
              call and no pageable copy from them, the intervals' one
              blocking call the retirement's event wait; the device time
              of the swap's copies per swapped block.
+14. audit    (run after the serve runs of phase 5 and their graph checks,
+             before the sliding runs) the port's flight rules
+             (`repro_torch.analysis`): the AST rules over this checkout
+             with the port's allowlist; the dispatch-level graph audit
+             of every registry arch at reduced width in bf16 on the card
+             (`graph_audit.card_config`: starcoder2-7b at head_dim 32),
+             model functions and both layouts' engine steps, each step
+             captured once; granite-3-8b's two served engines audited at
+             full width (every step they hold traced, each decode bucket
+             run twice through `Engine._step`: no build and no capture
+             more than one a key); and granite's prompts served again on
+             its warm contiguous engine with
+             `torch.cuda.set_sync_debug_mode("error")` over every
+             interval (off only for a first-use capture, whose interval
+             is counted apart). Findings per rule, steps, aten ops,
+             captures against distinct keys, covered intervals, seconds;
+             any finding fails.
 
 Then the card's name and power limit, the `{"kernels": [...]}` summary,
 and as the last line `{"ok": true, "device": {...}}`. Any failure raises:
@@ -315,6 +332,10 @@ FIRST_CHUNK = {"seamless-m4t-medium": {"rmsnorm": 1, "add_rmsnorm": 23,
 #: `build_engine`'s config argument, served like FAMILIES' runs; its
 #: contiguous ring (window + chunk - 1 slots) wraps under the prompts
 SLIDING = ("mistral-nemo-12b", 256)
+#: the serve run whose engines the audit phase reuses: their steps audited
+#: at full width in both layouts, and the contiguous engine's prompts
+#: served again under the CUDA sync debug mode
+AUDITED = "granite-3-8b"
 
 
 def emit(phase: str, **fields) -> None:
@@ -1797,6 +1818,138 @@ def fill_cache(eng, seed: int) -> None:
                 v[:, eng.n_slots] = 0
 
 
+def run_synced(eng, arch: str) -> dict:
+    """The arch's prompts served again on its served engine (warm: its
+    steps built and captured by the serve run), every interval under
+    `torch.cuda.set_sync_debug_mode("error")`, in which any CUDA call that
+    synchronises raises. A tail chunk captured at first use synchronises
+    the device by design (`torch.cuda.graph` does before it captures), so
+    the mode is off for the capture alone, and an interval that captured
+    is counted apart from the covered ones."""
+    graphs = eng.graphs
+    capture = graphs.capture
+    captured = []
+
+    def capture_unchecked(st):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            capture(st)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+        captured.append(list(st.key))
+
+    # the control: the mode is armed, and a deliberate sync raises
+    probe = torch.ones(1, device=eng.device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        probe.item()
+        armed = False
+    except RuntimeError:
+        armed = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not armed:
+        raise AssertionError("the sync debug mode let .item() pass")
+    handles = [eng.submit(p) for p in serve_prompts(arch)]
+    covered, capturing = 0, []
+    graphs.capture = capture_unchecked
+    t0 = time.perf_counter()
+    try:
+        while True:
+            n = len(captured)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                busy = eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if not busy:
+                break
+            if len(captured) == n:
+                covered += 1
+            else:
+                capturing.append(covered + len(capturing))
+    finally:
+        del graphs.capture
+    torch.cuda.synchronize()
+    out = dict(armed=armed, intervals=covered + len(capturing),
+               covered=covered,
+               capturing_intervals=capturing, captured_keys=captured,
+               finished=sum(r.finish_time >= 0 for r in handles),
+               requests=len(handles), seconds=time.perf_counter() - t0)
+    if out["finished"] != len(handles) or not covered:
+        raise AssertionError(f"synced run of {arch}: {out}")
+    return out
+
+
+def run_audit_engine(eng, arch: str, layout: str, audit) -> float:
+    """The graph audit of a served engine's steps (full width): every step
+    it holds traced once eagerly, each decode bucket run twice through
+    `Engine._step`. Returns the seconds it took."""
+    from repro_torch.analysis.graph_audit import config_path
+
+    t0 = time.perf_counter()
+    audit.engine(eng, f"{arch} {layout} full width", config_path(arch))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def run_audit(dev, full, full_s: float, synced: dict) -> dict:
+    """The audit phase: the port's AST rules over this checkout with the
+    port's allowlist, the graph audit of every registry arch at reduced
+    width on the card in bf16 (`graph_audit.card_config`), and the figures
+    of the full-width audit (`full`, `run_audit_engine`) and of the synced
+    serve run (`run_synced`). Any finding or allowlist problem fails."""
+    from repro_torch.analysis import ALLOWLIST, Tree, run
+    from repro_torch.analysis.graph_audit import (GraphAudit, OpTrace,
+                                                  audit_trace)
+    from repro_torch.config.registry import list_archs
+
+    t0 = time.perf_counter()
+    lint = run(Tree(root=ROOT), allows=ALLOWLIST)
+    lint_s = time.perf_counter() - t0
+    # the controls: on the card the detector flags a device-to-host copy
+    # and a read of a device scalar
+    t0 = time.perf_counter()
+    x = torch.ones(2, device=dev)
+    controls = {}
+    for name, fn in (("cpu", lambda: x.cpu()),
+                     ("item", lambda: x[0].item())):
+        with OpTrace() as tr:
+            fn()
+        controls[name] = [str(f) for f in audit_trace(tr, name, "control")]
+    if not all(controls.values()):
+        raise AssertionError(f"audit: a control went unflagged: {controls}")
+    reduced = GraphAudit(dev)
+    for arch in list_archs():
+        reduced.arch(arch)
+        gc.collect()
+    torch.cuda.synchronize()
+    reduced_s = time.perf_counter() - t0
+    found = lint.findings + reduced.findings + full.findings
+    per_rule = {k: sum(f.rule == k for f in lint.findings)
+                for k in lint.per_rule}
+    per_rule["graph-audit"] = len(reduced.findings) + len(full.findings)
+    fields = dict(
+        findings=per_rule, allowlisted=lint.per_rule,
+        allowlist_problems=[str(f) for f in lint.problems],
+        messages=[str(f) for f in found], checked_files=lint.checked_files,
+        reduced=reduced.totals(), full_width={AUDITED: full.totals()},
+        captures_vs_keys={"reduced": [reduced.captures, reduced.keys],
+                          AUDITED: [full.captures, full.keys]},
+        synced=synced, controls=controls,
+        seconds=lint_s + reduced_s + full_s + synced["seconds"],
+        seconds_by_part=dict(lint=lint_s, reduced=reduced_s,
+                             full_width=full_s, synced=synced["seconds"]))
+    emit("audit", **fields)
+    if found or lint.problems:
+        raise AssertionError(f"audit: {len(found)} finding(s), "
+                             f"{len(lint.problems)} allowlist problem(s)")
+    if reduced.captures != reduced.keys or full.captures != full.keys:
+        raise AssertionError(f"audit: captures differ from distinct step "
+                             f"keys: {fields['captures_vs_keys']}")
+    return fields
+
+
 def run_graph_check(eng, name: str):
     """Replay against eager run of the same step, bit for bit, from the
     same cache and inputs: decode at the largest bucket (8, or the arch's
@@ -2190,6 +2343,8 @@ def main() -> int:
     sliding_ref = run_sliding_reference(dev)
     prefix_ref = run_prefix_reference(dev)
     serves, runs, launches, graphs, served = {}, {}, {}, {}, {}
+    from repro_torch.analysis.graph_audit import GraphAudit
+    full_audit, full_audit_s, synced = GraphAudit(dev), 0.0, None
 
     def tokens(key):
         return [r.output_tokens for r in served[key][1]]
@@ -2215,6 +2370,11 @@ def main() -> int:
             runs[f"{arch}_{layout}"] = fields
             for k, n in fields["launches"].items():
                 launches[k] = launches.get(k, 0) + n
+            if arch == AUDITED:
+                if not paged:
+                    synced = run_synced(eng, arch)
+                full_audit_s += run_audit_engine(eng, arch, layout,
+                                                 full_audit)
             graphs[f"{arch}_{layout}"] = run_graph_check(
                 eng, f"{arch}_{layout}")
             del eng
@@ -2235,6 +2395,7 @@ def main() -> int:
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    audit = run_audit(dev, full_audit, full_audit_s, synced)
     layout_tokens = {arch: agreement(arch) for arch in FAMILIES}
     emit("layout_tokens", **layout_tokens)
     # the sliding variant: the contiguous ring wraps, the paged pool masks
@@ -2364,7 +2525,7 @@ def main() -> int:
          "profile_overlap": profile_overlap, "serve_overlap": overlap,
          "twin": twins, "tiers": tiers, "prefix_reference": prefix_ref,
          "sliding_reference": sliding_ref, "layout_tokens": layout_tokens,
-         "profile_swap": profile_swap,
+         "profile_swap": profile_swap, "audit": audit,
          "serve_eager": {f"{arch}_{layout}": eager}},
         indent=1))
     print(card)
