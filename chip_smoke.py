@@ -213,6 +213,28 @@ Phases, one JSON line each:
              captures against distinct keys, covered intervals, seconds;
              any finding fails.
 
+15. train   (after the serve runs, their engines released) the training
+             path (`repro_torch.training`), which runs no kernel (the JAX
+             package's training forward reaches no Pallas kernel; the
+             port's takes plain differentiable ops): train_reduced, three
+             steps of `make_train_step` for each of the six families
+             (granite-3-8b, qwen2-moe-a2.7b, mamba2-2.7b, recurrentgemma-9b,
+             llama-3.2-vision-90b with its gates at 0.5,
+             seamless-m4t-medium) reduced in fp32, TF32 off, on the card
+             and on the CPU from the same params and batches: every loss
+             within rtol 1e-4, no kernel launched. train_<arch>: through
+             `train_loop.train` in bf16 with fp32 moments, remat, B 8,
+             T 256, lr 3e-4, warmup 2, on MarkovData: granite-3-8b at full
+             width cut to 16 of its 40 layers (the whole model and its
+             AdamW state, 12 bytes a parameter, need 98 GB) for 20 steps,
+             and mamba2-2.7b whole for 10. Every loss finite, the mean of
+             the last 5 below the mean of the first 5, and at step 1 every
+             param leaf's gradient (each layer's slice of a stacked leaf)
+             finite with a non-zero norm; the median
+             step time (CUDA events), tokens/s, peak memory, and the model
+             FLOP rate (`train_flops`) as a share of the card's dense bf16
+             peak, beside the card's name and power limit.
+
 Then the card's name and power limit, the `{"kernels": [...]}` summary,
 and as the last line `{"ok": true, "device": {...}}`. Any failure raises:
 the script exits non-zero and prints no result. It also refuses to run
@@ -222,6 +244,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1019,6 +1042,195 @@ class Routing:
             self.differ += int(miss.sum())
             self.shortfall = max(self.shortfall, float(short.max()))
         return v, i
+
+
+# ---------------------------------------------------------------------------
+# training
+
+
+#: the six families' reduced configs trained on the card and the CPU
+TRAIN_REDUCED = ("granite-3-8b", "qwen2-moe-a2.7b", "mamba2-2.7b",
+                 "recurrentgemma-9b", "llama-3.2-vision-90b",
+                 "seamless-m4t-medium")
+#: full-width training runs: arch -> (layers kept or None for all, steps)
+TRAIN_FULL = {"granite-3-8b": (16, 20), "mamba2-2.7b": (None, 10)}
+#: bytes a parameter of training state: bf16 param and gradient, fp32
+#: AdamW moments
+TRAIN_STATE_BYTES = 12
+#: the param trees stacked on a leading layer axis
+TRAIN_STACKS = ("layers", "rec_layers", "att_layers", "cross_layers",
+                "enc_layers", "dec_layers", "dec_cross")
+
+
+def train_flops(cfg, n_params: int, B: int, T: int) -> float:
+    """Model FLOPs of one training step, 3 x the forward's (the backward
+    is twice the forward; remat's recomputation is not counted): 2 N a
+    token for the N weights of the layers and the head (all parameters,
+    the tied embedding once, as the head; an untied embedding's gather
+    is not counted), plus 4 B T^2 H hd for each attention layer (the full
+    square the plain attention computes) and, for each Mamba2 layer with
+    chunks of Q, the SSD's products 2 B T Q (N + H P) + 4 B T N H P."""
+    from repro_torch.config.base import ArchFamily
+    from repro_torch.models.backbone import layer_counts
+    from repro_torch.models.ssm import ssm_dims
+
+    n = n_params - (0 if cfg.tie_embeddings
+                    else cfg.vocab_size * cfg.d_model)
+    fwd = 2.0 * n * B * T
+    n_att, _ = layer_counts(cfg)
+    fwd += 4.0 * B * T * T * cfg.num_heads * cfg.resolved_head_dim * n_att
+    if cfg.family == ArchFamily.SSM:
+        _, H, P, N = ssm_dims(cfg)
+        Q = min(cfg.ssm.chunk_size, T)
+        fwd += cfg.num_layers * (2.0 * B * T * Q * (N + H * P)
+                                 + 4.0 * B * T * N * H * P)
+    return 3.0 * fwd
+
+
+def run_train_reduced(dev) -> dict:
+    """Three train steps of each family's reduced config in fp32 on the
+    card and on the CPU from the same params and batches: the losses agree
+    within rtol 1e-4, and the card launches no kernel."""
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.training.data import MarkovData
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_loop import (make_train_step, to_device,
+                                                 trainable)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the fp32 products would not be "
+                             "the CPU's")
+    tcfg = TrainConfig(global_batch=2, seq_len=64, steps=3, lr=1e-3,
+                       warmup_steps=1)
+    out = {}
+    before = dict(ops.LAUNCHES)
+    for arch in TRAIN_REDUCED:
+        cfg = get_config(arch, "reduced")
+        p_cpu = build_model(cfg, torch.float32, "cpu").init(0)
+        if "cross_layers" in p_cpu:
+            p_cpu["cross_layers"]["attn"]["gate"].fill_(0.5)
+        it = MarkovData(cfg, tcfg).batches()
+        batches = [next(it) for _ in range(tcfg.steps)]
+        losses = {}
+        for d in ("cpu", dev):
+            m = build_model(cfg, torch.float32, d)
+            p = trainable(_copy_to(p_cpu, d))
+            o, step = adamw_init(p), make_train_step(m, tcfg)
+            losses[str(d)] = []
+            for b in batches:
+                p, o, met = step(p, o, to_device(b, d))
+                losses[str(d)].append(float(met["loss"]))
+        got, want = losses[str(dev)], losses["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        out[arch] = dict(card=got, cpu=want, rel_max_err=rel)
+        if rel > 1e-4 or not all(math.isfinite(x) for x in got):
+            raise AssertionError(f"train_reduced {arch}: card losses {got} "
+                                 f"against the CPU's {want}")
+    if ops.LAUNCHES != before:
+        raise AssertionError(f"training launched a kernel: {before} -> "
+                             f"{ops.LAUNCHES}")
+    emit("train_reduced", tol=1e-4, steps=tcfg.steps,
+         batch=tcfg.global_batch, seq=tcfg.seq_len, **out)
+    return out
+
+
+def _copy_to(t, dev):
+    """A copy of a param tree on `dev` (the steps update params in
+    place)."""
+    return {k: _copy_to(v, dev) for k, v in t.items()} \
+        if isinstance(t, dict) else t.to(dev, copy=True)
+
+
+def run_train_full(dev, card: str, arch: str) -> dict:
+    """`train_loop.train` at full width (depth cut by TRAIN_FULL) in bf16
+    with fp32 moments: finite losses that fall, a finite non-zero
+    gradient in every leaf at step 1, and the step's figures."""
+    import dataclasses
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.params import named_leaves
+    from repro_torch.training.data import MarkovData
+    from repro_torch.training.train_loop import (to_device, train,
+                                                 trainable, value_and_grad)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on")
+    layers, steps = TRAIN_FULL[arch]
+    whole = get_config(arch, "full")
+    cfg = dataclasses.replace(whole, num_layers=layers) if layers else whole
+    tcfg = TrainConfig(steps=steps, lr=3e-4, warmup_steps=2)
+    model = build_model(cfg, torch.bfloat16, dev)
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    params = trainable(model.init(tcfg.seed))
+    n_params = sum(x.numel() for _, x in named_leaves(params))
+    # step 1's gradient: train() draws the same first batch from a fresh
+    # MarkovData of the same seed
+    batch = to_device(next(MarkovData(cfg, tcfg).batches()), dev)
+    loss1, _, grads = value_and_grad(model, params, batch, tcfg.remat)
+    norms = {}
+    for name, g in named_leaves(grads):
+        # a stacked leaf layer by layer: a branch cut in one layer shows
+        stacked = name.split("/")[0] in TRAIN_STACKS
+        for i, sl in enumerate(g.unbind(0) if stacked else (g,)):
+            norms[f"{name}[{i}]" if stacked else name] = float(
+                sl.float().norm())
+    del grads, batch
+    bad = {k: v for k, v in norms.items()
+           if not math.isfinite(v) or v == 0.0}
+    if bad or not math.isfinite(float(loss1)):
+        raise AssertionError(f"train_{arch}: step 1's gradient is zero or "
+                             f"not finite in {bad} (loss {float(loss1)})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = train(model, tcfg, log=None, params=params)
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    k = 5
+    first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+    step_s = statistics.median(res["step_ms"]) / 1e3
+    tokens = tcfg.global_batch * tcfg.seq_len
+    flops = train_flops(cfg, n_params, tcfg.global_batch, tcfg.seq_len)
+    fields = dict(
+        arch=arch, card=card, layers=cfg.num_layers,
+        of_layers=whole.num_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=n_params,
+        state_gb=n_params * TRAIN_STATE_BYTES / 1e9,
+        whole_state_gb=whole.param_count() * TRAIN_STATE_BYTES / 1e9,
+        cut=(f"{cfg.num_layers} of {whole.num_layers} layers: the whole "
+             f"model's params, grads and AdamW state need "
+             f"{whole.param_count() * TRAIN_STATE_BYTES / 1e9:.1f} GB, "
+             f"more than the card's 80 GB") if layers else None,
+        dtype="bfloat16", moments="float32", remat=tcfg.remat,
+        batch=tcfg.global_batch, seq=tcfg.seq_len, steps=steps,
+        lr=tcfg.lr, warmup=tcfg.warmup_steps, losses=losses,
+        first5_mean=first, last5_mean=last, step1_loss=float(loss1),
+        grad_slices=len(norms), grad_norm_min=min(norms.values()),
+        grad_norm_min_slice=min(norms, key=norms.get),
+        step_ms=res["step_ms"], step_ms_median=step_s * 1e3,
+        tokens_per_s=tokens / step_s, wall_tokens_per_s=res["tokens_per_s"],
+        peak_memory_gb=peak / 1e9, flops_per_step=flops,
+        flops_formula="3 x (2 N B T + 4 B T^2 H hd L_att + L_ssm (2 B T Q "
+                      "(N_state + H P) + 4 B T N_state H P))",
+        model_tflops=flops / step_s / 1e12,
+        share_of_bf16_peak=flops / step_s / PEAK_FLOPS["bf16"],
+        seconds=time.perf_counter() - t0)
+    emit(f"train_{arch}", **fields)
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"train_{arch}: the losses do not fall: "
+                             f"{losses}")
+    if ops.LAUNCHES != before:
+        raise AssertionError(f"train_{arch}: training launched a kernel")
+    del res, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fields
 
 
 def to_cpu(t):
@@ -2498,6 +2710,10 @@ def main() -> int:
     del swap_eng, swap_log
     gc.collect()
     torch.cuda.empty_cache()
+    # training, once every serving engine is released
+    train_runs = {"reduced": run_train_reduced(dev)}
+    for arch in TRAIN_FULL:
+        train_runs[arch] = run_train_full(dev, card, arch)
 
     summary = []
     for name, (route, source, replaces, case) in KERNELS.items():
@@ -2525,7 +2741,7 @@ def main() -> int:
          "profile_overlap": profile_overlap, "serve_overlap": overlap,
          "twin": twins, "tiers": tiers, "prefix_reference": prefix_ref,
          "sliding_reference": sliding_ref, "layout_tokens": layout_tokens,
-         "profile_swap": profile_swap, "audit": audit,
+         "profile_swap": profile_swap, "audit": audit, "train": train_runs,
          "serve_eager": {f"{arch}_{layout}": eager}},
         indent=1))
     print(card)

@@ -4,10 +4,17 @@ A CPU tensor goes to the plain PyTorch version in `ref`; a CUDA tensor goes
 to the hand-written Hopper kernel, or the call raises. Nothing falls back.
 `LAUNCHES` counts kernel launches per kernel (plain-version calls are not
 counted), so a run can show that its main path went through the kernels.
+
+The kernels have no backward. A CUDA entry given an input that requires
+grad while grad mode is on raises (`_no_backward`), where it would
+otherwise return a result cut from the autograd graph; training runs the
+plain forms of the models instead (`backbone.forward_train`).
 """
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
@@ -32,10 +39,20 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def _no_backward(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"ops.{name}: the CUDA kernel has no backward, and an input "
+            f"requires grad, so its gradient would be cut; train through "
+            f"the plain forms (backbone.forward_train), or call the kernel "
+            f"under torch.no_grad()")
+
+
 def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
     """q: (B, H, hd); k/v: (B, S, KV, hd); q_pos: (B,); k_pos: (B, S)."""
     if not q.is_cuda:
         return ref.decode_attention_ref(q, k, v, q_pos, k_pos, window=window)
+    _no_backward("decode_attention", q, k, v)
     out = decode_attention_cuda(q, k, v, q_pos, k_pos, window=window)
     LAUNCHES["decode_attention"] += 1
     return out
@@ -47,6 +64,7 @@ def paged_decode_attention(q, k_pool, v_pool, q_pos, kpos_pool, tables, *,
     if not q.is_cuda:
         return ref.paged_decode_attention_ref(q, k_pool, v_pool, q_pos,
                                               kpos_pool, tables, window=window)
+    _no_backward("paged_decode_attention", q, k_pool, v_pool)
     out = paged_decode_attention_cuda(q, k_pool, v_pool, q_pos, kpos_pool,
                                       tables, window=window)
     LAUNCHES["paged_decode_attention"] += 1
@@ -59,6 +77,7 @@ def flash_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, window=window,
                                        causal=causal)
+    _no_backward("flash_attention", q, k, v)
     out = flash_attention_cuda(q, k, v, q_pos, k_pos, window=window,
                                causal=causal)
     LAUNCHES["flash_attention"] += 1
@@ -73,6 +92,7 @@ def paged_flash_attention(q, k_pool, v_pool, q_pos, kpos_pool, tables, *,
         return ref.paged_flash_attention_ref(q, k_pool, v_pool, q_pos,
                                              kpos_pool, tables, window=window,
                                              causal=causal)
+    _no_backward("paged_flash_attention", q, k_pool, v_pool)
     out = paged_flash_attention_cuda(q, k_pool, v_pool, q_pos, kpos_pool,
                                      tables, window=window, causal=causal)
     LAUNCHES["paged_flash_attention"] += 1
@@ -82,6 +102,7 @@ def paged_flash_attention(q, k_pool, v_pool, q_pos, kpos_pool, tables, *,
 def rmsnorm(x, w, *, eps: float = 1e-6):
     if not x.is_cuda:
         return ref.rmsnorm_ref(x, w, eps=eps)
+    _no_backward("rmsnorm", x, w)
     out = rmsnorm_cuda(x, w, eps=eps)
     LAUNCHES["rmsnorm"] += 1
     return out
@@ -92,6 +113,7 @@ def add_rmsnorm(x, y, w, *, eps: float = 1e-6):
     reads it; the sum is x + y in x's dtype, bit for bit."""
     if not x.is_cuda:
         return ref.add_rmsnorm_ref(x, y, w, eps=eps)
+    _no_backward("add_rmsnorm", x, y, w)
     out = add_rmsnorm_cuda(x, y, w, eps=eps)
     LAUNCHES["add_rmsnorm"] += 1
     return out
@@ -103,6 +125,7 @@ def ssd_intra(xdt, cum_a, Br, Cr):
     y_intra (B, nc, Q, H, P), s_chunk (B, nc, H, P, N)."""
     if not xdt.is_cuda:
         return ref.ssd_intra_ref(xdt, cum_a, Br, Cr)
+    _no_backward("ssd_intra", xdt, cum_a, Br, Cr)
     out = ssd_intra_cuda(xdt, cum_a, Br, Cr)
     LAUNCHES["ssd_intra"] += 1
     return out
@@ -113,6 +136,7 @@ def rglru_scan(a, bx, h0):
     (h_all (B, T, W), h_T (B, W))."""
     if not a.is_cuda:
         return ref.rglru_scan_ref(a, bx, h0)
+    _no_backward("rglru_scan", a, bx, h0)
     out = rglru_scan_cuda(a, bx, h0)
     LAUNCHES["rglru_scan"] += 1
     return out
@@ -124,6 +148,7 @@ def rglru_gated_scan(ga, gi, x, lam, b_a, b_i, h0):
     h0 (B, W) fp32 -> (y (B, T, W) in x's dtype, h_T (B, W) fp32)."""
     if not x.is_cuda:
         return ref.rglru_gated_scan_ref(ga, gi, x, lam, b_a, b_i, h0)
+    _no_backward("rglru_gated_scan", ga, gi, x, lam, b_a, b_i, h0)
     out = rglru_gated_scan_cuda(ga, gi, x, lam, b_a, b_i, h0)
     LAUNCHES["rglru_gated_scan"] += 1
     return out

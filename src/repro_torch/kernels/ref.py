@@ -140,7 +140,11 @@ def ssd_intra_ref(xdt, cum_a, Br, Cr):
     li = cum_a[:, :, :, None, :]
     lj = cum_a[:, :, None, :, :]
     tri = torch.ones(Q, Q, dtype=torch.bool, device=xdt.device).tril()
-    L = torch.where(tri[None, None, :, :, None], torch.exp(li - lj), 0.0)
+    # mask before the exp: above the diagonal li - lj > 0 can overflow to
+    # inf, and a where after the exp would send 0 * inf = nan back through
+    # it in a backward pass (the same values forward: exp(-inf) = 0)
+    L = torch.exp(torch.where(tri[None, None, :, :, None], li - lj,
+                              float("-inf")))
     cb = torch.einsum("bzin,bzjn->bzij", Cr, Br)
     y = torch.einsum("bzijh,bzjhp->bzihp", cb[..., None] * L, xdt)
     decay_to_end = torch.exp(cum_a[:, :, -1:, :] - cum_a)

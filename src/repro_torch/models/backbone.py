@@ -26,15 +26,24 @@ block). Per-request state (SSM `conv`/`ssm`, RG-LRU
 cross-attention K/V (`cross_k`/`cross_v`), written only by the call that
 carries the request's extras (its first prefill chunk). Caches are updated
 in place.
+
+`forward_train` is the training forward over whole sequences, no cache,
+as the JAX package's: plain differentiable ops only (`ref.rmsnorm_ref`,
+`ref.flash_attention_ref`, the plain SSD and RG-LRU recurrences), unfused
+residual adds, and `torch.utils.checkpoint` per layer (per group where the
+JAX package checkpoints a group) under `remat`. It never reaches
+`kernels.ops`, whose CUDA entries have no backward.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ArchFamily, AttentionKind, ModelConfig
+from repro_torch.kernels.ref import rmsnorm_ref
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
@@ -492,3 +501,199 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     if last_only:
         x, y = x[:, -1:], y[:, -1:]
     return logits_head(p, x, y, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# TRAIN forward (full sequence, no cache)
+
+
+def unstack(stacked: Params) -> List[Params]:
+    """The per-layer params of a stacked L-axis layout, every leaf split
+    by one `torch.unbind`: its backward stacks the layers' gradients in
+    one op, where indexing each layer (`layer_params`) would write every
+    layer's gradient into a zero tensor of the whole stack."""
+    flat = {k: unstack(v) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in stacked.items()}
+    n = len(next(iter(flat.values())))
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+def _norm(x, w, cfg: ModelConfig):
+    return rmsnorm_ref(x, w, eps=cfg.rms_eps)
+
+
+def _mlp_res(lp, x, cfg: ModelConfig):
+    return x + L.mlp(lp["mlp"], _norm(x, lp["ln2"], cfg))
+
+
+def _attn_block_train(lp, x, positions, cfg: ModelConfig, window: int,
+                      no_drop: bool = False):
+    """A self-attention layer and its SwiGLU or MoE; returns (x, aux)."""
+    h = _norm(x, lp["ln1"], cfg)
+    x = x + L.self_attention_train(lp["attn"], h, positions, cfg,
+                                   window=window)
+    if "moe" in lp:
+        y, aux = L.moe_apply(lp["moe"], _norm(x, lp["ln2"], cfg), cfg,
+                             no_drop=no_drop)
+        return x + y, aux
+    return _mlp_res(lp, x, cfg), 0.0
+
+
+def _cross_block(lp, x, cross_k, cross_v, cfg: ModelConfig, gated: bool):
+    h = _norm(x, lp["ln1"], cfg)
+    x = x + L.cross_attention_train(lp["attn"], h, cross_k, cross_v, cfg,
+                                    gated=gated)
+    return _mlp_res(lp, x, cfg)
+
+
+def _ssm_block(lp, x, cfg: ModelConfig):
+    return x + S.mamba2_block_train(lp["mixer"], _norm(x, lp["ln1"], cfg),
+                                    cfg)
+
+
+def _rec_block(lp, x, cfg: ModelConfig):
+    x = x + R.rglru_block_train(lp["rec"], _norm(x, lp["ln1"], cfg), cfg)
+    return _mlp_res(lp, x, cfg)
+
+
+def _run(body, remat: bool, *args):
+    """body(*args), under a non-reentrant checkpoint when `remat`: its
+    activations are dropped after the forward and recomputed in the
+    backward."""
+    return checkpoint(body, *args, use_reentrant=False) if remat \
+        else body(*args)
+
+
+def forward_train(p: Params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig, *, remat: bool = True,
+                  no_drop: bool = False, return_hidden: bool = False):
+    """batch: {"tokens": (B, T)}, plus {"images": (B, P, d)} (VLM) or
+    {"enc_frames": (B, S, d)} (enc-dec), cast to the working dtype.
+
+    Returns (logits (B, T, V) fp32, aux loss), or with return_hidden the
+    residual stream (B, T, d) before the final norm in place of the
+    logits (the chunked loss never forms (B, T, V)). The MoE dispatches
+    with capacity drops unless `no_drop`, as in training."""
+    tokens = batch["tokens"].long()
+    B, T = tokens.shape
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=tokens.device).expand(B, T)
+    x = p["embed"][tokens]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    fam = cfg.family
+    if fam in ATTENTION_ONLY:
+        win = window_of(cfg)
+        for lp in unstack(p["layers"]):
+            x, a = _run(lambda h, lp: _attn_block_train(
+                lp, h, positions, cfg, win, no_drop), remat, x, lp)
+            aux = aux + a
+    elif fam == ArchFamily.SSM:
+        for lp in unstack(p["layers"]):
+            x = _run(lambda h, lp: _ssm_block(lp, h, cfg), remat, x, lp)
+    elif fam == ArchFamily.HYBRID:
+        x = _hybrid_train(p, x, positions, cfg, remat)
+    elif fam == ArchFamily.VLM:
+        x, aux = _vlm_train(p, x, positions,
+                            batch["images"].to(x.dtype), cfg, remat)
+    elif fam == ArchFamily.ENCDEC:
+        x, aux = _encdec_train(p, x, positions,
+                               batch["enc_frames"].to(x.dtype), cfg, remat)
+    else:
+        raise ValueError(fam)
+    if return_hidden:
+        return x, aux
+    return logits_head_train(p, x, cfg), aux
+
+
+def logits_head_train(p: Params, x, cfg: ModelConfig):
+    """fp32 logits of the residual stream x: the final norm (plain), then
+    the tied embedding or the head."""
+    wout = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    return (_norm(x, p["ln_f"], cfg) @ wout).float()
+
+
+def _hybrid_train(p, x, positions, cfg: ModelConfig, remat: bool):
+    """Whole block-pattern groups, one checkpoint a group, then the
+    pattern's remainder unrolled without one, as the JAX package runs
+    them."""
+    pat = cfg.rglru.block_pattern
+    n_groups = cfg.num_layers // len(pat)
+    rec, att = unstack(p["rec_layers"]), unstack(p["att_layers"])
+    win = cfg.rglru.window_size
+    it = {"recurrent": iter(rec), "attention": iter(att)}
+
+    def layer(kind, lp, h):
+        if kind == "recurrent":
+            return _rec_block(lp, h, cfg)
+        return _attn_block_train(lp, h, positions, cfg, win)[0]
+
+    def group(h, lps):
+        for kind, lp in zip(pat, lps):
+            h = layer(kind, lp, h)
+        return h
+
+    for _ in range(n_groups):
+        x = _run(group, remat, x, [next(it[k]) for k in pat])
+    for kind in cfg.layer_kinds()[n_groups * len(pat):]:
+        x = layer(kind, next(it[kind]), x)
+    return x
+
+
+def _vlm_train(p, x, positions, images, cfg: ModelConfig, remat: bool):
+    """A gated cross-attention layer after every num_layers //
+    num_cross_layers self layers, one checkpoint a group; the cross K/V
+    of the images are projected before the groups, outside them."""
+    per = cfg.num_layers // cfg.num_cross_layers
+    self_layers = unstack(p["layers"])
+    cross = unstack(p["cross_layers"])
+    kv = [L.cross_kv(cp["attn"], images, cfg) for cp in cross]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def group(h, aux, lps, cp, ck, cv):
+        for lp in lps:
+            h, a = _attn_block_train(lp, h, positions, cfg, 0)
+            aux = aux + a
+        return _cross_block(cp, h, ck, cv, cfg, gated=True), aux
+
+    for g, cp in enumerate(cross):
+        x, aux = _run(group, remat, x, aux,
+                      self_layers[g * per:(g + 1) * per], cp, *kv[g])
+    return x, aux
+
+
+def encode_train(p: Params, frames, cfg: ModelConfig, remat: bool = False):
+    """The enc-dec encoder over frame embeddings (B, S, d) in plain ops:
+    bidirectional attention at positions 0..S-1 with RoPE, no final norm,
+    one checkpoint a layer under `remat`."""
+    B, S_, _ = frames.shape
+    pos = torch.arange(S_, dtype=torch.int32,
+                       device=frames.device).expand(B, S_)
+
+    def body(h, lp):
+        h = h + L.self_attention_train(lp["attn"], _norm(h, lp["ln1"], cfg),
+                                       pos, cfg, causal=False)
+        return _mlp_res(lp, h, cfg)
+
+    x = frames
+    for lp in unstack(p["enc_layers"]):
+        x = _run(body, remat, x, lp)
+    return x
+
+
+def _encdec_train(p, x, positions, frames, cfg: ModelConfig, remat: bool):
+    """The encoder, the cross K/V of its output (before the decoder
+    layers, outside their checkpoints), then each decoder layer followed by
+    its cross layer, one checkpoint the pair."""
+    enc_out = encode_train(p, frames, cfg, remat)
+    cross = unstack(p["dec_cross"])
+    kv = [L.cross_kv(cp["attn"], enc_out, cfg) for cp in cross]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(h, lp, cp, ck, cv):
+        h, a = _attn_block_train(lp, h, positions, cfg, 0)
+        return _cross_block(cp, h, ck, cv, cfg, gated=False), a
+
+    for lp, cp, (ck, cv) in zip(unstack(p["dec_layers"]), cross, kv):
+        x, a = _run(body, remat, x, lp, cp, ck, cv)
+        aux = aux + a
+    return x, aux

@@ -14,6 +14,12 @@ Attention and RMSNorm go through `kernels.ops`: the Hopper kernels for CUDA
 tensors, their plain versions for CPU tensors. The projections and the
 MoE's expert products stay `torch.matmul` / `einsum`, as the JAX package
 computes them outside any Pallas kernel. Caches are updated in place.
+
+The training forms (`self_attention_train`, `cross_attention_train`) are
+plain differentiable ops on every device, the attention core being
+`ref.flash_attention_ref`, and never reach `kernels.ops`: the kernels have
+no backward, and the JAX package's training forward reaches no Pallas
+kernel either.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import flash_attention_ref
 
 
 class ParamInit:
@@ -153,6 +160,21 @@ def attention_qkv(p, x, cfg: ModelConfig):
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (q.reshape(B, T, H, hd), k.reshape(B, T, KV, hd),
             v.reshape(B, T, KV, hd))
+
+
+def self_attention_train(p, x, positions, cfg: ModelConfig, *,
+                         window: int = 0, causal: bool = True):
+    """Self-attention over the whole sequence x (B, T, d) at `positions`
+    (B, T), no cache: RoPE on q and k, then the plain masked attention
+    (fp32 scores at 1/sqrt(hd), masked keys at -1e30). `causal` False is
+    the enc-dec encoder's bidirectional form."""
+    B, T, _ = x.shape
+    q, k, v = attention_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = flash_attention_ref(q, k, v, positions, positions, window=window,
+                              causal=causal)
+    return out.reshape(B, T, -1) @ p["wo"]
 
 
 def mlp(p, x):
@@ -426,6 +448,25 @@ def cross_attention(p, x, cross_k, cross_v, cfg: ModelConfig, *,
         out = ops.paged_flash_attention(q, cross_k, cross_v, q_pos, kpos,
                                         rows.view(B, 1), causal=False)
     out = out.reshape(B, T, H * hd) @ p["wo"]
+    if gated:
+        out = torch.tanh(p["gate"].float()).to(out.dtype) * out
+    return out
+
+
+def cross_attention_train(p, x, cross_k, cross_v, cfg: ModelConfig, *,
+                          gated: bool = False):
+    """The training form of `cross_attention`: x (B, T, d) over the
+    batch's own cross K/V (B, S, KV, hd) from `cross_kv`, every key
+    visible, in plain ops (`ref.flash_attention_ref`, non-causal); `gated`
+    scales the output by tanh(gate) taken in fp32 (the VLM)."""
+    B, T, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, T, H, hd)
+    zeros = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    k_pos = torch.zeros(cross_k.shape[:2], dtype=torch.int32,
+                        device=x.device)
+    out = flash_attention_ref(q, cross_k, cross_v, zeros, k_pos,
+                              causal=False).reshape(B, T, H * hd) @ p["wo"]
     if gated:
         out = torch.tanh(p["gate"].float()).to(out.dtype) * out
     return out

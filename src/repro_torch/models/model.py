@@ -5,12 +5,16 @@ Params are a plain nested dict of tensors (the JAX package's layout), made
 by `init` or converted by `params.from_jax_params`, and passed to each call
 as in the JAX facade. The entry points run on the card unless the caller
 asks for the CPU: `device` defaults to "cuda", and a missing GPU raises.
+Serving (`forward` and the calls over it) runs without autograd; training
+(`forward_train`, `loss_fn`) takes params that are leaves requiring grad
+(`training.train_loop.trainable`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config.base import ArchFamily, ModelConfig
@@ -46,6 +50,48 @@ class Model(nn.Module):
     # -- params -----------------------------------------------------------
     def init(self, seed: int = 0) -> Dict[str, Any]:
         return B.init_params(self.cfg, seed, self.dtype, self.device)
+
+    # -- training ---------------------------------------------------------
+    def forward_train(self, params, batch, remat: bool = True,
+                      no_drop: bool = False):
+        """(logits (B, T, V) fp32, aux loss) of whole sequences."""
+        return B.forward_train(params, batch, self.cfg, remat=remat,
+                               no_drop=no_drop)
+
+    def loss_fn(self, params, batch, remat: bool = True,
+                loss_chunk: int = 512
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy plus the MoE aux loss, as the JAX
+        facade's: the T-1 predicting positions in chunks of `loss_chunk`
+        (the last padded with zero-weight rows); each chunk's logsumexp
+        minus the target logit in fp32, weighted by batch["loss_mask"] (all
+        ones without one) and divided by the weight, at least 1. The chunks
+        bound the forward's transient memory only: autograd keeps every
+        chunk's fp32 logits for the backward, so the whole (B, T-1, V) is
+        held until then, as the JAX `lax.map`'s residuals are. Returns
+        (ce + aux, {"ce", "aux"})."""
+        hidden, aux = B.forward_train(params, batch, self.cfg, remat=remat,
+                                      return_hidden=True)
+        h = hidden[:, :-1]
+        targets = batch["tokens"][:, 1:].long()
+        mask = batch.get("loss_mask")
+        w = mask[:, 1:].float() if mask is not None \
+            else torch.ones(targets.shape, device=h.device)
+        Tm = h.shape[1]
+        C = min(loss_chunk, Tm)
+        pad = (-Tm) % C
+        if pad:
+            h = F.pad(h, (0, 0, 0, pad))
+            targets = F.pad(targets, (0, pad))
+            w = F.pad(w, (0, pad))
+        sums = []
+        for c in range(0, Tm + pad, C):
+            lg = B.logits_head_train(params, h[:, c:c + C], self.cfg)
+            nll = torch.logsumexp(lg, dim=-1) \
+                - lg.gather(-1, targets[:, c:c + C, None])[..., 0]
+            sums.append((nll * w[:, c:c + C]).sum())
+        ce = torch.stack(sums).sum() / w.sum().clamp_min(1.0)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, max_context: int, enc_len: int = 0,

@@ -8,6 +8,10 @@ The gates and the recurrence run in one call of `ops.rglru_gated_scan` (one
 kernel launch on the card, its plain version on the CPU), in prefill and in
 decode alike: a decode step is T = 1. Only the two gate products stay
 outside it. The recurrent state is fp32 whatever the working dtype.
+
+Training runs the same block over the whole sequence with the plain
+recurrence (`ref.rglru_gated_scan_ref`, `rglru_block_train`), never
+`kernels.ops` (the kernels have no backward).
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import RGLRU_C as _C
 from repro_torch.models.layers import ParamInit, out_scale
 from repro_torch.models.ssm import causal_conv
@@ -46,11 +50,17 @@ def rglru_core(p, x, *, h0=None):
     """x: (B, T, W) post-conv activations, T = 1 for a decode step; h0:
     (B, W) fp32 state or None (zeros). Returns (y in x's dtype, h_T in
     fp32)."""
+    return _core(ops.rglru_gated_scan, p, x, h0)
+
+
+def _core(scan, p, x, h0):
+    """`rglru_core` through `scan`: the kernel's entry (serving) or its
+    plain version (training)."""
     if h0 is None:
         h0 = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
                          device=x.device)
-    return ops.rglru_gated_scan(x @ p["w_a"], x @ p["w_i"], x, p["lam"],
-                                p["b_a"], p["b_i"], h0.contiguous())
+    return scan(x @ p["w_a"], x @ p["w_i"], x, p["lam"], p["b_a"],
+                p["b_i"], h0.contiguous())
 
 
 def rglru_block(p, u, cfg: ModelConfig, *, conv_state=None, rec_state=None):
@@ -58,9 +68,21 @@ def rglru_block(p, u, cfg: ModelConfig, *, conv_state=None, rec_state=None):
 
     Returns (out (B, T, d), (conv_state, rec_state)). The GeLU of the gate
     branch is the tanh approximation, JAX's default."""
+    return _block(ops.rglru_gated_scan, p, u, conv_state, rec_state)
+
+
+def rglru_block_train(p, u, cfg: ModelConfig):
+    """The recurrent block over the whole sequence u (B, T, d) from zero
+    state, in plain differentiable ops. Returns out (B, T, d)."""
+    out, _ = _block(ref.rglru_gated_scan_ref, p, u, None, None)
+    return out
+
+
+def _block(scan, p, u, conv_state, rec_state):
+    """`rglru_block` with the recurrence by `scan` (as `_core`)."""
     gate = F.gelu((u @ p["w_gate_branch"]).float(),
                   approximate="tanh").to(u.dtype)
     x = u @ p["w_x"]
     x, conv_state = causal_conv(x, p["conv_w"], p["conv_b"], conv_state)
-    y, rec_state = rglru_core(p, x, h0=rec_state)
+    y, rec_state = _core(scan, p, x, rec_state)
     return (y * gate) @ p["w_out"], (conv_state, rec_state)

@@ -6,6 +6,11 @@ states go through `ops.ssd_intra` (the SSD kernel on the card, its plain
 version on the CPU); the inter-chunk recurrence is a plain loop over the
 chunks. Decode is the O(1) recurrent step. The SSM state is fp32 whatever
 the working dtype.
+
+Training runs the same chunked SSD over the whole sequence in plain
+differentiable ops (`ssd_chunked_train`, `mamba2_block_train`): the
+intra-chunk term by `ref.ssd_intra_ref` and the gated norm by
+`ref.rmsnorm_ref`, never `kernels.ops` (the kernels have no backward).
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import ParamInit, out_scale
 
 
@@ -57,13 +62,24 @@ def init_mamba2_block(init: ParamInit, cfg: ModelConfig, n: int):
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
-    """Chunked SSD scan.
+    """Chunked SSD scan, the intra-chunk term by `ops.ssd_intra` (the SSD
+    kernel on the card).
 
     x: (B, T, H, P); dt: (B, T, H) post-softplus steps; A: (H,) negative
     decay; Bm/Cm: (B, T, N) (one group); h0: optional (B, H, P, N) state.
     Returns y (B, T, H, P) in x's dtype and the final state (B, H, P, N)
     in fp32. A ragged tail is padded with zero-dt steps, which leave the
     state unchanged (decay 1, no input)."""
+    return _ssd_chunked(ops.ssd_intra, x, dt, A, Bm, Cm, chunk, h0)
+
+
+def ssd_chunked_train(x, dt, A, Bm, Cm, chunk: int):
+    """`ssd_chunked` from a zero state in plain differentiable ops (the
+    intra-chunk term by `ref.ssd_intra_ref`). Returns (y, final state)."""
+    return _ssd_chunked(ref.ssd_intra_ref, x, dt, A, Bm, Cm, chunk, None)
+
+
+def _ssd_chunked(intra, x, dt, A, Bm, Cm, chunk: int, h0):
     Bsz, T, H, P = x.shape
     N = Bm.shape[-1]
     pad = (-T) % chunk
@@ -81,8 +97,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
 
     cum_a = torch.cumsum(dtr * A, dim=2)                  # (B,nc,Q,H)
     xdt = xr * dtr[..., None]                             # (B,nc,Q,H,P)
-    y_intra, s_chunk = ops.ssd_intra(xdt.contiguous(), cum_a.contiguous(),
-                                     Br, Cr)
+    y_intra, s_chunk = intra(xdt.contiguous(), cum_a.contiguous(), Br, Cr)
 
     # inter-chunk recurrence: h_c = exp(cum_a_end_c) h_{c-1} + s_c
     chunk_decay = torch.exp(cum_a[:, :, -1, :])           # (B,nc,H)
@@ -142,9 +157,9 @@ def _split_proj(z, cfg: ModelConfig):
     return torch.split(z, [d_in, d_in, N, N, H], dim=-1)
 
 
-def mamba2_block(p, u, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
-                 decode: bool = False):
-    """u: (B, T, d). Returns (out (B, T, d), (conv_state, ssm_state))."""
+def _mixer_in(p, u, cfg: ModelConfig, conv_state):
+    """in_proj, the causal conv and the SSD's inputs of u (B, T, d):
+    (gate, x (B, T, H, P), Bm, Cm, dt (fp32), A, conv_state)."""
     d_in, H, P, N = ssm_dims(cfg)
     z = u @ p["in_proj"]
     gate, xs, Bm, Cm, dt_raw = _split_proj(z, cfg)
@@ -156,12 +171,34 @@ def mamba2_block(p, u, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
     xh = xs.reshape(Bsz, T, H, P)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
+    return gate, xh, Bm, Cm, dt, A, conv_state
+
+
+def _mixer_out(p, y, xh, gate, cfg: ModelConfig, norm):
+    """The skip term D x, the gated RMSNorm (`norm`) and out_proj."""
+    y = y + xh.float().to(y.dtype) * p["D"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(y.shape[0], y.shape[1], -1)
+    y = norm(y * F.silu(gate), p["norm_w"], eps=cfg.rms_eps)
+    return y @ p["out_proj"]
+
+
+def mamba2_block(p, u, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
+                 decode: bool = False):
+    """u: (B, T, d). Returns (out (B, T, d), (conv_state, ssm_state))."""
+    gate, xh, Bm, Cm, dt, A, conv_state = _mixer_in(p, u, cfg, conv_state)
     if decode:
         y, ssm_state = ssd_decode_step(xh, dt, A, Bm, Cm, ssm_state)
     else:
-        chunk = min(cfg.ssm.chunk_size, T)
+        chunk = min(cfg.ssm.chunk_size, xh.shape[1])
         y, ssm_state = ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0=ssm_state)
-    y = y + xh.float().to(y.dtype) * p["D"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(Bsz, T, d_in)
-    y = ops.rmsnorm(y * F.silu(gate), p["norm_w"], eps=cfg.rms_eps)
-    return y @ p["out_proj"], (conv_state, ssm_state)
+    return _mixer_out(p, y, xh, gate, cfg, ops.rmsnorm), (conv_state,
+                                                         ssm_state)
+
+
+def mamba2_block_train(p, u, cfg: ModelConfig):
+    """The Mamba2 mixer over the whole sequence u (B, T, d) from zero
+    state, in plain differentiable ops. Returns out (B, T, d)."""
+    gate, xh, Bm, Cm, dt, A, _ = _mixer_in(p, u, cfg, None)
+    y, _ = ssd_chunked_train(xh, dt, A, Bm, Cm,
+                             min(cfg.ssm.chunk_size, xh.shape[1]))
+    return _mixer_out(p, y, xh, gate, cfg, ref.rmsnorm_ref)

@@ -1,4 +1,5 @@
-"""Convert the JAX package's param pytree into the port's params.
+"""Convert the JAX package's param pytree and AdamW state into the port's,
+and walk a nested dict of tensors in the JAX package's leaf order.
 
 The caller hands over the pytree as nested dicts of numpy arrays (a test
 does `jax.device_get`, so the port never sees JAX). The nested-dict,
@@ -7,7 +8,7 @@ packages run the same weights.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -34,3 +35,24 @@ def from_jax_params(tree: Dict[str, Any], device="cpu",
             t = t.to(torch.float32 if k in FP32_LEAVES else dtype)
         out[k] = t.to(device)
     return out
+
+
+def from_jax_opt_state(opt: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """The JAX package's AdamW state ({"m", "v": trees of fp32 moments,
+    "step": int32 scalar}, as numpy) -> the port's (`training.optimizer`):
+    fp32 moments on `device` and the step an int32 0-d tensor there."""
+    return {"m": from_jax_params(opt["m"], device, torch.float32),
+            "v": from_jax_params(opt["v"], device, torch.float32),
+            "step": torch.tensor(int(np.asarray(opt["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """("a/b/c", leaf) of a nested dict, keys sorted at every level: the
+    order in which `jax.tree.leaves` walks the same dict, and the names
+    the JAX package's checkpoints store."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree

@@ -1314,3 +1314,73 @@ def test_cross_engine_on_graphs_matches_eager_on_card(cuda, paged):
                      {k: s[k] for k in ("finished", "decode_steps",
                                         "prefill_tokens")}))
     assert runs[0] == runs[1] and runs[0][1]["finished"] == 4
+
+
+@pytest.mark.cuda
+def test_kernel_entries_refuse_inputs_that_need_grad(cuda):
+    """The kernels have no backward: a CUDA entry given an input that
+    requires grad under grad mode raises instead of cutting the gradient;
+    under no_grad, or with inputs that need none, it launches."""
+    x = torch.randn(4, 256, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    w = torch.zeros(256, device=cuda, dtype=torch.bfloat16)
+    for call in (lambda: ops.rmsnorm(x, w),
+                 lambda: ops.add_rmsnorm(x.detach(), x, w),
+                 lambda: ops.flash_attention(
+                     x.view(1, 4, 2, 128), x.view(1, 4, 2, 128).detach(),
+                     x.view(1, 4, 2, 128).detach(),
+                     torch.arange(4, device=cuda, dtype=torch.int32)[None],
+                     torch.arange(4, device=cuda, dtype=torch.int32)[None])):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    assert ops.LAUNCHES["rmsnorm"] == 0
+    with torch.no_grad():
+        ops.rmsnorm(x, w)
+    ops.rmsnorm(x.detach(), w)
+    assert ops.LAUNCHES["rmsnorm"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-8b", "qwen2-moe-a2.7b",
+                                  "mamba2-2.7b", "recurrentgemma-9b",
+                                  "llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
+def test_training_on_card_matches_cpu_and_launches_no_kernel(cuda, arch):
+    """One loss and gradient of the reduced model in fp32 (TF32 off) on
+    the card and on the CPU from the same params and batch: the loss
+    within 1e-4, every gradient within 1e-3 x max|g|, and no kernel
+    launched (training takes the plain forms)."""
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.params import named_leaves
+    from repro_torch.training.data import MarkovData
+    from repro_torch.training.train_loop import (to_device, trainable,
+                                                 value_and_grad)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config(arch, "reduced")
+        p_cpu = build_model(cfg, torch.float32, "cpu").init(0)
+        batch = next(MarkovData(cfg, TrainConfig(
+            global_batch=2, seq_len=40)).batches())
+        out = []
+        for dev in ("cpu", cuda):
+            m = build_model(cfg, torch.float32, dev)
+            p = trainable(_to(p_cpu, dev))
+            loss, _, grads = value_and_grad(m, p, to_device(batch, dev))
+            out.append((float(loss), {n: g.cpu() for n, g in
+                                      named_leaves(grads)}))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for n, g in g_cpu.items():
+        assert (g_gpu[n] - g).abs().max() <= 1e-3 * g.abs().max() + 1e-6, n
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+
+
+def _to(p, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in p.items()}
