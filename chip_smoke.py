@@ -56,6 +56,14 @@ Phases, one JSON line each:
              read (each request's cross row one block of 1024 or 1601
              slots of the per-slot rows, tables = rows.view(B, 1)), each
              beside SDPA where one call computes it.
+             kernels_tp_slices (the tp phase's part (c)): decode, paged
+             decode and the Tq 16 / 500 chunks at granite-3-8b's TP-2
+             shapes (`repro_torch.bench.tp_slices`): each rank's launch
+             on its 16 query heads and 4 kv-heads against the same heads
+             of the whole launch, bit for bit in fp32 and in bf16 where
+             both split the key axis alike, within 2e-2 otherwise; rank
+             0's serving-shape launches are timed as rows of this phase
+             (case "TP-2 rank 0: ...").
 4. reference per arch, full width with depth cut to one layer pattern
              (granite-3-8b, starcoder2-7b, mistral-nemo-12b,
              qwen2-moe-a2.7b and mamba2-2.7b 2 layers, qwen1.5-32b 1,
@@ -213,7 +221,33 @@ Phases, one JSON line each:
              captures against distinct keys, covered intervals, seconds;
              any finding fails.
 
-15. train   (after the serve runs, their engines released) the training
+15. tp      (after the serve runs, their engines released) tensor-parallel
+             serving (DESIGN §12) of granite-3-8b at full width in bf16.
+             (a) tp_nccl_one_rank: a (1, 1) mesh over NCCL, the serve
+             flags, both layouts on CUDA graphs with the all-reduces
+             captured (`run_serve`'s checks): tokens and structural
+             counters of the no-mesh runs bit for bit; the replay checks
+             of phase 6 with each replay's device ms beside the no-mesh
+             engine's; the graph audit of a reduced one-rank mesh engine
+             on the same group (its all-reduces counted). (b)
+             tp_gloo_two_ranks: a (1, 2) mesh, two gloo ranks on the one
+             card (`launch.mesh.spawn_ranks`), all 40 layers, eager
+             (gloo's collectives cannot be captured; NCCL refuses two
+             ranks on one card), static policy, 4 prompts of 32-96
+             tokens, 16 new, both layouts: both ranks decode the same
+             tokens; at a cut depth (TP_PROBE_LAYERS, full width) the
+             first decode step's logits within TP_LOGIT_TOL of max|logit|
+             of the single-device bf16 step on the same weights and
+             inputs, and the same model with one MLP all-reduce dropped
+             (a planted fault) beyond it; the 40-layer readings printed
+             beside the single device's own spread; the share of greedy
+             tokens equal to the single-device run's; finished, model_shards 2 and the pool
+             at twice the per-chip tokens; the counters and request sets
+             of the port's simulator at mesh_shape (1, 2); the kernels
+             of the layout launched, norms 80 + 1 a forward; interval
+             times beside the card's name and power limit (a correctness
+             path: gloo copies each all-reduce through the host).
+16. train   (after the serve runs, their engines released) the training
              path (`repro_torch.training`), which runs no kernel (the JAX
              package's training forward reaches no Pallas kernel; the
              port's takes plain differentiable ops): train_reduced, three
@@ -1506,14 +1540,15 @@ def serve_prompts(arch: str):
 
 def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
               depth: int = 0, beside: Optional[dict] = None, cfg=None,
-              cut: bool = True, dtype=None):
+              cut: bool = True, dtype=None, mesh=()):
     """Serve the family's prompts through `launch.serve.build_engine` (its
     graphs captured by `warmup` first), `depth` intervals dispatched ahead
     (DESIGN §14), and check the run. `beside`: the depth-0 run's figures,
     printed on the line. `cfg`: a variant of the arch's full config (the
     run is named after it). `cut`: take the arch's SERVE_CUTS. `dtype`:
-    the weights' type, if not bf16. Returns (the emitted fields, the
-    engine, the requests)."""
+    the weights' type, if not bf16. `mesh`: serve on that mesh, on the
+    ambient serving group this process joined. Returns (the emitted
+    fields, the engine, the requests)."""
     import dataclasses
 
     import numpy as np
@@ -1526,7 +1561,8 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
     n_req, path, attends, (fused, plain), per_forward = FAMILIES[arch]
     args = serve.build_parser().parse_args(
         serve_args(arch, cut) + (["--paged"] if paged else [])
-        + ["--overlap-depth", str(depth)])
+        + ["--overlap-depth", str(depth)]
+        + (["--mesh", ",".join(map(str, mesh))] if mesh else []))
     if cfg is None and arch in DEPTH_CUTS:
         cfg = dataclasses.replace(get_config(arch, "full"),
                                   **DEPTH_CUTS[arch])
@@ -1567,7 +1603,8 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
         + ("" if cuda_graphs else "_eager") \
         + (f"_overlap{depth}" if depth else "") \
         + ("" if cut or arch not in SERVE_CUTS else "_uncut") \
-        + ("_fp32" if dtype == torch.float32 else "")
+        + ("_fp32" if dtype == torch.float32 else "") \
+        + ("_mesh" + "x".join(map(str, mesh)) if mesh else "")
     n_int = len(eng.step_host_trace)
     caught = eng.graphs.capture_s - warm["capture_s"]
     fields = dict(summary=s, launches=raw, build_s=build_s,
@@ -1690,6 +1727,421 @@ def run_twin(arch: str, layout: str, runs: dict):
     if bad:
         raise AssertionError(f"twin {arch} {layout}: the engine and the "
                              f"simulator disagree: {bad}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving (DESIGN §12) on the one card
+
+#: the arch served tensor-parallel, and the mesh of tp (b): two gloo ranks
+#: on the one card (NCCL refuses two ranks on one device)
+TP_ARCH = "granite-3-8b"
+TP_GLOO_MESH = (1, 2)
+#: tp (b)'s flags beside SERVE_ARGS, and its prompts (count, lengths): its
+#: steps run eagerly and each all-reduce goes through the host, so the
+#: static policy and short prompts keep its intervals few
+TP_GLOO_ARGS = ["--policy", "static", "--max-new", "16"]
+TP_GLOO_PROMPTS = (4, 32, 96)
+#: tp (b)'s logit rule. At 40 layers of random weights bf16 is chaotic:
+#: the single device differs from itself by about as much as from the two
+#: ranks when only its launch shapes change, so the rule is held at a cut
+#: depth, at full width: the TP-2 model's first decode step (and the
+#: prefill's last logits) against the single-device bf16 step on the same
+#: inputs, max|diff| within TP_LOGIT_TOL of max|logit|; the same model with
+#: its last layer's MLP all-reduce dropped (a planted fault) must exceed it.
+#: On the H100 the sound readings were at most 0.0159 (a few bf16 steps
+#: of the largest logit) and the fault's at least 0.321 (PERF.md §6): the
+#: limit sits at about twice the one, under a tenth of the other
+TP_PROBE_LAYERS = 4
+TP_LOGIT_TOL = 3e-2
+
+
+def run_tp_kernels(dev):
+    """tp (c): kernels 1-3 per rank at granite-3-8b's TP-2 shapes
+    (`repro_torch.bench.tp_slices`: each rank's 16 query heads on its 4
+    kv-heads, compared with the same heads of the whole launch), in bf16
+    and fp32: bit for bit in fp32 and where both launches split the key
+    axis alike, within 2e-2 elsewhere. The serving shapes (decode B 8 over
+    rows of 33-1024 slots, the Tq 16 chunks) of rank 0 are timed like the
+    kernels phase's rows (with their plain versions, SDPA for the
+    contiguous ones, and bounds at the rank's bytes and operations).
+    Returns (the slice checks, the timed rows)."""
+    import torch.nn.functional as F
+    from repro_torch.bench import tp_slices
+    from repro_torch.kernels import ref
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    plains = {"decode_attention": ref.decode_attention_ref,
+              "paged_decode_attention": ref.paged_decode_attention_ref,
+              "flash_attention": ref.flash_attention_ref,
+              "paged_flash_attention": ref.paged_flash_attention_ref}
+    timed_cases = ("B=8 fill=33-1024", "Tq=16")
+
+    def sdpa(name, a):
+        if name == "decode_attention":
+            q, k, v, qp, kp = a
+            m = ((kp >= 0) & (kp <= qp[:, None]))[:, None, None, :]
+            return lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=m, enable_gqa=True)
+        if name == "flash_attention":
+            q, k, v, qp, kp = a
+            m = ((kp[:, None, :] >= 0)
+                 & (kp[:, None, :] <= qp[:, :, None]))[:, None]
+            return lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=m, enable_gqa=True)
+        return None
+
+    checks, rows = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in tp_slices.cases(dev, dtype):
+            c = tp_slices.compare(case)
+            c["ok"] = tp_slices.verdict(c)
+            checks.append(c)
+            if dtype != torch.bfloat16 or case.label not in timed_cases:
+                continue
+            a = case.rank_args(0)
+            got = case.fn(*a)
+            want = plains[case.name](*[t.float() if t.is_floating_point()
+                                       else t for t in a])
+            lib = sdpa(case.name, a)
+            b_ms, b_by = bound(case.rank_bytes(), case.rank_ops(), "bf16")
+            r = dict(name=case.name, case=f"TP-2 rank 0: {case.label}",
+                     max_abs_err=max_err(got, want),
+                     tol=f"{ATOL} + {RTOL} * |plain|",
+                     ms=time_ms(lambda: case.fn(*a), flush),
+                     plain_ms=time_ms(lambda: plains[case.name](*a), flush),
+                     library_ms=time_ms(lib, flush) if lib else None,
+                     bound_ms=b_ms, bound_by=b_by, bytes=case.rank_bytes(),
+                     ops=case.rank_ops(),
+                     peak=f"bf16 {PEAK_FLOPS['bf16'] / 1e12} TFLOP/s",
+                     splits_whole=c["splits_whole"],
+                     splits_rank=c["splits_rank"])
+            emit("kernels", **r)
+            rows.append(r)
+    emit("kernels_tp_slices", checks=checks)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"tp: a rank's launch departs from the whole "
+                             f"launch's heads: {bad}")
+    return checks, rows
+
+
+def run_tp_nccl(served, graphs, launches) -> dict:
+    """tp (a): granite-3-8b at full width in bf16 on a (1, 1) mesh over
+    NCCL, the serve run's flags, its CUDA graphs captured with the
+    all-reduces inside, in both layouts (`run_serve`'s checks): the tokens
+    and structural counters of the run without a mesh, bit for bit (a
+    one-rank all-reduce is the identity); the replay checks of
+    `run_graph_check` with their replay times beside the no-mesh engine's;
+    and the graph audit of a reduced one-rank mesh engine on the same
+    group (its collectives counted)."""
+    import tempfile
+
+    from repro_torch.analysis.graph_audit import GraphAudit
+    from repro_torch.launch.mesh import close_serving_group, make_serving_group
+
+    out, bad = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        group = make_serving_group((1, 1), "nccl", 0, 1,
+                                   init_method=f"file://{d}/store")
+        try:
+            for paged in (False, True):
+                layout = "paged" if paged else "contiguous"
+                fields, eng, reqs = run_serve(TP_ARCH, paged, mesh=(1, 1))
+                for k, n in fields["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+                check = run_graph_check(eng, f"{TP_ARCH}_{layout}_mesh1x1")
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+                zero, want = served[TP_ARCH, layout]
+                same = [r.output_tokens for r in reqs] \
+                    == [r.output_tokens for r in want]
+                diff = {k: (zero["summary"][k], fields["summary"][k])
+                        for k in STRUCTURAL
+                        if zero["summary"][k] != fields["summary"][k]}
+                replay = {str(tuple(c["key"])): dict(
+                    mesh_ms=c["replay_device_ms"], no_mesh_ms=n["replay_device_ms"])
+                    for c, n in zip(check["checks"],
+                                    graphs[f"{TP_ARCH}_{layout}"]["checks"])}
+                out[layout] = dict(
+                    tokens_equal=same, structural_diff=diff,
+                    model_shards=fields["summary"]["model_shards"],
+                    replay_device_ms=replay,
+                    interval_s_mean=fields["interval_s_mean"],
+                    no_mesh_interval_s_mean=zero["interval_s_mean"])
+                if not same or diff:
+                    bad[layout] = (same, diff)
+            audit = GraphAudit(torch.device("cuda"))
+            audit.mesh(group=group)
+            out["audit"] = audit.totals()
+        finally:
+            close_serving_group()
+    emit("tp_nccl_one_rank", **out)
+    if bad or out["audit"]["findings"] \
+            or not out["audit"]["collectives"].get("allreduce_"):
+        raise AssertionError(f"tp (a): the one-rank NCCL mesh departs from "
+                             f"the run without a mesh, or its audit failed: "
+                             f"{bad} {out['audit']}")
+    return out
+
+
+def _tp_probe(model, params, prompts, T: int):
+    """The first T tokens of each prompt prefilled as one batch, then one
+    decode step on each prompt's token T (the same inputs whatever the
+    logits): (last prefill logits, decode logits), fp32 numpy arrays (a
+    rank's result crosses to the parent by value)."""
+    dev = model.device
+    toks = torch.tensor([p[:T + 1] for p in prompts], device=dev)
+    B = toks.shape[0]
+    pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    cache = model.init_cache(B, T + 1, prefill_chunk=T)
+    pre, cache = model.prefill(params, toks[:, :T], pos, cache,
+                               last_only=True)
+    dec, _ = model.decode_step(params, toks[:, T], torch.full(
+        (B,), T, dtype=torch.int32, device=dev), cache)
+    return pre[:, -1].float().cpu().numpy(), dec.float().cpu().numpy()
+
+
+def _tp_cut_probe(group, prompts, T: int) -> dict:
+    """tp (b)'s logit probes (`_tp_probe`) at TP_PROBE_LAYERS layers of
+    granite-3-8b, full width, bf16, seed 0's weights. On `group`: the
+    rank's model, then the same with the all-reduce of the last layer's
+    MLP dropped (the planted fault: rank 0 then adds its own share only).
+    Without a group: the single device's, on the batch and on each prompt
+    alone (its own spread: other GEMM and attention launch shapes)."""
+    import dataclasses
+    import itertools
+
+    import numpy as np
+    from repro_torch.config.registry import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config(TP_ARCH, "full"),
+                              num_layers=TP_PROBE_LAYERS)
+    model = build_model(cfg, dtype=torch.bfloat16, device="cuda",
+                        group=group)
+    params = model.init(0)
+    out = {"sound": _tp_probe(model, params, prompts, T)}
+    tp = model.tp
+    if tp is None:
+        rows = [_tp_probe(model, params, [p], T) for p in prompts]
+        out["rows"] = tuple(np.concatenate(r) for r in zip(*rows))
+    else:
+        # a forward's all-reduces: the embedding's if vocab-sharded (not
+        # granite's odd vocab), attention's and the MLP's per layer, the
+        # head's; the last layer's MLP one is dropped
+        assert tp.mlp_split
+        v = int(tp.vocab_split)
+        whole, calls = tp.reduce, itertools.count()
+        every = 2 * cfg.num_layers + 2 * v
+        tp.reduce = lambda x: x if next(calls) % every == every - 1 - v \
+            else whole(x)
+        out["fault"] = _tp_probe(model, params, prompts, T)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_gloo_rank(rank: int, world: int) -> dict:
+    """One rank of tp (b): granite-3-8b at full width (all 40 layers) in
+    bf16 on this rank's half of the heads, on the card, with a gloo group
+    (`cuda_graphs=False`: gloo's collectives cannot be captured), both
+    layouts through `launch.serve.build_engine`; then, on rank 0, the
+    single-device run of the same flags and prompts on the same weights.
+    Returns rank 0's record."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.bench.kv_swap import prompts as make_prompts
+    from repro_torch.bench.kv_swap import request_sets
+    from repro_torch.config.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_serving_group
+    from repro_torch.params import named_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    group = make_serving_group(TP_GLOO_MESH, "gloo", rank, world)
+    n, lo, hi = TP_GLOO_PROMPTS
+    prompts = make_prompts(get_config(TP_ARCH, "full").vocab_size, n, lo, hi)
+    mesh = ["--mesh", ",".join(map(str, TP_GLOO_MESH))]
+    out = {"prompt_lens": [len(p) for p in prompts]}
+
+    def served(argv, probe: bool):
+        args = serve.build_parser().parse_args(argv)
+        t0 = time.perf_counter()
+        eng = serve.build_engine(args, cuda_graphs=False)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        logits = None
+        if probe:
+            logits = _tp_probe(eng.model, eng.params, prompts, lo - 1)
+            if eng.group is None:
+                # the single device's own bf16 spread: each prompt alone,
+                # other GEMM and attention launch shapes than the batch's
+                rows = [_tp_probe(eng.model, eng.params, [p], lo - 1)
+                        for p in prompts]
+                logits += tuple(np.concatenate(r) for r in zip(*rows))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hs = [eng.submit(p) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        s = eng.summary()
+        rec = dict(summary=s, tokens=[h.output_tokens for h in hs],
+                   launches=dict(ops.LAUNCHES), build_s=build_s,
+                   serve_s=time.perf_counter() - t0,
+                   interval_s_mean=s["step_host_s_mean"]
+                   + s["step_device_s_mean"],
+                   intervals=len(eng.step_host_trace),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   kv_heads=int(eng.cache["k"].shape[-2]),
+                   weights_gb=sum(t.numel() * t.element_size() for _, t in
+                                  named_leaves(eng.params)) / 1e9,
+                   prefill_chunk=eng.prefill_chunk,
+                   max_context=eng.max_context, requests=hs)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec, logits
+
+    for paged in (False, True):
+        layout = "paged" if paged else "contiguous"
+        argv = serve_args(TP_ARCH) + TP_GLOO_ARGS + mesh \
+            + (["--paged"] if paged else [])
+        rec, logits = served(argv, probe=not paged)
+        reqs = rec.pop("requests")
+        every = [None] * world
+        dist.all_gather_object(every, rec["tokens"], group=group.control)
+        rec["ranks_agree"] = all(t == rec["tokens"] for t in every)
+        rec["sets"] = request_sets(reqs)
+        out[layout] = rec
+        if logits is not None:
+            out["tp_logits"] = logits
+    out["tp_cut"] = _tp_cut_probe(group, prompts, lo - 1)
+    if rank == 0:
+        for paged in (False, True):
+            layout = "paged" if paged else "contiguous"
+            rec, logits = served(serve_args(TP_ARCH) + TP_GLOO_ARGS
+                                 + (["--paged"] if paged else []),
+                                 probe=not paged)
+            rec.pop("requests")
+            out[f"single_{layout}"] = rec
+            if logits is not None:
+                out["single_logits"] = logits
+        out["single_cut"] = _tp_cut_probe(None, prompts, lo - 1)
+    dist.barrier(group=group.control)
+    return out
+
+
+def run_tp_gloo(card: str, launches) -> dict:
+    """tp (b): two gloo ranks on the one card (`tp_gloo_rank`, spawned by
+    `launch.mesh.spawn_ranks`): both ranks decode the same tokens in both
+    layouts; at TP_PROBE_LAYERS layers the first decode step's logits and
+    the prefill's last within TP_LOGIT_TOL of max|logit| of the
+    single-device bf16 step's, and the planted fault's beyond it
+    (`_tp_cut_probe`; the single device's own spread beside them); the
+    same readings at all 40 layers, printed, not held (chaos swamps
+    them); the share of greedy tokens equal to the single-device
+    run's; the counters equal to the port's simulator on the same flags
+    with `mesh_shape` (1, 2) (`model_shards` 2); interval times beside the
+    card's name and power limit. A correctness path: gloo copies each
+    all-reduce through the host, so no speed is claimed from it."""
+    from repro_torch.bench.kv_swap import prompts as make_prompts
+    from repro_torch.bench.kv_swap import sim_twin
+    from repro_torch.config.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    res = spawn_ranks(tp_gloo_rank, math.prod(TP_GLOO_MESH), timeout_s=600)
+    seconds = time.perf_counter() - t0
+    def rel(got, want):
+        return {k: float(abs(a - b).max() / abs(b).max())
+                for k, a, b in zip(("prefill", "decode"), got, want)}
+
+    tp_pre, tp_dec = res.pop("tp_logits")
+    one_pre, one_dec, row_pre, row_dec = res.pop("single_logits")
+    tp_cut, one_cut = res.pop("tp_cut"), res.pop("single_cut")
+    cut = {"tp": rel(tp_cut["sound"], one_cut["sound"]),
+           "single_rows": rel(one_cut["rows"], one_cut["sound"]),
+           "fault": rel(tp_cut["fault"], one_cut["sound"])}
+    out, bad = dict(card=card, seconds=seconds, logits_rel_err=dict(
+        cut, layers=TP_PROBE_LAYERS, tol=TP_LOGIT_TOL, full_depth=dict(
+            tp=rel((tp_pre, tp_dec), (one_pre, one_dec)),
+            single_rows=rel((row_pre, row_dec), (one_pre, one_dec)))),
+        argmax_agree=float((tp_dec.argmax(-1)
+                            == one_dec.argmax(-1)).mean())), []
+    for k in ("prefill", "decode"):
+        if cut["tp"][k] > TP_LOGIT_TOL:
+            bad.append(f"{k} logits {cut['tp'][k]} at "
+                       f"{TP_PROBE_LAYERS} layers")
+        if cut["fault"][k] <= TP_LOGIT_TOL:
+            bad.append(f"the planted fault's {k} logits "
+                       f"{cut['fault'][k]} pass the rule")
+    n, lo, hi = TP_GLOO_PROMPTS
+    prompts = make_prompts(get_config(TP_ARCH, "full").vocab_size, n, lo, hi)
+    for paged in (False, True):
+        layout = "paged" if paged else "contiguous"
+        rec, one = res[layout], res[f"single_{layout}"]
+        pairs = [(x, y) for a, b in zip(rec["tokens"], one["tokens"])
+                 for x, y in zip(a, b)]
+        args = serve.build_parser().parse_args(
+            serve_args(TP_ARCH) + TP_GLOO_ARGS
+            + ["--mesh", ",".join(map(str, TP_GLOO_MESH))]
+            + (["--paged"] if paged else []))
+        twin = sim_twin(args, [prompts], args.max_new,
+                        rec["prefill_chunk"], rec["max_context"])
+        s = rec["summary"]
+        twin_diff = {k: (s[k], twin[k]) for k in TWIN if s[k] != twin[k]}
+        if rec["sets"] != twin["sets"]:
+            twin_diff["sets"] = (rec["sets"], twin["sets"])
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        out[layout] = dict(
+            ranks_agree=rec["ranks_agree"],
+            tokens_equal_single=sum(x == y for x, y in pairs) / len(pairs),
+            requests_equal_single=sum(a == b for a, b in zip(
+                rec["tokens"], one["tokens"])),
+            finished=s["finished"], model_shards=s["model_shards"],
+            pool_tokens=s["pool_tokens"],
+            single_pool_tokens=one["summary"]["pool_tokens"],
+            twin_diff=twin_diff, kv_heads=rec["kv_heads"],
+            weights_gb=rec["weights_gb"], single_weights_gb=one["weights_gb"],
+            interval_s_mean=rec["interval_s_mean"],
+            step_host_s_mean=s["step_host_s_mean"],
+            step_device_s_mean=s["step_device_s_mean"],
+            single_interval_s_mean=one["interval_s_mean"],
+            intervals=rec["intervals"], build_s=rec["build_s"],
+            serve_s=rec["serve_s"], peak_mem_gb=rec["peak_mem_gb"],
+            launches=rec["launches"])
+        if not rec["ranks_agree"]:
+            bad.append(f"{layout}: the ranks' tokens differ")
+        if s["finished"] != n or s["model_shards"] != 2 \
+                or s["pool_tokens"] != 2 * one["summary"]["pool_tokens"]:
+            bad.append(f"{layout}: finished {s['finished']}, shards "
+                       f"{s['model_shards']}, pool {s['pool_tokens']}")
+        if twin_diff:
+            bad.append(f"{layout}: engine and simulator differ {twin_diff}")
+        path = ATTENTION[paged] + ("rmsnorm", "add_rmsnorm")
+        other = ATTENTION[not paged]
+        if any(rec["launches"][k] <= 0 for k in path) \
+                or any(rec["launches"][k] for k in other):
+            bad.append(f"{layout}: launches {rec['launches']}")
+        fused, plain = FAMILIES[TP_ARCH][3]
+        fwd = rec["launches"]["rmsnorm"] // plain
+        if rec["launches"]["add_rmsnorm"] != fused * fwd:
+            bad.append(f"{layout}: {rec['launches']['add_rmsnorm']} fused "
+                       f"norms in {fwd} forwards")
+    emit("tp_gloo_two_ranks", **out)
+    if bad:
+        raise AssertionError(f"tp (b): {bad}")
     return out
 
 
@@ -2550,6 +3002,8 @@ def main() -> int:
                              "instruction in its SASS")
 
     kres = run_kernels(dev)
+    tp_slices, tp_rows = run_tp_kernels(dev)
+    kres += tp_rows
     refs = [run_reference(dev, arch) for arch in REFERENCE]
     cross_refs = [run_cross_reference(dev, arch) for arch in CROSS_REFERENCE]
     sliding_ref = run_sliding_reference(dev)
@@ -2710,6 +3164,10 @@ def main() -> int:
     del swap_eng, swap_log
     gc.collect()
     torch.cuda.empty_cache()
+    # tensor-parallel serving (DESIGN §12): one NCCL rank on graphs, then
+    # two gloo ranks on the one card, eager
+    tp = dict(nccl=run_tp_nccl(served, graphs, launches),
+              gloo=run_tp_gloo(card, launches), slices=tp_slices)
     # training, once every serving engine is released
     train_runs = {"reduced": run_train_reduced(dev)}
     for arch in TRAIN_FULL:
@@ -2742,6 +3200,7 @@ def main() -> int:
          "twin": twins, "tiers": tiers, "prefix_reference": prefix_ref,
          "sliding_reference": sliding_ref, "layout_tokens": layout_tokens,
          "profile_swap": profile_swap, "audit": audit, "train": train_runs,
+         "tp": tp,
          "serve_eager": {f"{arch}_{layout}": eager}},
         indent=1))
     print(card)

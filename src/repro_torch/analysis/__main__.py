@@ -3,7 +3,8 @@
 
 Runs every registered AST rule of the port over the repo tree, applies the
 port's justified allowlist, then (unless --no-graphs) the dispatch-level
-audit of every registry arch's serving steps on --device (the card by
+audit of every registry arch's serving steps, and a one-rank mesh
+engine's (only the --arch ones where given), on --device (the card by
 default: without a GPU the audit raises unless --device cpu is given), and
 exits non-zero on any surviving finding or allowlist hygiene problem.
 """

@@ -28,6 +28,11 @@ ALLOWLIST: List[Allow] = [
           "sample, then the readback of its pinned token buffer, which "
           "that event already covers; the only blocking pair the "
           "dispatch-ahead loop keeps"),
+    Allow("host-sync", ENGINE, "Engine._agree", 1,
+          "mesh serving only (DESIGN §12): the retiring intervals' event "
+          "waits taken ahead of the interval's one broadcast, so that rank "
+          "0's measured waits are what every rank applies; the same fence "
+          "as _retire_step's, whose own wait then returns at once"),
     Allow("host-sync", ENGINE, "Engine._host_extras", 1,
           "a caller's VLM or enc-dec extras are moved to host staging at "
           "submit, before admission and off every replayed step; a device "

@@ -35,11 +35,17 @@ The port's kernels are ctypes launches the dispatcher does not see; their
 outputs and scratch are allocated by torch ops, which it does see, so a
 kernel wrapper's dtype is audited, its launch is not (on the CPU a
 wrapper runs its plain version, every op of which is seen).
+
+A tensor-parallel step (DESIGN §12) adds its collectives, `c10d`'s
+`allreduce_`, which move nothing to the host (gloo on the CPU, NCCL on the
+card) and pass every rule. `GraphAudit.mesh` audits a one-rank mesh
+engine's steps in both layouts, on a (1, 1) serving group of its own.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import tempfile
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -113,18 +119,22 @@ def sync_reason(func, args, kwargs, out) -> str:
 
 class OpTrace(TorchDispatchMode):
     """Records, while active, every aten op dispatched: the count, the
-    first op that touched each banned dtype, and each op that syncs."""
+    first op that touched each banned dtype, each op that syncs, and the
+    collectives (`c10d` ops) by name."""
 
     def __init__(self):
         super().__init__()
         self.ops = 0
         self.bad_dtypes: Dict[str, str] = {}
         self.syncs: Dict[str, int] = collections.Counter()
+        self.collectives: Dict[str, int] = collections.Counter()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         self.ops += 1
+        if func.namespace == "c10d":
+            self.collectives[func.overloadpacket.__name__] += 1
         for t in tree_leaves((args, kwargs, out)):
             if isinstance(t, torch.Tensor) and t.dtype in BAD_DTYPES:
                 self.bad_dtypes.setdefault(
@@ -182,6 +192,7 @@ class GraphAudit:
         self.builds = 0
         self.captures = 0
         self.launches: Dict[str, int] = collections.Counter()
+        self.collectives: Dict[str, int] = collections.Counter()
         #: arch -> the config fields `card_config` changed
         self.cuts: Dict[str, Dict[str, int]] = {}
 
@@ -194,6 +205,7 @@ class GraphAudit:
             if n != before[k]:
                 self.launches[k] += n - before[k]
         self.ops += tr.ops
+        self.collectives.update(tr.collectives)
         self.findings.extend(audit_trace(tr, step, path))
 
     def model(self, model, params, name: str, path: str) -> None:
@@ -276,6 +288,52 @@ class GraphAudit:
                     f"{len(steps)} distinct step keys — expected exactly "
                     f"one capture per key"))
 
+    def _serve(self, paged: bool, mesh=()) -> ServeConfig:
+        return ServeConfig(
+            policy="memory", b_max=max(BUCKETS), batch_buckets=BUCKETS,
+            chunked_prefill=True, n_prefill_lanes=2, paged_kv=paged,
+            block_size=BLOCK_SIZE, kv_pool_tokens=max(BUCKETS) * MAX_CONTEXT,
+            mesh_shape=mesh)
+
+    def mesh(self, arch: str = "granite-3-8b", variant: str = "reduced",
+             group=None) -> None:
+        """A one-rank mesh engine's steps, both layouts: the model on a
+        (1, 1) serving group (gloo on the CPU, NCCL and its graphs on the
+        card), every step with its collectives traced. `group`: an open
+        (1, 1) group to use, which stays open; without one a group is made
+        here and left again (no process group may be open then)."""
+        from repro_torch.launch.mesh import (close_serving_group,
+                                             make_serving_group)
+
+        if group is not None:
+            self._mesh_engines(arch, variant, group)
+            return
+        with tempfile.TemporaryDirectory() as d:
+            group = make_serving_group(
+                (1, 1), "nccl" if self.device.type == "cuda" else "gloo",
+                0, 1, init_method=f"file://{d}/store")
+            try:
+                self._mesh_engines(arch, variant, group)
+            finally:
+                close_serving_group()
+
+    def _mesh_engines(self, arch: str, variant: str, group) -> None:
+        path = config_path(arch)
+        cuda = self.device.type == "cuda"
+        cfg = get_config(arch, variant)
+        model = build_model(card_config(cfg) if cuda else cfg,
+                            dtype=torch.bfloat16 if cuda else torch.float32,
+                            device=self.device, group=group)
+        params = model.init(0)
+        self.model(model, params, f"{arch} mesh", path)
+        for paged in (False, True):
+            eng = Engine(model, params, self._serve(paged, (1, 1)),
+                         max_context=MAX_CONTEXT, buckets=BUCKETS,
+                         prefill_chunk=CHUNK, device=self.device)
+            self.engine(eng, f"{arch} mesh (1, 1) "
+                        f"{'paged' if paged else 'contiguous'}", path)
+            del eng
+
     def arch(self, arch: str, variant: str = "reduced") -> None:
         """The model-level functions and both layouts' engine steps of one
         registry arch: in bf16 on the card, at a head_dim its attention
@@ -293,12 +351,8 @@ class GraphAudit:
         params = model.init(0)
         self.model(model, params, arch, path)
         for paged in (False, True):
-            serve = ServeConfig(
-                policy="memory", b_max=max(BUCKETS), batch_buckets=BUCKETS,
-                chunked_prefill=True, n_prefill_lanes=2, paged_kv=paged,
-                block_size=BLOCK_SIZE,
-                kv_pool_tokens=max(BUCKETS) * MAX_CONTEXT)
-            eng = Engine(model, params, serve, max_context=MAX_CONTEXT,
+            eng = Engine(model, params, self._serve(paged),
+                         max_context=MAX_CONTEXT,
                          buckets=BUCKETS, prefill_chunk=CHUNK,
                          enc_len=ENC_LEN if default_enc_len(cfg) else 0,
                          device=self.device)
@@ -311,6 +365,7 @@ class GraphAudit:
                     steps=self.steps, ops=self.ops, keys=self.keys,
                     builds=self.builds, captures=self.captures,
                     launches=dict(sorted(self.launches.items())),
+                    collectives=dict(sorted(self.collectives.items())),
                     cuts=self.cuts)
 
 
@@ -325,9 +380,12 @@ def audit_arch(arch: str, device="cpu",
 def run_graph_audit(archs: Optional[Sequence[str]] = None, device="cpu",
                     variant: str = "reduced",
                     audit: Optional[GraphAudit] = None) -> List[Finding]:
-    """Audit `archs` (default: every registry arch) into `audit` (a new
-    one by default); returns its findings."""
+    """Audit `archs` into `audit` (a new one by default); returns its
+    findings. By default every registry arch, and a one-rank mesh engine
+    of granite (`GraphAudit.mesh`)."""
     audit = audit or GraphAudit(device)
     for arch in (archs if archs is not None else list_archs()):
         audit.arch(arch, variant=variant)
+    if archs is None:
+        audit.mesh(variant=variant)
     return audit.findings

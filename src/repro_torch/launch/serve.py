@@ -11,21 +11,27 @@ retirement (DESIGN §14); `--trace PATH` replays a `repro-trace` file
 attention-only families: `--prefix-cache` shares indexed prompt blocks
 (DESIGN §10), `--swap-space N --preempt auto|swap|recompute` offloads
 preemption victims to an N-block host pool, `--profile` pricing the
-swap-vs-recompute crossover (DESIGN §11). `--mesh` (mesh serving, not
-ported yet) raises NotImplementedError. The VLM and enc-dec archs serve
-with 16 cross keys a request, each request's extras drawn from --seed
-after its prompt, as the JAX CLI draws them.
+swap-vs-recompute crossover (DESIGN §11). `--mesh DATA,MODEL` serves
+tensor-parallel (DESIGN §12, the dense attention family) in DATA x MODEL
+rank processes (`launch.mesh.spawn_ranks`): NCCL on `--device cuda` (one
+card a rank), gloo on `--device cpu`; every rank serves the same requests
+and rank 0 prints the summary. The VLM and enc-dec archs serve with 16
+cross keys a request, each request's extras drawn from --seed after its
+prompt, as the JAX CLI draws them.
 """
 from __future__ import annotations
 
 import argparse
-from typing import List, Optional, Sequence, Tuple
+import math
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig, ServeConfig
 from repro_torch.config.registry import get_config, list_archs
+from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.serving.cost_model import PROFILES
 
 
@@ -128,7 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "left in flight after each step; 0 = synchronous")
     ap.add_argument("--mesh", type=parse_mesh, default=None,
                     metavar="DATA,MODEL",
-                    help="mesh-sharded serving (DESIGN §12): not yet ported")
+                    help="tensor-parallel serving (DESIGN §12) in DATA x "
+                         "MODEL rank processes: NCCL on cuda, gloo on cpu")
     ap.add_argument("--device", default="cuda",
                     help="torch device the engine runs on (cuda or cpu)")
     return ap
@@ -178,17 +185,23 @@ def build_engine(args, cuda_graphs: Optional[bool] = None,
     the weights' and activations' type (fp32 for --variant reduced, else
     bf16). `enc_len`: cross keys a request of a VLM or enc-dec arch
     (default CLI_ENC_LEN; `model.default_enc_len` gives the stub
-    frontends' real lengths)."""
+    frontends' real lengths). With --mesh the model is this rank's, on
+    the ambient serving group (`launch.mesh.make_serving_group`)."""
+    from repro_torch.distributed.sharding import serving_group
     from repro_torch.models.model import build_model, default_enc_len
     from repro_torch.serving.cost_model import CostModel
     from repro_torch.serving.engine import Engine, check_ported
 
     serve = serve_config(args)
-    check_ported(serve)
     cfg = cfg or get_config(args.arch, args.variant)
+    check_ported(serve, cfg)
+    group = serving_group() if args.mesh else None
+    if args.mesh and group is None:
+        raise ValueError("--mesh serves in rank processes: call serve_mesh, "
+                         "or make_serving_group in each rank first")
     dtype = dtype or (torch.float32 if args.variant == "reduced"
                       else torch.bfloat16)
-    model = build_model(cfg, dtype=dtype, device=args.device)
+    model = build_model(cfg, dtype=dtype, device=args.device, group=group)
     if not default_enc_len(cfg):
         enc_len = 0
     elif enc_len is None:
@@ -237,7 +250,8 @@ def run(args, prompts: Optional[Sequence[List[int]]] = None,
     the JAX CLI draws them) and serve them to completion; a VLM or enc-dec
     request's extras come from the same --seed stream right after its
     prompt's draw (after every prompt's with `prompts` or --trace), as the
-    JAX CLI's. Returns the engine."""
+    JAX CLI's. Returns the engine; its requests, in submission order, are
+    `eng.cli_requests`."""
     eng = build_engine(args, cuda_graphs)
     rng = np.random.RandomState(args.seed)
     mk_extras = extras_drawer(eng, rng)
@@ -252,15 +266,52 @@ def run(args, prompts: Optional[Sequence[List[int]]] = None,
             p = list(map(int, rng.randint(0, eng.cfg.vocab_size,
                                           size=rng.randint(4, 24))))
             reqs.append((p, 0, mk_extras()))
-    for p, max_new, extras in reqs:
-        eng.submit(p, max_new_tokens=max_new, extras=extras)
+    eng.cli_requests = [eng.submit(p, max_new_tokens=max_new, extras=extras)
+                        for p, max_new, extras in reqs]
     eng.run()
     return eng
 
 
+def _mesh_rank(rank: int, world: int, args,
+               prompts: Optional[Sequence[List[int]]]) -> Dict[str, object]:
+    """One rank of `serve_mesh`: join the group, serve, and check that
+    every rank decoded the same tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serving_group
+
+    if args.device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        backend = "gloo"
+    else:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        backend = "nccl"
+    group = make_serving_group(args.mesh, backend, rank, world)
+    eng = run(args, prompts)
+    tokens = [r.output_tokens for r in eng.cli_requests]
+    every = [None] * world
+    dist.all_gather_object(every, tokens, group=group.control)
+    return {"summary": eng.summary(), "tokens": tokens,
+            "ranks_agree": all(t == tokens for t in every)}
+
+
+def serve_mesh(args, prompts: Optional[Sequence[List[int]]] = None
+               ) -> Dict[str, object]:
+    """`run` under --mesh: one rank process per mesh position, each
+    serving the same requests on its shard; returns rank 0's summary, its
+    output tokens, and whether every rank's tokens agreed (raises if
+    not)."""
+    out = spawn_ranks(_mesh_rank, math.prod(args.mesh), (args, prompts))
+    if not out["ranks_agree"]:
+        raise AssertionError("the ranks decoded different tokens")
+    return out
+
+
 def main(argv=None):
-    eng = run(build_parser().parse_args(argv))
-    print({k: round(v, 2) for k, v in eng.summary().items()})
+    args = build_parser().parse_args(argv)
+    summary = serve_mesh(args)["summary"] if args.mesh \
+        else run(args).summary()
+    print({k: round(v, 2) for k, v in summary.items()})
 
 
 if __name__ == "__main__":

@@ -172,12 +172,15 @@ def layer_params(stacked: Params, i: int) -> Params:
             for k, v in stacked.items()}
 
 
-def logits_head(p, x, pending, cfg: ModelConfig):
+def logits_head(p, x, pending, cfg: ModelConfig, tp=None):
     """Logits of the residual stream x plus the last layer's `pending`
-    branch output (added inside the final norm)."""
+    branch output (added inside the final norm). Under tensor parallelism
+    (`tp`, a `distributed.sharding.TensorParallel`) a vocab-sharded head's
+    logits are gathered, so every rank holds the same full logits."""
     _, h = _norm_in(x, pending, p["ln_f"], cfg)
     wout = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    return (h @ wout).float()
+    logits = (h @ wout).float()
+    return logits if tp is None else tp.gather_vocab(logits)
 
 
 # ---------------------------------------------------------------------------
@@ -311,23 +314,29 @@ def _norm_in(x, pending, w, cfg: ModelConfig):
 
 
 def _attn_layer(lp, x, pending, positions, cache, i, widx, cfg, window,
-                tables):
+                tables, tp=None):
+    """Under tensor parallelism (`tp`) the attention output and a sharded
+    SwiGLU's are partial sums over the rank's heads or d_ff columns, made
+    whole in their down-projections (`layers.down_proj`), before the fused
+    add + RMSNorm that adds them to the residual stream (otherwise a rank
+    would add its own share only)."""
     x, h = _norm_in(x, pending, lp["ln1"], cfg)
     if tables is None:
         a = L.self_attention_cached(lp["attn"], h, positions, cache["k"][i],
                                     cache["v"][i], cache["pos"], widx, cfg,
-                                    window=window)
+                                    window=window, tp=tp)
     else:
         a = L.self_attention_paged(lp["attn"], h, positions, cache["k"][i],
                                    cache["v"][i], cache["pos"], tables, widx,
-                                   cfg, window=window)
+                                   cfg, window=window, tp=tp)
     x, h = L.add_rms_norm(x, a, lp["ln2"], cfg.rms_eps)
     if "moe" in lp:
         # no_drop: serving is chunking-invariant (`layers.moe_apply`)
         y, _ = L.moe_apply(lp["moe"], h, cfg,
                            no_drop=cfg.moe.inference_no_drop)
         return x, y
-    return x, L.mlp(lp["mlp"], h)
+    return x, L.mlp(lp["mlp"], h, tp if tp is not None and tp.mlp_split
+                    else None)
 
 
 class _State:
@@ -426,8 +435,8 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
                    last_only: bool = False,
                    tables: Optional[torch.Tensor] = None,
                    rows: Optional[torch.Tensor] = None,
-                   extras: Optional[Dict[str, torch.Tensor]] = None
-                   ) -> Tuple[torch.Tensor, Cache]:
+                   extras: Optional[Dict[str, torch.Tensor]] = None,
+                   tp=None) -> Tuple[torch.Tensor, Cache]:
     """tokens: (B, T); positions: (B, T) absolute, -1 for padding.
 
     Returns (logits (B, T, V) fp32, cache), the cache updated in place.
@@ -440,13 +449,18 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     extras: the VLM's {"images": (B, S, d)} or enc-dec's {"enc_frames":
     (B, S, d)}, given on a request's first chunk only: the images are
     projected (the frames encoded, then projected) into the rows' cross
-    K/V, which later calls read. Cast to the working dtype."""
+    K/V, which later calls read. Cast to the working dtype.
+    tp: one rank's view of a tensor-parallel group
+    (`distributed.sharding.TensorParallel`, the dense attention family):
+    `p` holds the rank's shards, `cfg` its local heads (`tp.cfg`), the
+    cache its kv-heads; partial sums are all-reduced (`_attn_layer`), the
+    embedding and logits made whole."""
     if decode and tokens.shape[1] != 1:
         raise ValueError("decode takes one token per row")
     if tables is not None and rows is None \
             and any(k in cache for k in STATE_KEYS + CROSS_KEYS):
         raise ValueError("the paged cache's per-request state needs `rows`")
-    x = p["embed"][tokens]
+    x = p["embed"][tokens] if tp is None else tp.embed(p["embed"], tokens)
     win = window_of(cfg)
     widx = _write_index(positions, cache, tables) if "k" in cache else None
     st = _State(cache, rows if tables is not None else None)
@@ -481,7 +495,7 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     elif cfg.family in ATTENTION_ONLY:
         for i in range(cfg.num_layers):
             x, y = _attn_layer(layer_params(p["layers"], i), x, y, positions,
-                               cache, i, widx, cfg, win, tables)
+                               cache, i, widx, cfg, win, tables, tp)
     elif cfg.family == ArchFamily.SSM:
         for i in range(cfg.num_layers):
             x, y = _ssm_layer(layer_params(p["layers"], i), x, y, cfg, st, i,
@@ -500,7 +514,7 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
                 i_rec += 1
     if last_only:
         x, y = x[:, -1:], y[:, -1:]
-    return logits_head(p, x, y, cfg), cache
+    return logits_head(p, x, y, cfg, tp), cache
 
 
 # ---------------------------------------------------------------------------

@@ -38,11 +38,13 @@ class ParamInit:
     """Seeded random weights with the JAX package's scales, drawn in place
     in the working dtype on the target device (one layer at a time, so peak
     memory stays at the weights themselves). The numbers differ from the
-    JAX package's for the same seed; the distributions are the same."""
+    JAX package's for the same seed; the distributions are the same. On
+    the meta device only the shapes are made (no generator, no memory)."""
 
     def __init__(self, seed: int, dtype: torch.dtype, device):
         self.dtype, self.device = dtype, device
-        self.g = torch.Generator(device=device).manual_seed(seed)
+        self.g = None if torch.device(device).type == "meta" \
+            else torch.Generator(device=device).manual_seed(seed)
 
     def normal(self, shape, scale: float):
         return torch.empty(shape, dtype=self.dtype, device=self.device
@@ -177,8 +179,19 @@ def self_attention_train(p, x, positions, cfg: ModelConfig, *,
     return out.reshape(B, T, -1) @ p["wo"]
 
 
-def mlp(p, x):
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def down_proj(x, w, tp=None):
+    """x @ w back into the residual stream; under tensor parallelism
+    (`tp`, the rank's `distributed.sharding.TensorParallel`) w is the
+    rank's rows and the product a partial sum, returned made whole
+    (`TensorParallel.reduce`)."""
+    return x @ w if tp is None else tp.reduce(x @ w)
+
+
+def mlp(p, x, tp=None):
+    """SwiGLU; `tp`: the rank's d_ff columns, the down-projection summed
+    over the group."""
+    return down_proj(F.silu(x @ p["w_gate"]) * (x @ p["w_up"]),
+                     p["w_down"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -351,19 +364,21 @@ def paged_write_index(positions, tables, block_size: int,
 
 def self_attention_cached(p, x, positions, cache_k, cache_v, cache_pos,
                           widx: WriteIndex, cfg: ModelConfig, *,
-                          window: int = 0):
+                          window: int = 0, tp=None):
     """Self-attention through a contiguous (possibly ring) KV cache.
 
     x: (B, T, d) new tokens at absolute `positions` (B, T); cache_k/v:
     (B, S, KV, hd), written in place at `widx` (`cache_write_index`);
-    cache_pos: (B, S), already holding this chunk's positions."""
+    cache_pos: (B, S), already holding this chunk's positions. `tp`: the
+    rank's heads (`cfg` their local config), `wo`'s product summed over
+    the group (`down_proj`)."""
     q, k, v = attention_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     cache_put(cache_k, widx, k)
     cache_put(cache_v, widx, v)
     out = attend(q, cache_k, cache_v, positions, cache_pos, window=window)
-    return out @ p["wo"]
+    return down_proj(out, p["wo"], tp)
 
 
 def encoder_attention(p, x, positions, cfg: ModelConfig):
@@ -387,14 +402,15 @@ def _pool_write(pool, flat_slots, val):
 
 def self_attention_paged(p, x, positions, pool_k, pool_v, pool_pos, tables,
                          widx: WriteIndex, cfg: ModelConfig, *,
-                         window: int = 0):
+                         window: int = 0, tp=None):
     """Self-attention through the physically paged KV pool (DESIGN §9).
 
     pool_k/v: (NB, bs, KV, hd), written in place at `widx`
     (`paged_write_index`); pool_pos: (NB, bs), already holding this chunk's
     positions; tables: (B, MB) physical block ids (-1 = unallocated).
     Decode and chunks both walk the block table in the kernels (paged
-    flash decode, paged flash attention); nothing is gathered first."""
+    flash decode, paged flash attention); nothing is gathered first.
+    `tp` as in `self_attention_cached`."""
     B, T, _ = x.shape
     q, k, v = attention_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -410,7 +426,7 @@ def self_attention_paged(p, x, positions, pool_k, pool_v, pool_pos, tables,
         out = ops.paged_flash_attention(q, pool_k, pool_v, positions,
                                         pool_pos, tables, window=window,
                                         causal=True).reshape(B, T, -1)
-    return out @ p["wo"]
+    return down_proj(out, p["wo"], tp)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,13 @@ asks for the CPU: `device` defaults to "cuda", and a missing GPU raises.
 Serving (`forward` and the calls over it) runs without autograd; training
 (`forward_train`, `loss_fn`) takes params that are leaves requiring grad
 (`training.train_loop.trainable`).
+
+Under tensor-parallel serving (DESIGN §12, `group=`) the model is one
+rank's: it carries the group and its local shapes
+(`distributed.sharding.TensorParallel`); `init` draws the whole weights
+from the seed and keeps the rank's slices, and the caches hold its
+kv-heads. Weights made elsewhere (`params.from_jax_params`) are cut with
+`shard`.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config.base import ArchFamily, ModelConfig
+from repro_torch.distributed.sharding import (ServingGroup, shard_params,
+                                              tensor_parallel)
 from repro_torch.models import backbone as B
 
 # stub-frontend lengths (the modality encoders are stubs), as in the JAX
@@ -41,20 +50,45 @@ class Model(nn.Module):
     """Stateless facade: init / caches / prefill / decode for one config."""
 
     def __init__(self, cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 device=None, group: Optional[ServingGroup] = None):
+        """`group`: this rank's serving group (`launch.mesh.
+        make_serving_group`); the model then serves its tensor-parallel
+        shard (raises for a family or head count the port does not shard:
+        `sharding.check_tp`)."""
         super().__init__()
         self.cfg = cfg
         self.dtype = B.cfg_dtype(cfg, dtype)
         self.device = resolve_device(device)
+        self.group = group
+        self.tp = tensor_parallel(cfg, group) if group is not None else None
+        #: the config the forward and the caches see: the rank's heads
+        self.local_cfg = self.tp.cfg if self.tp is not None else cfg
 
     # -- params -----------------------------------------------------------
     def init(self, seed: int = 0) -> Dict[str, Any]:
-        return B.init_params(self.cfg, seed, self.dtype, self.device)
+        """Random weights from `seed`; under a group the rank's slices of
+        the whole weights the seed gives (the same on every rank)."""
+        return self.shard(B.init_params(self.cfg, seed, self.dtype,
+                                        self.device))
+
+    def shard(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's slices of whole params (`params` itself without a
+        group)."""
+        if self.tp is None:
+            return params
+        return shard_params(params, self.cfg, self.tp.rank, self.tp.m)
 
     # -- training ---------------------------------------------------------
+    def _no_tp(self) -> None:
+        if self.tp is not None:
+            raise NotImplementedError("training under a serving group: the "
+                                      "training-side shardings go with the "
+                                      "dry run")
+
     def forward_train(self, params, batch, remat: bool = True,
                       no_drop: bool = False):
         """(logits (B, T, V) fp32, aux loss) of whole sequences."""
+        self._no_tp()
         return B.forward_train(params, batch, self.cfg, remat=remat,
                                no_drop=no_drop)
 
@@ -70,6 +104,7 @@ class Model(nn.Module):
         chunk's fp32 logits for the backward, so the whole (B, T-1, V) is
         held until then, as the JAX `lax.map`'s residuals are. Returns
         (ce + aux, {"ce", "aux"})."""
+        self._no_tp()
         hidden, aux = B.forward_train(params, batch, self.cfg, remat=remat,
                                       return_hidden=True)
         h = hidden[:, :-1]
@@ -98,7 +133,7 @@ class Model(nn.Module):
                    prefill_chunk: int = 1):
         """Contiguous serving cache; a VLM or enc-dec cache holds `enc_len`
         cross keys a row (0: the family's default, `default_enc_len`)."""
-        return B.init_cache(self.cfg, batch, max_context, self.dtype,
+        return B.init_cache(self.local_cfg, batch, max_context, self.dtype,
                             self.device, chunk=prefill_chunk,
                             enc_len=enc_len or default_enc_len(self.cfg))
 
@@ -108,7 +143,7 @@ class Model(nn.Module):
         block past `num_blocks`, the target of invisible writes) plus
         `n_slots` rows of per-request state and cross K/V (`enc_len` keys,
         0 for the default) and the padding sentinel (DESIGN §9)."""
-        return B.init_paged_cache(self.cfg, num_blocks, block_size,
+        return B.init_paged_cache(self.local_cfg, num_blocks, block_size,
                                   self.dtype, self.device, n_slots=n_slots,
                                   enc_len=enc_len or default_enc_len(self.cfg))
 
@@ -116,9 +151,10 @@ class Model(nn.Module):
     def forward(self, params, tokens, positions, cache, *,
                 decode: bool = False, last_only: bool = False, tables=None,
                 rows=None, extras=None):
-        return B.forward_cached(params, tokens, positions, cache, self.cfg,
-                                decode=decode, last_only=last_only,
-                                tables=tables, rows=rows, extras=extras)
+        return B.forward_cached(params, tokens, positions, cache,
+                                self.local_cfg, decode=decode,
+                                last_only=last_only, tables=tables,
+                                rows=rows, extras=extras, tp=self.tp)
 
     def prefill(self, params, tokens, positions, cache, extras=None,
                 last_only: bool = False):
@@ -153,8 +189,9 @@ class Model(nn.Module):
         return logits[:, 0], cache
 
 
-def build_model(cfg: ModelConfig, dtype=None, device=None) -> Model:
-    return Model(cfg, dtype, device)
+def build_model(cfg: ModelConfig, dtype=None, device=None,
+                group: Optional[ServingGroup] = None) -> Model:
+    return Model(cfg, dtype, device, group)
 
 
 def default_enc_len(cfg: ModelConfig) -> int:

@@ -54,7 +54,18 @@ preemption victim's K, V and position rows into a block-major host pool
 (pinned on the card) and back on swap-in, with non-blocking copies on the
 engine's one stream, which orders them after the steps that wrote those
 rows and before any later reuse: the swap path adds no synchronisation.
-Mesh serving is not ported yet and raises when asked for.
+
+Tensor-parallel serving (DESIGN §12, `ServeConfig.mesh_shape`, the dense
+attention family) runs one engine per rank process on a model built on
+the rank's serving group (`launch.mesh.make_serving_group`). Every rank
+runs this host code, so every decision must come out the same on each:
+the inputs they schedule from are the same, and the measured values that
+feed decisions (the clock, each retirement's wait, the interval's host
+time) are rank 0's, agreed once an interval by one broadcast on the
+group's gloo control group (`_agree`), never in a step. The pool holds
+the global block count (the per-chip budget times `model_shards`) at the
+rank's kv-heads; block tables, and so prefix sharing, are the same on
+every rank, and the swap tier moves each rank's own kv-head slice.
 
 The VLM and enc-dec families take per-request extras (image patch or
 audio frame embeddings, `submit(..., extras=)`), cast to the working dtype
@@ -78,8 +89,9 @@ import torch
 from repro_torch.config.base import ModelConfig, ServeConfig
 from repro_torch.core.batching import bucketize, make_policy
 from repro_torch.core.lanes import lane_order, pack_chunks
-from repro_torch.core.memory_model import MemoryModel
+from repro_torch.core.memory_model import MemoryModel, kv_shard_factor
 from repro_torch.core.telemetry import Telemetry
+from repro_torch.distributed.sharding import check_tp
 from repro_torch.models.backbone import CROSS_KEYS, STATE_KEYS, extras_key
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serving.cost_model import PROFILES, CostModel
@@ -114,11 +126,12 @@ def put_cache_rows(cache: Dict[str, torch.Tensor], rows,
 POOL_KEYS = ("k", "v", "pos")
 
 
-def check_ported(serve: ServeConfig) -> None:
-    """Raise for ServeConfig features this slice has not ported yet."""
+def check_ported(serve: ServeConfig, cfg: ModelConfig) -> None:
+    """Raise for what the port does not serve yet: a mesh for a family or
+    a kv-head count that has no tensor-parallel port
+    (`sharding.check_tp`)."""
     if serve.mesh_shape:
-        raise NotImplementedError(
-            "ServeConfig.mesh_shape is not yet ported to repro_torch")
+        check_tp(cfg, serve.model_axis_size)
 
 
 def host_runs(ids: List[int]):
@@ -172,12 +185,29 @@ class Engine:
         replay (default on the card); False runs the same steps eagerly, as
         on the CPU, where True raises. `cost`: the swap-vs-recompute
         crossover's cost model (DESIGN §11), the a100x8 profile by default,
-        as in the reference."""
-        check_ported(serve)
+        as in the reference. Under `serve.mesh_shape` the model must be
+        built on a serving group of that shape; a gloo group's collectives
+        cannot be captured, so on the card it runs with
+        `cuda_graphs=False` only."""
+        check_ported(serve, model.cfg)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
+        self.group = model.group
+        have = self.group.mesh_shape if self.group is not None else ()
+        if tuple(serve.mesh_shape) != have:
+            raise ValueError(
+                f"ServeConfig.mesh_shape {tuple(serve.mesh_shape)} needs a "
+                f"model built on a serving group of that shape "
+                f"(launch.mesh.make_serving_group); the model's is {have}")
+        use_graphs = self.device.type == "cuda" if cuda_graphs is None \
+            else cuda_graphs
+        if use_graphs and self.group is not None \
+                and self.group.backend != "nccl":
+            raise ValueError(f"{self.group.backend} collectives cannot be "
+                             f"captured in a CUDA graph: pass "
+                             f"cuda_graphs=False")
         self.model = model
         self.cfg: ModelConfig = model.cfg
         self.serve = serve
@@ -193,10 +223,18 @@ class Engine:
         # n_prefill_lanes spare physical rows past the decode buckets: a
         # padded decode step never touches a prefilling row (DESIGN §6)
         self.n_lanes = max(1, serve.n_prefill_lanes)
+        # mesh serving (DESIGN §12): the pool shards on kv-heads, so a
+        # per-chip budget backs model_shards x the tokens; only an explicit
+        # budget scales (the slot-derived one is already all the block
+        # tables can address), as in the reference
+        self.model_shards = kv_shard_factor(
+            self.cfg, self.group.model_size) if self.group is not None else 1
         eta = serve.kv_pool_tokens or self.max_slots * max_context
         self.mem = MemoryModel(self.cfg, hbm_budget_bytes=0,
                                eps_m=serve.eps_m,
-                               block_size=serve.block_size, eta_tokens=eta)
+                               block_size=serve.block_size, eta_tokens=eta,
+                               model_shards=self.model_shards
+                               if serve.kv_pool_tokens else 1)
         self.paged = serve.paged_kv
         # prefix sharing (DESIGN §10) and the host swap tier (DESIGN §11):
         # the paged pool of a family whose per-request state is all in the
@@ -232,8 +270,7 @@ class Engine:
             * torch.empty((), dtype=model.dtype).element_size()
         self.tel = Telemetry()
         self.policy = make_policy(serve, self.mem)
-        self.graphs = StepGraphs(self.device, self.device.type == "cuda"
-                                 if cuda_graphs is None else cuda_graphs)
+        self.graphs = StepGraphs(self.device, use_graphs)
         # async dispatch-ahead (DESIGN §14): up to overlap_depth dispatched
         # intervals stay un-retired while the host schedules the next
         self.overlap_depth = max(0, int(serve.overlap_depth))
@@ -252,6 +289,10 @@ class Engine:
         # offloaded requests awaiting swap-in, drained before `waiting`
         self.swapped: List[Request] = []
         self.now0 = time.perf_counter()
+        # under a mesh: the clock rank 0 read at the last interval's end,
+        # and its retirement waits, ahead of `_retire_step` (`_agree`)
+        self._agreed_now = 0.0
+        self._agreed_waits: "collections.deque[float]" = collections.deque()
         self._next_rid = 0
         self.total_decoded = 0
         self.total_finished = 0
@@ -284,14 +325,17 @@ class Engine:
         # copy-on-write block duplications (DESIGN §10)
         self.copy_rows = 0
         self.copy_bytes = 0
+        # the model's bytes, as the reference counts its global arrays: a
+        # rank holds 1/m of the K/V heads
+        whole = {k: self.model_shards if k in ("k", "v") else 1
+                 for k in self.cache}
         self._row_bytes = 0 if self.paged else sum(
-            v[:, 0].numel() * v.element_size() if k != "pos"
-            else v[0].numel() * v.element_size()
-            for k, v in self.cache.items())
+            (v[:, 0].numel() if k != "pos" else v[0].numel())
+            * v.element_size() * whole[k] for k, v in self.cache.items())
         # per-block pool bytes: the unit a copy-on-write duplicates
         self._blk_bytes = sum(
-            v[0].numel() * v.element_size() if k == "pos"
-            else v[:, 0].numel() * v.element_size()
+            (v[0].numel() if k == "pos" else v[:, 0].numel())
+            * v.element_size() * whole[k]
             for k, v in self.cache.items() if k in POOL_KEYS) \
             if self.paged else 0
         self.decode_steps = 0
@@ -565,7 +609,34 @@ class Engine:
         return x.detach().to("cpu", self.model.dtype).contiguous()
 
     def _now(self) -> float:
+        """Seconds since the engine was built; under a mesh the clock rank
+        0 read at the last agreement (`_agree`), the same on every rank
+        and late by the host time since (docs/PORT.md, "Tensor-parallel
+        serving")."""
+        if self.group is not None:
+            return self._agreed_now
         return time.perf_counter() - self.now0
+
+    def _agree(self, t0: float, n: int) -> Optional[float]:
+        """Under a mesh, the interval's one agreement: wait for the n
+        oldest in-flight intervals' events, then broadcast rank 0's clock,
+        host seconds since `t0` and those waits on the control group.
+        The clock and the waits (which `_retire_step` takes in order) are
+        set; returns the host seconds, or None without a mesh."""
+        if self.group is None:
+            return None
+        waits = []
+        for rec in list(self._inflight)[:max(n, 0)]:
+            t = time.perf_counter()
+            if rec.event is not None:
+                rec.event.synchronize()
+            waits.append(time.perf_counter() - t)
+        now = time.perf_counter() - self.now0
+        host_s = (time.perf_counter() - t0) - sum(waits)
+        vals = self.group.agree([now, host_s] + waits)
+        self._agreed_now = vals[0]
+        self._agreed_waits.extend(vals[2:])
+        return vals[1]
 
     def run(self, max_steps: int = 100_000) -> int:
         steps = 0
@@ -584,6 +655,7 @@ class Engine:
             # pipeline drain: retirement only patches values, timestamps
             # and telemetry, never schedulable work, so this call still
             # reports idle and run() counts the synchronous loop's steps
+            self._agree(time.perf_counter(), len(self._inflight))
             while self._inflight:
                 self._retire_step()
             return False
@@ -672,10 +744,13 @@ class Engine:
         if rec.dispatched:
             self._dispatch_readback(rec)
             self._inflight.append(rec)
+        agreed_host_s = self._agree(
+            t0, len(self._inflight) - self.overlap_depth)
         device_s = 0.0
         while len(self._inflight) > self.overlap_depth:
             device_s += self._retire_step()
-        host_s = (time.perf_counter() - t0) - device_s
+        host_s = (time.perf_counter() - t0) - device_s \
+            if agreed_host_s is None else agreed_host_s
         self.step_host_trace.append(host_s)
         self.step_device_trace.append(device_s)
         self.tel.on_interval(host_s, device_s)
@@ -1073,6 +1148,9 @@ class Engine:
         if rec.event is not None:
             rec.event.synchronize()
         dev_s = time.perf_counter() - t0
+        if self._agreed_waits:
+            # under a mesh: rank 0's wait (`_agree` waited already)
+            dev_s = self._agreed_waits.popleft()
         vals = rec.host.tolist()
         self._staging.release(rec.arena)
         dt_ms = dev_s * 1e3
@@ -1114,8 +1192,8 @@ class Engine:
 
     # -- metrics ---------------------------------------------------------------
     def summary(self) -> Dict[str, float]:
-        """The JAX engine's summary keys; `model_shards` (mesh serving, not
-        ported) reads its idle value."""
+        """The JAX engine's summary keys (`model_shards`: the KV pool's
+        model-axis shards under a mesh, 1 without)."""
         el = self._now()
         occ = self.tel.lane_occ
         tq, _ = self.tel.ttft_queue.get()
@@ -1126,7 +1204,7 @@ class Engine:
             "throughput_tok_s": self.total_decoded / max(el, 1e-9),
             "total_tokens": float(self.total_decoded),
             "duration_s": el,
-            "model_shards": 1.0,
+            "model_shards": float(self.model_shards),
             "pool_tokens": float(self.mem.eta),
             "decode_steps": self.decode_steps,
             "mean_batch": (sum(self.batch_trace) / len(self.batch_trace))

@@ -798,21 +798,24 @@ GRAPH_COUNTERS = ("decode_steps", "mean_batch", "admitted", "preemptions",
                   "prefill_tokens", "finished", "copy_rows")
 
 
-def _graph_engine(dev, arch, paged, cuda_graphs, depth=0):
+def _graph_engine(dev, arch, paged, cuda_graphs, depth=0, group=None):
     """Reduced fp32 engine on the card: static admission (batches of up to
     4, so decode moves between buckets) and chunked prefill on 2 lanes,
-    `depth` intervals dispatched ahead (DESIGN §14)."""
+    `depth` intervals dispatched ahead (DESIGN §14); with `group`, on its
+    mesh (DESIGN §12)."""
     from repro_torch.config.base import ServeConfig
     from repro_torch.config.registry import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine
 
-    m = build_model(get_config(arch, "reduced"), torch.float32, dev)
+    m = build_model(get_config(arch, "reduced"), torch.float32, dev,
+                    group=group)
     serve = ServeConfig(policy="static", b_max=4, max_new_tokens=6,
                         kv_pool_tokens=1024, block_size=8,
                         chunked_prefill=True, chunk_budget_tokens=16,
                         n_prefill_lanes=2, paged_kv=paged,
-                        overlap_depth=depth)
+                        overlap_depth=depth,
+                        mesh_shape=group.mesh_shape if group else ())
     return Engine(m, m.init(0), serve, max_context=64, buckets=(1, 2, 4),
                   prefill_chunk=8, device=dev, cuda_graphs=cuda_graphs)
 
@@ -1384,3 +1387,59 @@ def test_training_on_card_matches_cpu_and_launches_no_kernel(cuda, arch):
 def _to(p, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in p.items()}
+
+
+# tensor-parallel serving (DESIGN §12) on the card: one rank over NCCL with
+# its all-reduces captured in the step graphs, and each rank's attention
+# launch against the same heads of the whole launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_one_rank_nccl_mesh_on_graphs_equals_no_mesh_on_card(cuda, paged,
+                                                              tmp_path):
+    """A (1, 1) mesh over NCCL runs the tensor-parallel path (the
+    all-reduces, the vocab-parallel embedding and head) inside its CUDA
+    graphs; a one-rank all-reduce is the identity, so it serves the
+    no-mesh engine's tokens and counters, every step a replay."""
+    from repro_torch.launch.mesh import close_serving_group, make_serving_group
+
+    rng = np.random.RandomState(3)
+    prompts = [list(map(int, rng.randint(0, 256, size=n)))
+               for n in (5, 21, 9, 30, 13, 17)]
+    base = _graph_engine(cuda, "granite-3-8b", paged, True)
+    base.warmup()
+    want_toks, want = _served(base, prompts)
+    group = make_serving_group((1, 1), "nccl", 0, 1,
+                               init_method=f"file://{tmp_path}/store")
+    try:
+        eng = _graph_engine(cuda, "granite-3-8b", paged, True, group=group)
+        eng.warmup()
+        toks, got = _served(eng, prompts)
+    finally:
+        close_serving_group()
+    assert toks == want_toks
+    assert {k: got[k] for k in GRAPH_COUNTERS} \
+        == {k: want[k] for k in GRAPH_COUNTERS}
+    assert eng.graphs.captures == len(eng.graphs.steps) > 0
+    assert all(st.graph is not None for st in eng.graphs.steps.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_per_rank_attention_launches_match_the_whole_launch_on_card(cuda,
+                                                                    dtype):
+    """Granite's TP-2 heads (`bench.tp_slices`): in fp32 every rank's
+    decode, paged decode and prefill chunks are the whole launch's heads
+    bit for bit; in bf16 where both launches split the key axis alike,
+    within 2e-2 where the rank's smaller grid splits it more."""
+    from repro_torch.bench import tp_slices
+
+    rows = [tp_slices.compare(c)
+            for c in tp_slices.cases(cuda, getattr(torch, dtype))]
+    assert all(tp_slices.verdict(r) for r in rows), rows
+    if dtype == "float32":
+        assert all(all(r["bitwise"]) for r in rows)
+    else:
+        same = [r["splits_whole"] == r["splits_rank"] for r in rows]
+        assert any(same) and not all(same)

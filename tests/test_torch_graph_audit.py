@@ -2,7 +2,7 @@
 `repro_torch.analysis.graph_audit`), the twin of tests/test_jaxpr_audit.py:
 detector unit tests, seeded violations in the engine's steps, and every
 registry arch's model functions and engine steps in both layouts on the
-CPU.
+CPU, and a one-rank mesh engine's with its collectives.
 """
 import pytest
 import torch
@@ -130,6 +130,22 @@ def test_other_archs_serving_steps_audit_clean(arch):
 def test_run_graph_audit_subset_paths_anchor_configs():
     fs = run_graph_audit(archs=["granite-3-8b"])
     assert fs == []
+
+
+def test_one_rank_mesh_engine_audits_clean_with_its_collectives():
+    """A (1, 1) mesh engine (DESIGN §12, on a gloo group of its own): its
+    model functions and both layouts' steps, every all-reduce traced (two
+    a layer, the embedding's and the head's), pass every rule; the group
+    is left again."""
+    import torch.distributed as dist
+
+    audit = GraphAudit("cpu")
+    audit.mesh()
+    t = audit.totals()
+    assert audit.findings == []
+    assert t["functions"] == 4 and t["steps"] == t["keys"] > 0
+    assert t["collectives"]["allreduce_"] >= t["steps"] * 2 * 2
+    assert not dist.is_initialized()
 
 
 # -- seeded violations in the engine's steps --------------------------------

@@ -1,9 +1,10 @@
 """Guards of the port package: it imports neither JAX nor the JAX package,
 its entry points run on the card unless asked for the CPU, its CLI has the
-JAX CLI's flags plus --device, every arch id builds, and features it has
-not ported raise."""
+JAX CLI's flags plus --device, every arch id builds, and the tier and
+mesh flags serve."""
 import ast
 import dataclasses
+import os
 import re
 import subprocess
 import sys
@@ -102,17 +103,25 @@ def test_cli_flags_are_the_jax_cli_flags_plus_device():
 
 @pytest.mark.parametrize("argv", [["--prefix-cache"], ["--swap-space", "4"],
                                   ["--mesh", "1,2"]])
-def test_unported_features_raise(argv):
-    """Mesh serving is not ported and raises; the memory tiers' flags,
-    ported since, serve every request on the paged pool."""
-    args = port_serve.build_parser().parse_args(
-        argv + ["--device", "cpu", "--paged", "--requests", "3",
-                "--max-new", "3"])
+def test_tier_and_mesh_flags_serve_on_the_cpu(argv):
+    """The memory tiers' flags serve every request on the paged pool;
+    `--mesh 1,2` serves them tensor-parallel in two gloo rank processes,
+    the CLI run as a user runs it, rank 0 printing the summary."""
+    flags = argv + ["--device", "cpu", "--paged", "--requests", "3",
+                    "--max-new", "3"]
     if argv[0] == "--mesh":
-        with pytest.raises(NotImplementedError):
-            port_serve.run(args)
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve"] + flags,
+            capture_output=True, text=True, timeout=180,
+            env={**os.environ,
+                 "PYTHONPATH": str(ROOT / "src")})
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        summary = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+        assert summary["finished"] == 3
+        assert summary["model_shards"] == 2
+        assert summary["pool_tokens"] == 2 * 4096
         return
-    eng = port_serve.run(args)
+    eng = port_serve.run(port_serve.build_parser().parse_args(flags))
     assert eng.summary()["finished"] == 3
     assert eng.prefix == (argv[0] == "--prefix-cache")
     assert eng.swap == (argv[0] == "--swap-space")
