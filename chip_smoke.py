@@ -60,10 +60,13 @@ Phases, one JSON line each:
              decode and the Tq 16 / 500 chunks at granite-3-8b's TP-2
              shapes (`repro_torch.bench.tp_slices`): each rank's launch
              on its 16 query heads and 4 kv-heads against the same heads
-             of the whole launch, bit for bit in fp32 and in bf16 where
-             both split the key axis alike, within 2e-2 otherwise; rank
-             0's serving-shape launches are timed as rows of this phase
-             (case "TP-2 rank 0: ...").
+             of the whole launch, and the non-causal launches at their
+             TP-2 shapes (seamless's encoder, 8 of 16 heads at Tq = Tk =
+             1024; the VLM's decode-step cross read, 32 heads on 4 over
+             1601 patches, contiguous and paged), bit for bit in fp32 and
+             in bf16 where both split the key axis alike, within 2e-2
+             otherwise; rank 0's serving-shape launches are timed as rows
+             of this phase (case "TP-2 rank 0: ...").
 4. reference per arch, full width with depth cut to one layer pattern
              (granite-3-8b, starcoder2-7b, mistral-nemo-12b,
              qwen2-moe-a2.7b and mamba2-2.7b 2 layers, qwen1.5-32b 1,
@@ -222,31 +225,49 @@ Phases, one JSON line each:
              any finding fails.
 
 15. tp      (after the serve runs, their engines released) tensor-parallel
-             serving (DESIGN §12) of granite-3-8b at full width in bf16.
-             (a) tp_nccl_one_rank: a (1, 1) mesh over NCCL, the serve
-             flags, both layouts on CUDA graphs with the all-reduces
-             captured (`run_serve`'s checks): tokens and structural
-             counters of the no-mesh runs bit for bit; the replay checks
-             of phase 6 with each replay's device ms beside the no-mesh
-             engine's; the graph audit of a reduced one-rank mesh engine
-             on the same group (its all-reduces counted). (b)
-             tp_gloo_two_ranks: a (1, 2) mesh, two gloo ranks on the one
-             card (`launch.mesh.spawn_ranks`), all 40 layers, eager
-             (gloo's collectives cannot be captured; NCCL refuses two
-             ranks on one card), static policy, 4 prompts of 32-96
-             tokens, 16 new, both layouts: both ranks decode the same
-             tokens; at a cut depth (TP_PROBE_LAYERS, full width) the
+             serving (DESIGN §12) at full width in bf16: granite-3-8b,
+             and one arch of each other family served on a mesh
+             (`TP_MORE`: qwen2-moe-a2.7b, seamless-m4t-medium,
+             llama-3.2-vision-90b at its DEPTH_CUTS). (a) tp_nccl_run /
+             tp_nccl_one_rank: a (1, 1) mesh over NCCL, the serve flags,
+             granite in both layouts and the others paged, on CUDA graphs
+             with the all-reduces captured (`run_serve`'s checks): tokens
+             and structural counters of the no-mesh runs bit for bit; the
+             replay checks of phase 6 with each replay's device ms beside
+             the no-mesh engine's; each engine's bucket-8 decode step (and
+             a first chunk with extras) run once under the graph audit's
+             `OpTrace`, its all-reduces equal to the layout's count
+             (`graph_audit.allreduces`); the graph audit of the reduced
+             one-rank mesh engines of `graph_audit.MESH_ARCHS` on the same
+             group (every step's all-reduces against the layout's). (b)
+             tp_gloo_arch / tp_gloo_two_ranks: a (1, 2) mesh, two gloo
+             ranks on the one card (`launch.mesh.spawn_ranks`), each
+             rank's weights drawn cut (`model.init_shard`), eager (gloo's
+             collectives cannot be captured; NCCL refuses two ranks on one
+             card), static policy, 4 prompts of 32-96 tokens, 16 new,
+             granite and qwen2-moe in both layouts, the cross families
+             paged with extras at the real lengths: both ranks decode the
+             same tokens; at a cut depth (TP_PROBE_CUTS, full width) the
              first decode step's logits within TP_LOGIT_TOL of max|logit|
              of the single-device bf16 step on the same weights and
-             inputs, and the same model with one MLP all-reduce dropped
-             (a planted fault) beyond it; the 40-layer readings printed
-             beside the single device's own spread; the share of greedy
-             tokens equal to the single-device run's; finished, model_shards 2 and the pool
-             at twice the per-chip tokens; the counters and request sets
-             of the port's simulator at mesh_shape (1, 2); the kernels
-             of the layout launched, norms 80 + 1 a forward; interval
-             times beside the card's name and power limit (a correctness
-             path: gloo copies each all-reduce through the host).
+             inputs, and the same model with one all-reduce dropped (a
+             planted fault: granite's last MLP, qwen2-moe's last layer's
+             experts, the cross families' last cross `wo`) beyond it; the
+             cross families held at TP_PROBE_ENC_LEN cross keys and
+             printed at the real length; qwen2-moe on the single device's
+             replayed expert picks, the picks that differed before the
+             replay counted; the single device's own spread beside; a
+             full-depth probe's all-reduces traced against the layout's;
+             finished, model_shards 2 and the pool at twice the per-chip
+             tokens; the counters and request sets of the port's
+             simulator at mesh_shape (1, 2); the kernels of the layout
+             launched and the norms a forward (a first chunk's encoder
+             taken off); weights a rank beside the whole model's; granite's
+             40-layer readings and its share of greedy tokens equal to the
+             single-device run's, printed; interval times beside the
+             card's name and power limit (a correctness path: gloo copies
+             each all-reduce through the host). Every new line carries its
+             seconds.
 16. train   (after the serve runs, their engines released) the training
              path (`repro_torch.training`), which runs no kernel (the JAX
              package's training forward reaches no Pallas kernel; the
@@ -276,6 +297,7 @@ without a GPU or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1733,39 +1755,91 @@ def run_twin(arch: str, layout: str, runs: dict):
 # ---------------------------------------------------------------------------
 # tensor-parallel serving (DESIGN §12) on the one card
 
-#: the arch served tensor-parallel, and the mesh of tp (b): two gloo ranks
+#: the archs served tensor-parallel: the dense family's, then one arch of
+#: each other family the port serves on a mesh (the MoE's, the enc-dec's
+#: and the VLM's at its DEPTH_CUTS), and the mesh of tp (b): two gloo ranks
 #: on the one card (NCCL refuses two ranks on one device)
 TP_ARCH = "granite-3-8b"
+TP_MORE = ("qwen2-moe-a2.7b", "seamless-m4t-medium", "llama-3.2-vision-90b")
 TP_GLOO_MESH = (1, 2)
 #: tp (b)'s flags beside SERVE_ARGS, and its prompts (count, lengths): its
 #: steps run eagerly and each all-reduce goes through the host, so the
 #: static policy and short prompts keep its intervals few
 TP_GLOO_ARGS = ["--policy", "static", "--max-new", "16"]
 TP_GLOO_PROMPTS = (4, 32, 96)
-#: tp (b)'s logit rule. At 40 layers of random weights bf16 is chaotic:
+#: tp (b)'s layouts (paged?) per arch: both for the dense family and the
+#: MoE; the paged one for the cross families, whose contiguous layout the
+#: CPU tests hold (tests/test_torch_tp_serving.py)
+TP_GLOO_LAYOUTS = {TP_ARCH: (False, True), "qwen2-moe-a2.7b": (False, True),
+                   "seamless-m4t-medium": (True,),
+                   "llama-3.2-vision-90b": (True,)}
+#: tp (b)'s logit rule. At full depth and random weights bf16 is chaotic:
 #: the single device differs from itself by about as much as from the two
 #: ranks when only its launch shapes change, so the rule is held at a cut
 #: depth, at full width: the TP-2 model's first decode step (and the
 #: prefill's last logits) against the single-device bf16 step on the same
 #: inputs, max|diff| within TP_LOGIT_TOL of max|logit|; the same model with
-#: its last layer's MLP all-reduce dropped (a planted fault) must exceed it.
-#: On the H100 the sound readings were at most 0.0159 (a few bf16 steps
-#: of the largest logit) and the fault's at least 0.321 (PERF.md §6): the
-#: limit sits at about twice the one, under a tenth of the other
+#: one all-reduce dropped (a planted fault: granite's last MLP, qwen2-moe's
+#: last layer's experts, the cross families' last cross layer's `wo`) must
+#: exceed it. On the H100 granite's sound readings were at most 0.0159 (a
+#: few bf16 steps of the largest logit) and the fault's at least 0.321
+#: (PERF.md §6): the limit sits at about twice the one, under a tenth of
+#: the other. A MoE's TP run replays the single device's expert picks
+#: (`Routing`; bf16 partial sums can flip a near tie), and the picks that
+#: differed before the replay are counted.
 TP_PROBE_LAYERS = 4
 TP_LOGIT_TOL = 3e-2
+#: each arch's cut for the rule: TP_PROBE_LAYERS decoder layers (the
+#: enc-dec's encoder too; the VLM's one cross layer after them)
+TP_PROBE_CUTS = {TP_ARCH: dict(num_layers=TP_PROBE_LAYERS),
+                 "qwen2-moe-a2.7b": dict(num_layers=TP_PROBE_LAYERS),
+                 "seamless-m4t-medium": dict(num_layers=TP_PROBE_LAYERS,
+                                             encoder_layers=TP_PROBE_LAYERS),
+                 "llama-3.2-vision-90b": dict(num_layers=TP_PROBE_LAYERS,
+                                              num_cross_layers=1)}
+#: cross keys a request of the cross families' held probe. A cross read
+#: over the real 1024-1601 random keys averages them to ~1/40 of a value
+#: row, so its `wo` all-reduce moves a logit by ~1-2% (a CPU estimate at
+#: d 1024-2048), under the rule's resolution; over 16 keys (the CLI's
+#: length) it moves it 5-11%. The rule is held there; the real length's
+#: readings, its fault's too, are printed beside it.
+TP_PROBE_ENC_LEN = 16
+
+
+def tp_config(arch: str):
+    """`arch`'s full config, at DEPTH_CUTS where it has one."""
+    import dataclasses
+
+    from repro_torch.config.registry import get_config
+
+    return dataclasses.replace(get_config(arch, "full"),
+                               **DEPTH_CUTS.get(arch, {}))
+
+
+def count_allreduces(fn, *args):
+    """(the all-reduces `fn(*args)` dispatched, traced by the graph audit's
+    `OpTrace`; its result)."""
+    from repro_torch.analysis.graph_audit import OpTrace
+
+    with torch.no_grad(), OpTrace() as tr:
+        out = fn(*args)
+    return tr.collectives.get("allreduce_", 0), out
 
 
 def run_tp_kernels(dev):
-    """tp (c): kernels 1-3 per rank at granite-3-8b's TP-2 shapes
-    (`repro_torch.bench.tp_slices`: each rank's 16 query heads on its 4
-    kv-heads, compared with the same heads of the whole launch), in bf16
-    and fp32: bit for bit in fp32 and where both launches split the key
-    axis alike, within 2e-2 elsewhere. The serving shapes (decode B 8 over
-    rows of 33-1024 slots, the Tq 16 chunks) of rank 0 are timed like the
-    kernels phase's rows (with their plain versions, SDPA for the
-    contiguous ones, and bounds at the rank's bytes and operations).
-    Returns (the slice checks, the timed rows)."""
+    """tp (c): kernels 1-3 per rank at the TP-2 shapes
+    (`repro_torch.bench.tp_slices`: granite-3-8b's decode, paged decode and
+    chunks, each rank's 16 query heads on its 4 kv-heads; the non-causal
+    launches of seamless-m4t's encoder, 8 of 16 heads at Tq = Tk = 1024,
+    and of the VLM's decode-step cross read, 32 heads on 4 kv-heads over
+    1601 patches, contiguous and paged), compared with the same heads of
+    the whole launch, in bf16 and fp32: bit for bit in fp32 and where both
+    launches split the key axis alike, within 2e-2 elsewhere. Rank 0's
+    serving shapes (decode B 8 over rows of 33-1024 slots, the Tq 16
+    chunks, the non-causal cases) are timed like the kernels phase's rows
+    (with their plain versions, SDPA where one call computes the same
+    function, and bounds at the rank's bytes and operations). Returns
+    (the slice checks, the timed rows)."""
     import torch.nn.functional as F
     from repro_torch.bench import tp_slices
     from repro_torch.kernels import ref
@@ -1777,16 +1851,17 @@ def run_tp_kernels(dev):
               "paged_flash_attention": ref.paged_flash_attention_ref}
     timed_cases = ("B=8 fill=33-1024", "Tq=16")
 
-    def sdpa(name, a):
-        if name == "decode_attention":
+    def sdpa(case, a):
+        if case.name == "decode_attention":
             q, k, v, qp, kp = a
             m = ((kp >= 0) & (kp <= qp[:, None]))[:, None, None, :]
             return lambda: F.scaled_dot_product_attention(
                 q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=m, enable_gqa=True)
-        if name == "flash_attention":
+        if case.name == "flash_attention":
             q, k, v, qp, kp = a
-            m = ((kp[:, None, :] >= 0)
+            m = None if not case.causal else \
+                ((kp[:, None, :] >= 0)
                  & (kp[:, None, :] <= qp[:, :, None]))[:, None]
             return lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -1799,19 +1874,22 @@ def run_tp_kernels(dev):
             c = tp_slices.compare(case)
             c["ok"] = tp_slices.verdict(c)
             checks.append(c)
-            if dtype != torch.bfloat16 or case.label not in timed_cases:
+            if dtype != torch.bfloat16 or (case.causal and case.label
+                                           not in timed_cases):
                 continue
             a = case.rank_args(0)
+            kw = {} if case.causal else {"causal": False}
             got = case.fn(*a)
             want = plains[case.name](*[t.float() if t.is_floating_point()
-                                       else t for t in a])
-            lib = sdpa(case.name, a)
+                                       else t for t in a], **kw)
+            lib = sdpa(case, a)
             b_ms, b_by = bound(case.rank_bytes(), case.rank_ops(), "bf16")
             r = dict(name=case.name, case=f"TP-2 rank 0: {case.label}",
                      max_abs_err=max_err(got, want),
                      tol=f"{ATOL} + {RTOL} * |plain|",
                      ms=time_ms(lambda: case.fn(*a), flush),
-                     plain_ms=time_ms(lambda: plains[case.name](*a), flush),
+                     plain_ms=time_ms(lambda: plains[case.name](*a, **kw),
+                                      flush),
                      library_ms=time_ms(lib, flush) if lib else None,
                      bound_ms=b_ms, bound_by=b_by, bytes=case.rank_bytes(),
                      ops=case.rank_ops(),
@@ -1828,55 +1906,86 @@ def run_tp_kernels(dev):
     return checks, rows
 
 
+def step_allreduces(eng) -> dict:
+    """The all-reduces of the engine's bucket-8 decode step and, where the
+    family takes extras, of a first chunk with them, each run once eagerly
+    on its static all-padding inputs under `OpTrace`, beside the model
+    layout's count (`graph_audit.allreduces`)."""
+    from repro_torch.analysis.graph_audit import allreduces
+
+    keys = [("decode", max(eng.buckets))] + sorted(
+        (k for k in eng.graphs.steps if k[0] == "xchunk"), key=str)[:1]
+    out = {}
+    for key in keys:
+        st = eng._step(key)
+        n, _ = count_allreduces(st.fn, st.inputs)
+        out[str(key)] = dict(traced=n, layout=allreduces(
+            eng.model.local_cfg, eng.model.tp, key[0] == "xchunk"))
+    return out
+
+
 def run_tp_nccl(served, graphs, launches) -> dict:
-    """tp (a): granite-3-8b at full width in bf16 on a (1, 1) mesh over
-    NCCL, the serve run's flags, its CUDA graphs captured with the
-    all-reduces inside, in both layouts (`run_serve`'s checks): the tokens
-    and structural counters of the run without a mesh, bit for bit (a
-    one-rank all-reduce is the identity); the replay checks of
-    `run_graph_check` with their replay times beside the no-mesh engine's;
-    and the graph audit of a reduced one-rank mesh engine on the same
-    group (its collectives counted)."""
+    """tp (a): a (1, 1) mesh over NCCL at full width in bf16, the serve
+    run's flags, its CUDA graphs captured with the all-reduces inside:
+    granite-3-8b in both layouts and the TP_MORE archs paged
+    (`run_serve`'s checks). The tokens and structural counters of the run
+    without a mesh, bit for bit (a one-rank all-reduce is the identity);
+    the replay checks of `run_graph_check` with their replay times beside
+    the no-mesh engine's; each engine's all-reduces a forward, traced on
+    its decode step (and first chunk), equal to the layout's count; and
+    the graph audit of the reduced one-rank mesh engines of
+    `graph_audit.MESH_ARCHS` on the same group (every step's all-reduces
+    counted against the layout's)."""
     import tempfile
 
     from repro_torch.analysis.graph_audit import GraphAudit
     from repro_torch.launch.mesh import close_serving_group, make_serving_group
 
     out, bad = {}, {}
+    runs = [(TP_ARCH, False), (TP_ARCH, True)] + [(a, True) for a in TP_MORE]
     with tempfile.TemporaryDirectory() as d:
         group = make_serving_group((1, 1), "nccl", 0, 1,
                                    init_method=f"file://{d}/store")
         try:
-            for paged in (False, True):
+            for arch, paged in runs:
+                t0 = time.perf_counter()
                 layout = "paged" if paged else "contiguous"
-                fields, eng, reqs = run_serve(TP_ARCH, paged, mesh=(1, 1))
+                fields, eng, reqs = run_serve(arch, paged, mesh=(1, 1))
                 for k, n in fields["launches"].items():
                     launches[k] = launches.get(k, 0) + n
-                check = run_graph_check(eng, f"{TP_ARCH}_{layout}_mesh1x1")
+                check = run_graph_check(eng, f"{arch}_{layout}_mesh1x1")
+                counts = step_allreduces(eng)
                 del eng
                 gc.collect()
                 torch.cuda.empty_cache()
-                zero, want = served[TP_ARCH, layout]
+                zero, want = served[arch, layout]
                 same = [r.output_tokens for r in reqs] \
                     == [r.output_tokens for r in want]
                 diff = {k: (zero["summary"][k], fields["summary"][k])
                         for k in STRUCTURAL
                         if zero["summary"][k] != fields["summary"][k]}
                 replay = {str(tuple(c["key"])): dict(
-                    mesh_ms=c["replay_device_ms"], no_mesh_ms=n["replay_device_ms"])
+                    mesh_ms=c["replay_device_ms"],
+                    no_mesh_ms=n["replay_device_ms"])
                     for c, n in zip(check["checks"],
-                                    graphs[f"{TP_ARCH}_{layout}"]["checks"])}
-                out[layout] = dict(
+                                    graphs[f"{arch}_{layout}"]["checks"])}
+                name = f"{arch}_{layout}"
+                out[name] = dict(
                     tokens_equal=same, structural_diff=diff,
                     model_shards=fields["summary"]["model_shards"],
-                    replay_device_ms=replay,
+                    replay_device_ms=replay, allreduces=counts,
                     interval_s_mean=fields["interval_s_mean"],
-                    no_mesh_interval_s_mean=zero["interval_s_mean"])
-                if not same or diff:
-                    bad[layout] = (same, diff)
+                    no_mesh_interval_s_mean=zero["interval_s_mean"],
+                    seconds=time.perf_counter() - t0)
+                emit("tp_nccl_run", run=name, **out[name])
+                if not same or diff or any(c["traced"] != c["layout"]
+                                           for c in counts.values()):
+                    bad[name] = (same, diff, counts)
+            t0 = time.perf_counter()
             audit = GraphAudit(torch.device("cuda"))
             audit.mesh(group=group)
             out["audit"] = audit.totals()
+            out["audit"]["seconds"] = time.perf_counter() - t0
         finally:
             close_serving_group()
     emit("tp_nccl_one_rank", **out)
@@ -1888,109 +1997,226 @@ def run_tp_nccl(served, graphs, launches) -> dict:
     return out
 
 
-def _tp_probe(model, params, prompts, T: int):
-    """The first T tokens of each prompt prefilled as one batch, then one
+def probe_extras(cfg, n: int, enc_len: int):
+    """n prompts' extras (n, enc_len, d) in bf16 on the card, drawn on the
+    host from seed 3 (the same on every rank), for a VLM or enc-dec
+    config; None for the other families."""
+    from repro_torch.models.model import default_enc_len
+
+    if not default_enc_len(cfg):
+        return None
+    g = torch.Generator().manual_seed(3)
+    return torch.randn((n, enc_len, cfg.d_model), generator=g).to(
+        "cuda", torch.bfloat16)
+
+
+def _tp_probe(model, params, prompts, T: int, extras=None):
+    """The first T tokens of each prompt prefilled as one batch (with the
+    prompts' `extras`, (B, S, d), where the family takes them), then one
     decode step on each prompt's token T (the same inputs whatever the
     logits): (last prefill logits, decode logits), fp32 numpy arrays (a
     rank's result crosses to the parent by value)."""
+    from repro_torch.models.backbone import extras_key
+
     dev = model.device
     toks = torch.tensor([p[:T + 1] for p in prompts], device=dev)
     B = toks.shape[0]
     pos = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
-    cache = model.init_cache(B, T + 1, prefill_chunk=T)
-    pre, cache = model.prefill(params, toks[:, :T], pos, cache,
-                               last_only=True)
+    cache = model.init_cache(B, T + 1, prefill_chunk=T,
+                             enc_len=0 if extras is None else extras.shape[1])
+    pre, cache = model.prefill(
+        params, toks[:, :T], pos, cache, last_only=True,
+        extras=None if extras is None else {extras_key(model.cfg): extras})
     dec, _ = model.decode_step(params, toks[:, T], torch.full(
         (B,), T, dtype=torch.int32, device=dev), cache)
     return pre[:, -1].float().cpu().numpy(), dec.float().cpu().numpy()
 
 
-def _tp_cut_probe(group, prompts, T: int) -> dict:
-    """tp (b)'s logit probes (`_tp_probe`) at TP_PROBE_LAYERS layers of
-    granite-3-8b, full width, bf16, seed 0's weights. On `group`: the
-    rank's model, then the same with the all-reduce of the last layer's
-    MLP dropped (the planted fault: rank 0 then adds its own share only).
-    Without a group: the single device's, on the batch and on each prompt
-    alone (its own spread: other GEMM and attention launch shapes)."""
-    import dataclasses
+@contextlib.contextmanager
+def planted_fault(arch: str, cfg, tp):
+    """One all-reduce of each forward dropped, on every rank alike (so the
+    collectives still match): granite's last layer's MLP (rank 0 then adds
+    its own share only), a MoE's last layer's experts (`layers.moe_sum`
+    without the group), a cross family's last cross layer's `wo`
+    (`layers.cross_attention` without the group)."""
     import itertools
 
-    import numpy as np
-    from repro_torch.config.registry import get_config
-    from repro_torch.models.model import build_model
+    from repro_torch.config.base import ArchFamily
+    from repro_torch.models import layers as L
+    from repro_torch.models.backbone import n_cross_layers
 
-    cfg = dataclasses.replace(get_config(TP_ARCH, "full"),
-                              num_layers=TP_PROBE_LAYERS)
-    model = build_model(cfg, dtype=torch.bfloat16, device="cuda",
-                        group=group)
-    params = model.init(0)
-    out = {"sound": _tp_probe(model, params, prompts, T)}
-    tp = model.tp
-    if tp is None:
-        rows = [_tp_probe(model, params, [p], T) for p in prompts]
-        out["rows"] = tuple(np.concatenate(r) for r in zip(*rows))
+    calls = itertools.count()
+    if cfg.family == ArchFamily.MOE:
+        keep, n = L.moe_sum, cfg.num_layers
+        L.moe_sum = lambda r, s, tp=None: keep(r, s) \
+            if next(calls) % n == n - 1 else keep(r, s, tp)
+        try:
+            yield
+        finally:
+            L.moe_sum = keep
+    elif n_cross_layers(cfg):
+        keep, n = L.cross_attention, n_cross_layers(cfg)
+
+        def dropped(*a, **kw):
+            if next(calls) % n == n - 1:
+                kw["tp"] = None
+            return keep(*a, **kw)
+
+        L.cross_attention = dropped
+        try:
+            yield
+        finally:
+            L.cross_attention = keep
     else:
         # a forward's all-reduces: the embedding's if vocab-sharded (not
         # granite's odd vocab), attention's and the MLP's per layer, the
         # head's; the last layer's MLP one is dropped
         assert tp.mlp_split
         v = int(tp.vocab_split)
-        whole, calls = tp.reduce, itertools.count()
-        every = 2 * cfg.num_layers + 2 * v
+        whole, every = tp.reduce, 2 * cfg.num_layers + 2 * v
         tp.reduce = lambda x: x if next(calls) % every == every - 1 - v \
             else whole(x)
-        out["fault"] = _tp_probe(model, params, prompts, T)
+        try:
+            yield
+        finally:
+            del tp.reduce
+
+
+def _tp_cut_probe(group, arch: str, prompts, T: int, picks=None) -> dict:
+    """tp (b)'s logit probes (`_tp_probe`) at `arch`'s TP_PROBE_CUTS, full
+    width, bf16, seed 0's weights, the gates at 0.5; a cross family's at
+    TP_PROBE_ENC_LEN cross keys (held) and at its real length (printed).
+    Without a group: the single device's, on the batch and on each prompt
+    alone (its own spread: other GEMM and attention launch shapes), a
+    MoE's expert picks recorded (`Routing`). On `group`: the rank's model,
+    a MoE's run first on its own picks (counting those that differ from
+    the single device's `picks`) and then on those; then the same with
+    the planted fault (`planted_fault`)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.config.registry import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model, default_enc_len
+
+    cfg = dataclasses.replace(get_config(arch, "full"), **TP_PROBE_CUTS[arch])
+    model = build_model(cfg, dtype=torch.bfloat16, device="cuda",
+                        group=group)
+    params = model.init(0)
+    set_gates(params)
+    lens = {"held": TP_PROBE_ENC_LEN}
+    if default_enc_len(cfg):
+        lens["real"] = default_enc_len(cfg)
+    moe = cfg.moe is not None
+    out = {}
+    for which, S in lens.items():
+        ex = probe_extras(cfg, len(prompts), S)
+        tag = "" if which == "held" else "_real"
+        if group is None:
+            with Routing(L) as routing:
+                out["sound" + tag] = _tp_probe(model, params, prompts, T, ex)
+            if moe and which == "held":
+                out["picks"] = routing.picks
+            rows = [_tp_probe(model, params, [p], T,
+                              None if ex is None else ex[i:i + 1])
+                    for i, p in enumerate(prompts)]
+            out["rows" + tag] = tuple(np.concatenate(r) for r in zip(*rows))
+            continue
+        with contextlib.ExitStack() as stack:
+            if moe:
+                with Routing(L) as own:
+                    _tp_probe(model, params, prompts, T, ex)
+                out["picks_differing_before_replay"] = sum(
+                    int((~(a[..., :, None] == b[..., None, :]).any(-1)).sum())
+                    for a, b in zip(own.picks, picks))
+                out["picks_routed"] = sum(int(a.numel()) for a in picks)
+                replay = stack.enter_context(Routing(L))
+                replay.replay = True
+                replay.picks = list(picks)
+            out["sound" + tag] = _tp_probe(model, params, prompts, T, ex)
+            if moe:
+                replay.picks = list(picks)
+            with planted_fault(arch, cfg, model.tp):
+                out["fault" + tag] = _tp_probe(model, params, prompts, T, ex)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def tp_gloo_rank(rank: int, world: int) -> dict:
-    """One rank of tp (b): granite-3-8b at full width (all 40 layers) in
-    bf16 on this rank's half of the heads, on the card, with a gloo group
-    (`cuda_graphs=False`: gloo's collectives cannot be captured), both
-    layouts through `launch.serve.build_engine`; then, on rank 0, the
-    single-device run of the same flags and prompts on the same weights.
-    Returns rank 0's record."""
-    sys.path.insert(0, str(SRC))
+def _tp_gloo_arch(group, rank: int, world: int, arch: str) -> dict:
+    """One rank's part of tp (b) for `arch` (`tp_gloo_rank`): rank 0's
+    single-device cut probe first (a MoE's expert picks then go to every
+    rank), the rank's served runs in TP_GLOO_LAYOUTS (the full-depth
+    probe on the first, its all-reduces traced), its cut probe; for
+    TP_ARCH rank 0 then serves the single-device runs too."""
     import numpy as np
     import torch.distributed as dist
+    from repro_torch.analysis.graph_audit import allreduces
     from repro_torch.bench.kv_swap import prompts as make_prompts
     from repro_torch.bench.kv_swap import request_sets
-    from repro_torch.config.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.launch.mesh import make_serving_group
+    from repro_torch.models.model import build_model, default_enc_len
     from repro_torch.params import named_leaves
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.set_device(0)
-    group = make_serving_group(TP_GLOO_MESH, "gloo", rank, world)
+    cfg = tp_config(arch)
     n, lo, hi = TP_GLOO_PROMPTS
-    prompts = make_prompts(get_config(TP_ARCH, "full").vocab_size, n, lo, hi)
+    prompts = make_prompts(cfg.vocab_size, n, lo, hi)
     mesh = ["--mesh", ",".join(map(str, TP_GLOO_MESH))]
-    out = {"prompt_lens": [len(p) for p in prompts]}
+    enc_len = default_enc_len(cfg)
+    full_ex = probe_extras(cfg, n, enc_len)
+    whole = build_model(cfg, torch.bfloat16, "meta").init(0)
+    out = {"prompt_lens": [len(p) for p in prompts],
+           "whole_weights_gb": sum(t.numel() * t.element_size() for _, t in
+                                   named_leaves(whole)) / 1e9}
+    del whole
+    single_cut = _tp_cut_probe(None, arch, prompts, lo - 1) \
+        if rank == 0 else {}
+    box = [single_cut.pop("picks", None)]
+    dist.broadcast_object_list(box, src=0, group=group.control)
+    picks = box[0]
 
     def served(argv, probe: bool):
         args = serve.build_parser().parse_args(argv)
         t0 = time.perf_counter()
-        eng = serve.build_engine(args, cuda_graphs=False)
+        eng = serve.build_engine(args, cuda_graphs=False,
+                                 cfg=cfg if arch in DEPTH_CUTS else None,
+                                 enc_len=enc_len)
+        set_gates(eng.params)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        logits = None
+        logits = counts = None
         if probe:
-            logits = _tp_probe(eng.model, eng.params, prompts, lo - 1)
+            # the probe's all-reduces: a first chunk (with the extras)
+            # and a decode step; a decode step alone
+            n_probe, logits = count_allreduces(
+                _tp_probe, eng.model, eng.params, prompts, lo - 1, full_ex)
+            if eng.group is not None:
+                n_dec, _ = count_allreduces(
+                    eng.model.decode_step, eng.params,
+                    torch.zeros(1, dtype=torch.int64, device="cuda"),
+                    torch.zeros(1, dtype=torch.int32, device="cuda"),
+                    eng.model.init_cache(1, 8))
+                m, tp = eng.model.local_cfg, eng.model.tp
+                counts = {
+                    "probe": dict(traced=n_probe, layout=allreduces(
+                        m, tp, full_ex is not None) + allreduces(m, tp)),
+                    "decode": dict(traced=n_dec, layout=allreduces(m, tp))}
             if eng.group is None:
                 # the single device's own bf16 spread: each prompt alone,
                 # other GEMM and attention launch shapes than the batch's
-                rows = [_tp_probe(eng.model, eng.params, [p], lo - 1)
-                        for p in prompts]
+                rows = [_tp_probe(eng.model, eng.params, [p], lo - 1,
+                                  None if full_ex is None
+                                  else full_ex[i:i + 1])
+                        for i, p in enumerate(prompts)]
                 logits += tuple(np.concatenate(r) for r in zip(*rows))
+        mk_extras = serve.extras_drawer(eng, np.random.RandomState(1))
+        reqs = [(p, mk_extras()) for p in prompts]
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         t0 = time.perf_counter()
-        hs = [eng.submit(p) for p in prompts]
+        hs = [eng.submit(p, extras=x) for p, x in reqs]
         eng.run()
         torch.cuda.synchronize()
         s = eng.summary()
@@ -2002,20 +2228,26 @@ def tp_gloo_rank(rank: int, world: int) -> dict:
                    intervals=len(eng.step_host_trace),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                    kv_heads=int(eng.cache["k"].shape[-2]),
+                   cross_kv_heads=int(eng.cache["cross_k"].shape[-2])
+                   if "cross_k" in eng.cache else None,
                    weights_gb=sum(t.numel() * t.element_size() for _, t in
                                   named_leaves(eng.params)) / 1e9,
+                   params_b=sum(t.numel() for _, t in
+                                named_leaves(eng.params)) / 1e9,
                    prefill_chunk=eng.prefill_chunk,
-                   max_context=eng.max_context, requests=hs)
+                   max_context=eng.max_context, requests=hs,
+                   allreduces=counts)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
         return rec, logits
 
-    for paged in (False, True):
+    layouts = TP_GLOO_LAYOUTS[arch]
+    for paged in layouts:
         layout = "paged" if paged else "contiguous"
-        argv = serve_args(TP_ARCH) + TP_GLOO_ARGS + mesh \
+        argv = serve_args(arch) + TP_GLOO_ARGS + mesh \
             + (["--paged"] if paged else [])
-        rec, logits = served(argv, probe=not paged)
+        rec, logits = served(argv, probe=paged == layouts[0])
         reqs = rec.pop("requests")
         every = [None] * world
         dist.all_gather_object(every, rec["tokens"], group=group.control)
@@ -2024,121 +2256,186 @@ def tp_gloo_rank(rank: int, world: int) -> dict:
         out[layout] = rec
         if logits is not None:
             out["tp_logits"] = logits
-    out["tp_cut"] = _tp_cut_probe(group, prompts, lo - 1)
+    out["tp_cut"] = _tp_cut_probe(group, arch, prompts, lo - 1, picks)
     if rank == 0:
-        for paged in (False, True):
+        out["single_cut"] = single_cut
+    if rank == 0 and arch == TP_ARCH:
+        for paged in layouts:
             layout = "paged" if paged else "contiguous"
-            rec, logits = served(serve_args(TP_ARCH) + TP_GLOO_ARGS
+            rec, logits = served(serve_args(arch) + TP_GLOO_ARGS
                                  + (["--paged"] if paged else []),
-                                 probe=not paged)
+                                 probe=paged == layouts[0])
             rec.pop("requests")
             out[f"single_{layout}"] = rec
             if logits is not None:
                 out["single_logits"] = logits
-        out["single_cut"] = _tp_cut_probe(None, prompts, lo - 1)
     dist.barrier(group=group.control)
     return out
 
 
-def run_tp_gloo(card: str, launches) -> dict:
-    """tp (b): two gloo ranks on the one card (`tp_gloo_rank`, spawned by
-    `launch.mesh.spawn_ranks`): both ranks decode the same tokens in both
-    layouts; at TP_PROBE_LAYERS layers the first decode step's logits and
-    the prefill's last within TP_LOGIT_TOL of max|logit| of the
-    single-device bf16 step's, and the planted fault's beyond it
-    (`_tp_cut_probe`; the single device's own spread beside them); the
-    same readings at all 40 layers, printed, not held (chaos swamps
-    them); the share of greedy tokens equal to the single-device
-    run's; the counters equal to the port's simulator on the same flags
-    with `mesh_shape` (1, 2) (`model_shards` 2); interval times beside the
-    card's name and power limit. A correctness path: gloo copies each
-    all-reduce through the host, so no speed is claimed from it."""
+def tp_gloo_rank(rank: int, world: int) -> dict:
+    """One rank of tp (b): each of TP_ARCH and TP_MORE at full width (the
+    VLM at its DEPTH_CUTS) in bf16 on this rank's half of the heads (a
+    MoE's half of the experts), on the card, with a gloo group
+    (`cuda_graphs=False`: gloo's collectives cannot be captured), through
+    `launch.serve.build_engine` (`_tp_gloo_arch`). Returns rank 0's
+    records, by arch."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import make_serving_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    group = make_serving_group(TP_GLOO_MESH, "gloo", rank, world)
+    out = {}
+    for arch in (TP_ARCH,) + TP_MORE:
+        t0 = time.perf_counter()
+        out[arch] = _tp_gloo_arch(group, rank, world, arch)
+        out[arch]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _rel(got, want) -> dict:
+    return {k: float(abs(a - b).max() / abs(b).max())
+            for k, a, b in zip(("prefill", "decode"), got, want)}
+
+
+def _tp_gloo_check(arch: str, res: dict, launches) -> tuple:
+    """tp (b)'s checks of one arch (`run_tp_gloo`): (the printed record,
+    the failures)."""
     from repro_torch.bench.kv_swap import prompts as make_prompts
     from repro_torch.bench.kv_swap import sim_twin
-    from repro_torch.config.registry import get_config
     from repro_torch.launch import serve
-    from repro_torch.launch.mesh import spawn_ranks
 
-    t0 = time.perf_counter()
-    res = spawn_ranks(tp_gloo_rank, math.prod(TP_GLOO_MESH), timeout_s=600)
-    seconds = time.perf_counter() - t0
-    def rel(got, want):
-        return {k: float(abs(a - b).max() / abs(b).max())
-                for k, a, b in zip(("prefill", "decode"), got, want)}
-
-    tp_pre, tp_dec = res.pop("tp_logits")
-    one_pre, one_dec, row_pre, row_dec = res.pop("single_logits")
+    cfg = tp_config(arch)
     tp_cut, one_cut = res.pop("tp_cut"), res.pop("single_cut")
-    cut = {"tp": rel(tp_cut["sound"], one_cut["sound"]),
-           "single_rows": rel(one_cut["rows"], one_cut["sound"]),
-           "fault": rel(tp_cut["fault"], one_cut["sound"])}
-    out, bad = dict(card=card, seconds=seconds, logits_rel_err=dict(
-        cut, layers=TP_PROBE_LAYERS, tol=TP_LOGIT_TOL, full_depth=dict(
-            tp=rel((tp_pre, tp_dec), (one_pre, one_dec)),
-            single_rows=rel((row_pre, row_dec), (one_pre, one_dec)))),
-        argmax_agree=float((tp_dec.argmax(-1)
-                            == one_dec.argmax(-1)).mean())), []
+    cut = {"tp": _rel(tp_cut["sound"], one_cut["sound"]),
+           "single_rows": _rel(one_cut["rows"], one_cut["sound"]),
+           "fault": _rel(tp_cut["fault"], one_cut["sound"])}
+    if "sound_real" in tp_cut:
+        cut["real_length"] = dict(
+            tp=_rel(tp_cut["sound_real"], one_cut["sound_real"]),
+            single_rows=_rel(one_cut["rows_real"], one_cut["sound_real"]),
+            fault=_rel(tp_cut["fault_real"], one_cut["sound_real"]))
+    for k in ("picks_differing_before_replay", "picks_routed"):
+        if k in tp_cut:
+            cut[k] = tp_cut[k]
+    bad = []
+    out = dict(seconds=res["seconds"], logits_rel_err=dict(
+        cut, layers=TP_PROBE_CUTS[arch], tol=TP_LOGIT_TOL),
+        whole_weights_gb=res["whole_weights_gb"])
     for k in ("prefill", "decode"):
         if cut["tp"][k] > TP_LOGIT_TOL:
-            bad.append(f"{k} logits {cut['tp'][k]} at "
-                       f"{TP_PROBE_LAYERS} layers")
+            bad.append(f"{arch} {k} logits {cut['tp'][k]} at "
+                       f"{TP_PROBE_CUTS[arch]}")
         if cut["fault"][k] <= TP_LOGIT_TOL:
-            bad.append(f"the planted fault's {k} logits "
+            bad.append(f"{arch}: the planted fault's {k} logits "
                        f"{cut['fault'][k]} pass the rule")
+    if arch == TP_ARCH:
+        tp_pre, tp_dec = res.pop("tp_logits")
+        one_pre, one_dec, row_pre, row_dec = res.pop("single_logits")
+        out["logits_rel_err"]["full_depth"] = dict(
+            tp=_rel((tp_pre, tp_dec), (one_pre, one_dec)),
+            single_rows=_rel((row_pre, row_dec), (one_pre, one_dec)))
+        out["argmax_agree"] = float((tp_dec.argmax(-1)
+                                     == one_dec.argmax(-1)).mean())
     n, lo, hi = TP_GLOO_PROMPTS
-    prompts = make_prompts(get_config(TP_ARCH, "full").vocab_size, n, lo, hi)
-    for paged in (False, True):
+    prompts = make_prompts(cfg.vocab_size, n, lo, hi)
+    fused, plain = FAMILIES[arch][3]
+    for paged in TP_GLOO_LAYOUTS[arch]:
         layout = "paged" if paged else "contiguous"
-        rec, one = res[layout], res[f"single_{layout}"]
-        pairs = [(x, y) for a, b in zip(rec["tokens"], one["tokens"])
-                 for x, y in zip(a, b)]
+        rec = res[layout]
         args = serve.build_parser().parse_args(
-            serve_args(TP_ARCH) + TP_GLOO_ARGS
+            serve_args(arch) + TP_GLOO_ARGS
             + ["--mesh", ",".join(map(str, TP_GLOO_MESH))]
             + (["--paged"] if paged else []))
         twin = sim_twin(args, [prompts], args.max_new,
-                        rec["prefill_chunk"], rec["max_context"])
+                        rec["prefill_chunk"], rec["max_context"], cfg=cfg)
         s = rec["summary"]
         twin_diff = {k: (s[k], twin[k]) for k in TWIN if s[k] != twin[k]}
         if rec["sets"] != twin["sets"]:
             twin_diff["sets"] = (rec["sets"], twin["sets"])
         for k, v in rec["launches"].items():
             launches[k] = launches.get(k, 0) + v
+        # a first chunk's encoder (eager: one a request admitted)
+        first = {k: v * s["admitted"]
+                 for k, v in FIRST_CHUNK.get(arch, {}).items()}
+        fwd_launches = {k: v - first.get(k, 0)
+                        for k, v in rec["launches"].items()}
         out[layout] = dict(
             ranks_agree=rec["ranks_agree"],
-            tokens_equal_single=sum(x == y for x, y in pairs) / len(pairs),
-            requests_equal_single=sum(a == b for a, b in zip(
-                rec["tokens"], one["tokens"])),
             finished=s["finished"], model_shards=s["model_shards"],
-            pool_tokens=s["pool_tokens"],
-            single_pool_tokens=one["summary"]["pool_tokens"],
-            twin_diff=twin_diff, kv_heads=rec["kv_heads"],
-            weights_gb=rec["weights_gb"], single_weights_gb=one["weights_gb"],
+            pool_tokens=s["pool_tokens"], twin_diff=twin_diff,
+            kv_heads=rec["kv_heads"], cross_kv_heads=rec["cross_kv_heads"],
+            weights_gb=rec["weights_gb"], params_b=rec["params_b"],
             interval_s_mean=rec["interval_s_mean"],
             step_host_s_mean=s["step_host_s_mean"],
             step_device_s_mean=s["step_device_s_mean"],
-            single_interval_s_mean=one["interval_s_mean"],
             intervals=rec["intervals"], build_s=rec["build_s"],
             serve_s=rec["serve_s"], peak_mem_gb=rec["peak_mem_gb"],
-            launches=rec["launches"])
+            launches=rec["launches"], allreduces=rec["allreduces"])
+        one = res.get(f"single_{layout}")
+        if one is not None:
+            pairs = [(x, y) for a, b in zip(rec["tokens"], one["tokens"])
+                     for x, y in zip(a, b)]
+            out[layout].update(
+                tokens_equal_single=sum(x == y for x, y in pairs)
+                / len(pairs),
+                requests_equal_single=sum(a == b for a, b in zip(
+                    rec["tokens"], one["tokens"])),
+                single_pool_tokens=one["summary"]["pool_tokens"],
+                single_weights_gb=one["weights_gb"],
+                single_interval_s_mean=one["interval_s_mean"])
         if not rec["ranks_agree"]:
-            bad.append(f"{layout}: the ranks' tokens differ")
+            bad.append(f"{arch} {layout}: the ranks' tokens differ")
         if s["finished"] != n or s["model_shards"] != 2 \
-                or s["pool_tokens"] != 2 * one["summary"]["pool_tokens"]:
-            bad.append(f"{layout}: finished {s['finished']}, shards "
+                or s["pool_tokens"] != 2 * 8192:
+            bad.append(f"{arch} {layout}: finished {s['finished']}, shards "
                        f"{s['model_shards']}, pool {s['pool_tokens']}")
         if twin_diff:
-            bad.append(f"{layout}: engine and simulator differ {twin_diff}")
+            bad.append(f"{arch} {layout}: engine and simulator differ "
+                       f"{twin_diff}")
+        if rec["allreduces"] and any(c["traced"] != c["layout"]
+                                     for c in rec["allreduces"].values()):
+            bad.append(f"{arch} {layout}: all-reduces {rec['allreduces']}")
         path = ATTENTION[paged] + ("rmsnorm", "add_rmsnorm")
         other = ATTENTION[not paged]
-        if any(rec["launches"][k] <= 0 for k in path) \
-                or any(rec["launches"][k] for k in other):
-            bad.append(f"{layout}: launches {rec['launches']}")
-        fused, plain = FAMILIES[TP_ARCH][3]
-        fwd = rec["launches"]["rmsnorm"] // plain
-        if rec["launches"]["add_rmsnorm"] != fused * fwd:
-            bad.append(f"{layout}: {rec['launches']['add_rmsnorm']} fused "
-                       f"norms in {fwd} forwards")
+        if any(fwd_launches[k] <= 0 for k in path) \
+                or any(fwd_launches[k] for k in other):
+            bad.append(f"{arch} {layout}: launches {rec['launches']}")
+        fwd = fwd_launches["rmsnorm"] // plain
+        if fwd_launches["add_rmsnorm"] != fused * fwd:
+            bad.append(f"{arch} {layout}: {fwd_launches['add_rmsnorm']} "
+                       f"fused norms in {fwd} forwards")
+    return out, bad
+
+
+def run_tp_gloo(card: str, launches) -> dict:
+    """tp (b): two gloo ranks on the one card (`tp_gloo_rank`, spawned by
+    `launch.mesh.spawn_ranks`), for TP_ARCH and TP_MORE: both ranks decode
+    the same tokens in each of TP_GLOO_LAYOUTS; at the TP_PROBE_CUTS depth
+    the first decode step's logits and the prefill's last within
+    TP_LOGIT_TOL of max|logit| of the single-device bf16 step's, and the
+    planted fault's beyond it (`_tp_cut_probe`; the single device's own
+    spread beside them; a MoE on the single device's expert picks, the
+    picks that differed before the replay counted); a forward's
+    all-reduces, traced on the full-depth probe, equal to the layout's
+    count; the counters equal to the port's simulator on the same flags
+    with `mesh_shape` (1, 2) (`model_shards` 2); weights a rank beside the
+    whole model's; granite's 40-layer readings and the share of greedy
+    tokens equal to the single-device run's, printed, not held (chaos
+    swamps them); interval times beside the card's name and power limit.
+    A correctness path: gloo copies each all-reduce through the host, so
+    no speed is claimed from it."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    res = spawn_ranks(tp_gloo_rank, math.prod(TP_GLOO_MESH), timeout_s=1000)
+    out, bad = dict(card=card), []
+    for arch in (TP_ARCH,) + TP_MORE:
+        out[arch], why = _tp_gloo_check(arch, res[arch], launches)
+        bad += why
+        emit("tp_gloo_arch", arch=arch, card=card, **out[arch])
+    out["seconds"] = time.perf_counter() - t0
     emit("tp_gloo_two_ranks", **out)
     if bad:
         raise AssertionError(f"tp (b): {bad}")

@@ -38,8 +38,13 @@ wrapper runs its plain version, every op of which is seen).
 
 A tensor-parallel step (DESIGN §12) adds its collectives, `c10d`'s
 `allreduce_`, which move nothing to the host (gloo on the CPU, NCCL on the
-card) and pass every rule. `GraphAudit.mesh` audits a one-rank mesh
-engine's steps in both layouts, on a (1, 1) serving group of its own.
+card) and pass every rule. `GraphAudit.mesh` audits one-rank mesh
+engines' steps in both layouts (`MESH_ARCHS`: one arch of each family the
+port serves on a mesh), on a (1, 1) serving group, and counts each traced
+step's all-reduces: a step whose count is not `allreduces`' (the count the
+model's layout gives, a forward's plus the encoder's where the step
+carries extras) is a finding, as a dropped or doubled all-reduce would
+leave a rank's sum partial or twice whole.
 """
 from __future__ import annotations
 
@@ -53,7 +58,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.analysis.framework import Finding
-from repro_torch.config.base import ServeConfig
+from repro_torch.config.base import ArchFamily, ModelConfig, ServeConfig
 from repro_torch.config.registry import _ARCH_MODULES, get_config, list_archs
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS
@@ -80,6 +85,33 @@ MAX_CONTEXT = 32
 CHUNK = 8
 ENC_LEN = 16
 BLOCK_SIZE = 16
+#: the archs whose one-rank mesh engines `GraphAudit.mesh` audits: one of
+#: each family the port serves on a mesh
+MESH_ARCHS = ("granite-3-8b", "qwen2-moe-a2.7b", "llama-3.2-vision-90b",
+              "seamless-m4t-medium")
+
+
+def allreduces(cfg: ModelConfig, tp, extras: bool = False) -> int:
+    """All-reduces one forward of `cfg` makes on `tp`'s group
+    (`sharding.TensorParallel`), from the model's layout: the embedding's
+    and the head's where the vocab is cut; a self layer's attention `wo`,
+    and its SwiGLU's `w_down` where d_ff is cut (the MoE's experts and
+    shared expert once, where either is cut: `layers.moe_sum`); a cross
+    layer's `wo` and SwiGLU alike; and with `extras` (a first chunk) the
+    enc-dec encoder's layers, as a self layer's."""
+    mlp = 1 + int(tp.mlp_split)
+    n = 2 * int(tp.vocab_split)
+    if cfg.family == ArchFamily.MOE:
+        shared = bool(cfg.moe.shared_ff_dim) and tp.shared_split
+        return n + cfg.num_layers * (1 + int(tp.expert_split or shared))
+    n += cfg.num_layers * mlp
+    if cfg.family == ArchFamily.VLM:
+        n += cfg.num_cross_layers * mlp
+    elif cfg.family == ArchFamily.ENCDEC:
+        n += cfg.num_layers * mlp
+        if extras:
+            n += cfg.encoder_layers * mlp
+    return n
 
 
 def _bind(func, args, kwargs) -> Dict[str, object]:
@@ -193,6 +225,8 @@ class GraphAudit:
         self.captures = 0
         self.launches: Dict[str, int] = collections.Counter()
         self.collectives: Dict[str, int] = collections.Counter()
+        #: traced step -> its all-reduces (the mesh engines' steps)
+        self.step_allreduces: Dict[str, int] = {}
         #: arch -> the config fields `card_config` changed
         self.cuts: Dict[str, Dict[str, int]] = {}
 
@@ -206,6 +240,8 @@ class GraphAudit:
                 self.launches[k] += n - before[k]
         self.ops += tr.ops
         self.collectives.update(tr.collectives)
+        if tr.collectives:
+            self.step_allreduces[step] = tr.collectives.get("allreduce_", 0)
         self.findings.extend(audit_trace(tr, step, path))
 
     def model(self, model, params, name: str, path: str) -> None:
@@ -295,25 +331,28 @@ class GraphAudit:
             block_size=BLOCK_SIZE, kv_pool_tokens=max(BUCKETS) * MAX_CONTEXT,
             mesh_shape=mesh)
 
-    def mesh(self, arch: str = "granite-3-8b", variant: str = "reduced",
-             group=None) -> None:
-        """A one-rank mesh engine's steps, both layouts: the model on a
-        (1, 1) serving group (gloo on the CPU, NCCL and its graphs on the
-        card), every step with its collectives traced. `group`: an open
+    def mesh(self, archs: Sequence[str] = MESH_ARCHS,
+             variant: str = "reduced", group=None) -> None:
+        """One-rank mesh engines' steps, both layouts, for each of `archs`:
+        the model on a (1, 1) serving group (gloo on the CPU, NCCL and its
+        graphs on the card), every step with its collectives traced and
+        its all-reduces counted against `allreduces`. `group`: an open
         (1, 1) group to use, which stays open; without one a group is made
         here and left again (no process group may be open then)."""
         from repro_torch.launch.mesh import (close_serving_group,
                                              make_serving_group)
 
         if group is not None:
-            self._mesh_engines(arch, variant, group)
+            for arch in archs:
+                self._mesh_engines(arch, variant, group)
             return
         with tempfile.TemporaryDirectory() as d:
             group = make_serving_group(
                 (1, 1), "nccl" if self.device.type == "cuda" else "gloo",
                 0, 1, init_method=f"file://{d}/store")
             try:
-                self._mesh_engines(arch, variant, group)
+                for arch in archs:
+                    self._mesh_engines(arch, variant, group)
             finally:
                 close_serving_group()
 
@@ -325,14 +364,29 @@ class GraphAudit:
                             dtype=torch.bfloat16 if cuda else torch.float32,
                             device=self.device, group=group)
         params = model.init(0)
-        self.model(model, params, f"{arch} mesh", path)
+        enc_len = ENC_LEN if default_enc_len(cfg) else 0
+        name = f"{arch} mesh"
+        self.model(model, params, name, path)
         for paged in (False, True):
             eng = Engine(model, params, self._serve(paged, (1, 1)),
                          max_context=MAX_CONTEXT, buckets=BUCKETS,
-                         prefill_chunk=CHUNK, device=self.device)
-            self.engine(eng, f"{arch} mesh (1, 1) "
+                         prefill_chunk=CHUNK, enc_len=enc_len,
+                         device=self.device)
+            self.engine(eng, f"{name} (1, 1) "
                         f"{'paged' if paged else 'contiguous'}", path)
             del eng
+        for step, n in self.step_allreduces.items():
+            if not step.startswith(name + " "):
+                continue
+            extras = bool(enc_len) and ("'xchunk'" in step
+                                        or step.endswith("prefill")
+                                        or step.endswith("prefill_paged"))
+            want = allreduces(model.local_cfg, model.tp, extras)
+            if n != want:
+                self.findings.append(Finding(
+                    RULE, path, 1,
+                    f"{step}: {n} all-reduces where the model's layout "
+                    f"gives {want} — a partial sum dropped or summed twice"))
 
     def arch(self, arch: str, variant: str = "reduced") -> None:
         """The model-level functions and both layouts' engine steps of one
@@ -366,6 +420,7 @@ class GraphAudit:
                     builds=self.builds, captures=self.captures,
                     launches=dict(sorted(self.launches.items())),
                     collectives=dict(sorted(self.collectives.items())),
+                    step_allreduces=dict(self.step_allreduces),
                     cuts=self.cuts)
 
 
@@ -381,8 +436,8 @@ def run_graph_audit(archs: Optional[Sequence[str]] = None, device="cpu",
                     variant: str = "reduced",
                     audit: Optional[GraphAudit] = None) -> List[Finding]:
     """Audit `archs` into `audit` (a new one by default); returns its
-    findings. By default every registry arch, and a one-rank mesh engine
-    of granite (`GraphAudit.mesh`)."""
+    findings. By default every registry arch, and the one-rank mesh
+    engines of `MESH_ARCHS` (`GraphAudit.mesh`)."""
     audit = audit or GraphAudit(device)
     for arch in (archs if archs is not None else list_archs()):
         audit.arch(arch, variant=variant)

@@ -68,11 +68,12 @@ SIM_KEYS = ("admitted", "preemptions", "oom_events", "rejected",
 
 
 def sim_twin(args, waves: Sequence[Sequence[List[int]]], max_new: int,
-             prefill_chunk: int, max_context: int) -> dict:
+             prefill_chunk: int, max_context: int, cfg=None) -> dict:
     """The port's simulator on the engine's ServeConfig and token stream:
     wave k arrives at k x WAVE_S, every request runs to max_new tokens
     (capped at the context, as `Engine.submit` caps it), prior-free
-    telemetry. Returns SIM_KEYS and the request sets (`sets`)."""
+    telemetry. `cfg`: the engine's config where it is not the flags'
+    (a depth cut). Returns SIM_KEYS and the request sets (`sets`)."""
     from repro_torch.config.registry import get_config
     from repro_torch.core.telemetry import Telemetry
     from repro_torch.launch import serve
@@ -80,7 +81,7 @@ def sim_twin(args, waves: Sequence[Sequence[List[int]]], max_new: int,
     from repro_torch.serving.request import Request
     from repro_torch.serving.sim import LengthDist, ServingSimulator
 
-    cfg = get_config(args.arch, args.variant)
+    cfg = cfg or get_config(args.arch, args.variant)
     lens = [len(p) for w in waves for p in w]
     sim = ServingSimulator(
         cfg, serve.serve_config(args), CostModel(cfg,

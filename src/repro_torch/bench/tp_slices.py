@@ -5,9 +5,15 @@ launch (DESIGN §12), on one GPU.
 
 At a model axis of m, rank r attends with query heads [r·H/m, (r+1)·H/m)
 on kv-heads [r·KV/m, (r+1)·KV/m) (heads are kv-major). Each case builds
-granite-3-8b's whole attention inputs (32 heads on 8 kv-heads of 128),
-launches the kernel on them and on each rank's slice of the heads, and
-compares the rank's output with the same heads of the whole output. The
+a whole attention launch's inputs, launches the kernel on them and on
+each rank's slice of the heads, and compares the rank's output with the
+same heads of the whole output: granite-3-8b's decode, paged decode and
+chunks (32 heads on 8 kv-heads of 128), and the non-causal launches of
+the enc-dec and VLM families (`causal=False`): seamless-m4t-medium's
+encoder over 1024 frames (16 heads of 64, G 1; a rank 8) and
+llama-3.2-vision-90b's decode-step cross read over 1601 patches (64 on 8
+heads of 128; a rank 32 on 4), contiguous and paged (each request's
+cross row one block of 1601 slots, tables = rows.view(B, 1)). The
 fp32 kernels (CUDA cores) never split the key axis: bit for bit. The bf16
 tensor-core kernels split it by the grid's size (`split.num_splits`, which
 depends on KV): where the whole launch and a rank's get the same count the
@@ -28,6 +34,11 @@ from repro_torch.kernels import ops, split
 
 #: granite-3-8b's attention, and its model axis in the chip smoke run
 H, KV, HD, M = 32, 8, 128, 2
+#: the non-causal cases: seamless-m4t-medium's encoder (heads, kv-heads,
+#: head_dim, frames) and llama-3.2-vision-90b's cross read (heads,
+#: kv-heads, head_dim, patches, decode rows)
+ENCODER = (16, 16, 64, 1024)
+CROSS = (64, 8, 128, 1601, 8)
 #: bf16 per-rank output against the same heads of the whole launch, where
 #: the two launches split the key axis differently
 ATOL = RTOL = 2e-2
@@ -53,6 +64,10 @@ class Case:
     batch: int
     visible: int                    # (query, key) pairs some mask admits
     read_bytes: int                 # K, V and position bytes a walk reads
+    h: int = H                      # the whole launch's heads,
+    kv: int = KV                    # kv-heads
+    hd: int = HD                    # and head_dim
+    causal: bool = True
 
     def rank_args(self, r: int, m: int = M):
         return tuple(a if ax is None else
@@ -67,7 +82,7 @@ class Case:
             return 1
         return split.num_splits(
             self.batch, kv, split.row_tiles(self.rows),
-            -(-self.key_slots // split.key_tile(HD, self.rows)),
+            -(-self.key_slots // split.key_tile(self.hd, self.rows)),
             split.sm_count(self.args[0].device.index))
 
     def rank_bytes(self, m: int = M) -> int:
@@ -81,7 +96,7 @@ class Case:
         return qo + self.read_bytes // m + small
 
     def rank_ops(self, m: int = M) -> int:
-        return 4 * HD * (H // m) * self.visible
+        return 4 * self.hd * (self.h // m) * self.visible
 
 
 def _pools(lens: Sequence[int], dtype, g, dev):
@@ -150,6 +165,43 @@ def cases(dev, dtype) -> List[Case]:
                         (q, kpool, vpool, qp, kpos, tables),
                         (2, 2, 2, None, None, None), 2, Tq * G, MB * BS, 1,
                         vis, read))
+    return out + noncausal_cases(rn, dev, esz)
+
+
+def noncausal_cases(rn, dev, esz) -> List[Case]:
+    """The encoder's self-attention (queries and keys at positions
+    0..S-1, every key visible) and the VLM's decode-step cross read (all
+    at position 0), contiguous and paged, at the whole launch's heads."""
+    def nc(fn):
+        return lambda *a: fn(*a, causal=False)
+
+    h, kv, hd, S = ENCODER
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    out = [Case("flash_attention", f"encoder Tq=Tk={S} hd={hd} G=1",
+                nc(ops.flash_attention),
+                (rn(1, S, h, hd), rn(1, S, kv, hd), rn(1, S, kv, hd), pos,
+                 pos), (2, 2, 2, None, None), 2, S * (h // kv), S, 1, S * S,
+                S * (kv * hd * 2 * esz + 4), h, kv, hd, causal=False)]
+    h, kv, hd, S, B = CROSS
+    qp = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    kp = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    read = B * S * (kv * hd * 2 * esz + 4)
+    out.append(Case("flash_attention", f"cross B={B} Tq=1 Tk={S} G=8",
+                    nc(ops.flash_attention),
+                    (rn(B, 1, h, hd), rn(B, S, kv, hd), rn(B, S, kv, hd), qp,
+                     kp), (2, 2, 2, None, None), 2, h // kv, S, B, B * S,
+                    read, h, kv, hd, causal=False))
+    # the paged read: each request's cross K/V one block of S slots of the
+    # per-slot rows (B + 1 of them: the padding sentinel's too)
+    rows = torch.randperm(B + 1, device=dev)[:B]
+    out.append(Case("paged_flash_attention", f"cross B={B} Tq=1 bs={S} G=8",
+                    nc(ops.paged_flash_attention),
+                    (rn(B, 1, h, hd), rn(B + 1, S, kv, hd),
+                     rn(B + 1, S, kv, hd), qp,
+                     torch.zeros((B + 1, S), dtype=torch.int32, device=dev),
+                     rows.to(torch.int32).view(B, 1)),
+                    (2, 2, 2, None, None, None), 2, h // kv, S, B, B * S,
+                    read, h, kv, hd, causal=False))
     return out
 
 
@@ -168,7 +220,8 @@ def compare(case: Case, m: int = M) -> Dict[str, object]:
         within &= bool((d <= ATOL + RTOL * want.float().abs()).all())
     return dict(name=case.name, case=case.label,
                 dtype=str(case.args[0].dtype).removeprefix("torch."),
-                splits_whole=case.splits(KV), splits_rank=case.splits(KV // m),
+                splits_whole=case.splits(case.kv),
+                splits_rank=case.splits(case.kv // m),
                 bitwise=bitwise, max_abs_diff=diff, within_tol=within)
 
 

@@ -12,10 +12,15 @@ JAX package's `distributed/sharding.py`, on `torch.distributed`.
   the config of one rank's heads.
 * `TensorParallel`: a model's view of its group, and the collectives its
   forward makes. Every branch whose down-projection is sharded on its
-  input axis (attention's `wo`, the SwiGLU's `w_down`) leaves a partial
-  sum, all-reduced before it joins the residual stream; a vocab-sharded
-  embedding is a masked local lookup and an all-reduce, a vocab-sharded
-  head an all-gather (every rank then holds the same full logits).
+  input axis (attention's `wo`, self, cross or encoder; the SwiGLU's
+  `w_down`; the MoE's expert stacks and its shared expert) leaves a
+  partial sum, all-reduced before it joins the residual stream; a
+  vocab-sharded embedding is a masked local lookup and an all-reduce, a
+  vocab-sharded head an all-gather (every rank then holds the same full
+  logits). The MoE's routed experts are cut on E (expert parallelism:
+  rank r holds experts [r·E/m, (r+1)·E/m) and applies only those); where
+  E does not divide the axis its stacks replicate, as the JAX package's
+  `_validate` leaves them.
 * `ServingGroup`: this process's place in a (data, model) layout: its
   tensor-parallel group, the ranks sharing its data index, and a gloo
   control group over every rank, on which rank 0's measured values are
@@ -25,7 +30,9 @@ JAX package's `distributed/sharding.py`, on `torch.distributed`.
 The port splits no head: it serves a mesh only where the kv-heads divide
 the model axis (and so the query heads too). K/V stored sharded on
 head_dim (`kv_head_axes`' fallback) is not ported and raises, as do the
-families other than the dense attention family (`check_tp`).
+hybrid and SSM families (`check_tp`). The dense, MoE, VLM and enc-dec
+families are served; the cross-attention K/V of the VLM and enc-dec
+families hold a rank's kv-heads, as `serve_cache_shardings` shards them.
 """
 from __future__ import annotations
 
@@ -40,15 +47,15 @@ from repro_torch.config.base import ArchFamily, ModelConfig
 Spec = Tuple[Any, ...]
 
 #: the families served under a mesh, and where each other one goes
-TP_FAMILIES = (ArchFamily.DENSE,)
+TP_FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.VLM,
+               ArchFamily.ENCDEC)
 LATER_SLICE = {
-    ArchFamily.MOE: "the MoE family's (the expert axis over \"model\")",
-    ArchFamily.HYBRID: "the hybrid family's (RG-LRU channels over "
-                       "\"model\", its single kv head sharded on head_dim)",
-    ArchFamily.SSM: "the SSM family's (mamba2's in_proj segments, "
-                    "ssd_intra per rank)",
-    ArchFamily.VLM: "the VLM and enc-dec families' (cross K/V per rank)",
-    ArchFamily.ENCDEC: "the VLM and enc-dec families' (cross K/V per rank)",
+    ArchFamily.HYBRID: "the hybrid and SSM families' (RG-LRU channels over "
+                       "\"model\", its single kv head sharded on head_dim, "
+                       "the all-reduced gated norm)",
+    ArchFamily.SSM: "the hybrid and SSM families' (mamba2's in_proj "
+                    "segments, ssd_intra per rank, the all-reduced gated "
+                    "norm)",
 }
 
 
@@ -248,6 +255,16 @@ class TensorParallel:
     cfg: ModelConfig            # the rank's local heads (`local_config`)
     mlp_split: bool             # w_gate / w_up / w_down cut on d_ff
     vocab_split: bool           # embed (and lm_head) cut on the vocab
+    expert_split: bool = False  # the MoE's expert stacks cut on E
+    shared_split: bool = False  # the MoE's shared expert cut on its d_ff
+
+    def experts(self, n: int) -> slice:
+        """The experts of n that this rank applies: its contiguous slice
+        of E when the stacks are cut on E, else all of them."""
+        if not self.expert_split:
+            return slice(0, n)
+        k = n // self.m
+        return slice(self.rank * k, (self.rank + 1) * k)
 
     @property
     def m(self) -> int:
@@ -294,8 +311,17 @@ def tensor_parallel(cfg: ModelConfig, group: ServingGroup) -> TensorParallel:
     L_, d = cfg.num_layers, cfg.d_model
     mlp = serve_spec("layers/mlp/w_down", (L_, cfg.d_ff, d), cfg, m)
     vocab = serve_spec("embed", (cfg.vocab_size, d), cfg, m)
+    experts = shared = ()
+    if cfg.moe is not None:
+        E, f_e = cfg.moe.num_experts, cfg.moe.expert_ff_dim
+        experts = serve_spec("layers/moe/w_down", (L_, E, f_e, d), cfg, m)
+        if cfg.moe.shared_ff_dim:
+            shared = serve_spec("layers/moe/shared/w_down",
+                                (L_, cfg.moe.shared_ff_dim, d), cfg, m)
     return TensorParallel(group, lcfg, mlp_split=mlp[1] == "model",
-                          vocab_split=vocab[0] == "model")
+                          vocab_split=vocab[0] == "model",
+                          expert_split="model" in experts[1:2],
+                          shared_split="model" in shared[1:2])
 
 
 # The process's ambient serving group (DESIGN §12), installed by

@@ -125,7 +125,7 @@ def _dense_layers(init: L.ParamInit, cfg: ModelConfig, n: int,
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
-                device="cpu") -> Params:
+                device="cpu", init: Optional[L.ParamInit] = None) -> Params:
     """Random weights from a seeded torch.Generator with the JAX package's
     scales: normal / sqrt(fan_in), the output projections at
     0.02 / sqrt(2 L), the embedding at 0.02, norms at zero, the MoE
@@ -134,8 +134,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
     is drawn in place, layer by layer, in the working dtype on `device`,
     so peak memory stays at the weights themselves. The VLM has `layers`
     and `cross_layers`, enc-dec `enc_layers`, `dec_layers` and
-    `dec_cross`, as in the JAX package."""
-    init = L.ParamInit(seed, cfg_dtype(cfg, dtype), device)
+    `dec_cross`, as in the JAX package. `init`: the ParamInit to draw
+    with (one that cuts each tensor as it is made: `model.init_shard`)."""
+    init = init or L.ParamInit(seed, cfg_dtype(cfg, dtype), device)
     d = cfg.d_model
     p: Params = {"embed": init.normal((cfg.vocab_size, d), 0.02),
                  "ln_f": init.zeros(d)}
@@ -313,13 +314,19 @@ def _norm_in(x, pending, w, cfg: ModelConfig):
 # norm that reads it: a layer's ln1, its ln2, or the final ln_f.
 
 
+def _mlp_tp(tp):
+    """`tp` where the SwiGLU is cut on d_ff, else None (whole on every
+    rank: no all-reduce)."""
+    return tp if tp is not None and tp.mlp_split else None
+
+
 def _attn_layer(lp, x, pending, positions, cache, i, widx, cfg, window,
                 tables, tp=None):
     """Under tensor parallelism (`tp`) the attention output and a sharded
-    SwiGLU's are partial sums over the rank's heads or d_ff columns, made
-    whole in their down-projections (`layers.down_proj`), before the fused
-    add + RMSNorm that adds them to the residual stream (otherwise a rank
-    would add its own share only)."""
+    SwiGLU's or MoE's are partial sums over the rank's heads, d_ff columns
+    or experts, made whole in their down-projections (`layers.down_proj`,
+    `layers.moe_sum`), before the fused add + RMSNorm that adds them to
+    the residual stream (otherwise a rank would add its own share only)."""
     x, h = _norm_in(x, pending, lp["ln1"], cfg)
     if tables is None:
         a = L.self_attention_cached(lp["attn"], h, positions, cache["k"][i],
@@ -333,10 +340,9 @@ def _attn_layer(lp, x, pending, positions, cache, i, widx, cfg, window,
     if "moe" in lp:
         # no_drop: serving is chunking-invariant (`layers.moe_apply`)
         y, _ = L.moe_apply(lp["moe"], h, cfg,
-                           no_drop=cfg.moe.inference_no_drop)
+                           no_drop=cfg.moe.inference_no_drop, tp=tp)
         return x, y
-    return x, L.mlp(lp["mlp"], h, tp if tp is not None and tp.mlp_split
-                    else None)
+    return x, L.mlp(lp["mlp"], h, _mlp_tp(tp))
 
 
 class _State:
@@ -388,11 +394,14 @@ def _rec_layer(lp, x, pending, cfg, st: _State, i):
     return x, L.mlp(lp["mlp"], h)
 
 
-def encode(p: Params, frames, cfg: ModelConfig):
+def encode(p: Params, frames, cfg: ModelConfig, tp=None):
     """The enc-dec family's bidirectional encoder over stub frame
     embeddings (B, S, d), RoPE at positions 0..S-1. As the JAX package's
     `encode`, it has no final norm: it returns the residual stream after
-    the last MLP add, which the fused-norm layers leave pending."""
+    the last MLP add, which the fused-norm layers leave pending. Under
+    tensor parallelism (`tp`) each layer's attention and MLP outputs are
+    made whole as the decoder's are, so every rank returns the whole
+    encoder output."""
     B, S, _ = frames.shape
     pos = torch.arange(S, dtype=torch.int32, device=frames.device
                        ).expand(B, S)
@@ -400,9 +409,9 @@ def encode(p: Params, frames, cfg: ModelConfig):
     for i in range(cfg.encoder_layers):
         lp = layer_params(p["enc_layers"], i)
         x, h = _norm_in(x, y, lp["ln1"], cfg)
-        a = L.encoder_attention(lp["attn"], h, pos, cfg)
+        a = L.encoder_attention(lp["attn"], h, pos, cfg, tp)
         x, h = L.add_rms_norm(x, a, lp["ln2"], cfg.rms_eps)
-        y = L.mlp(lp["mlp"], h)
+        y = L.mlp(lp["mlp"], h, _mlp_tp(tp))
     return x + y
 
 
@@ -418,16 +427,18 @@ def _write_cross(p_cross: Params, src, cfg: ModelConfig,
                    val)
 
 
-def _cross_layer(lp, x, pending, cache, j, cfg, rows, kpos):
+def _cross_layer(lp, x, pending, cache, j, cfg, rows, kpos, tp=None):
     """A cross-attention layer (the VLM's tanh-gated, enc-dec's not) and
-    its MLP, reading layer j's cross K/V of the batch rows."""
+    its MLP, reading layer j's cross K/V of the batch rows (a rank's
+    kv-heads under `tp`; its `wo` and MLP outputs made whole as
+    `_attn_layer`'s are)."""
     x, h = _norm_in(x, pending, lp["ln1"], cfg)
     a = L.cross_attention(lp["attn"], h, cache["cross_k"][j],
                           cache["cross_v"][j], cfg,
                           gated=cfg.family == ArchFamily.VLM, rows=rows,
-                          kpos=kpos)
+                          kpos=kpos, tp=tp)
     x, h = L.add_rms_norm(x, a, lp["ln2"], cfg.rms_eps)
-    return x, L.mlp(lp["mlp"], h)
+    return x, L.mlp(lp["mlp"], h, _mlp_tp(tp))
 
 
 def forward_cached(p: Params, tokens, positions, cache: Cache,
@@ -451,10 +462,12 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     projected (the frames encoded, then projected) into the rows' cross
     K/V, which later calls read. Cast to the working dtype.
     tp: one rank's view of a tensor-parallel group
-    (`distributed.sharding.TensorParallel`, the dense attention family):
-    `p` holds the rank's shards, `cfg` its local heads (`tp.cfg`), the
-    cache its kv-heads; partial sums are all-reduced (`_attn_layer`), the
-    embedding and logits made whole."""
+    (`distributed.sharding.TensorParallel`; the dense, MoE, VLM and
+    enc-dec families): `p` holds the rank's shards, `cfg` its local heads
+    (`tp.cfg`), the cache its kv-heads (the cross K/V too); partial sums
+    are all-reduced (`_attn_layer`, `_cross_layer`, `encode`: the self,
+    cross and encoder attention's `wo`, the MLPs' `w_down`, the MoE's
+    experts once a layer), the embedding and logits made whole."""
     if decode and tokens.shape[1] != 1:
         raise ValueError("decode takes one token per row")
     if tables is not None and rows is None \
@@ -477,21 +490,21 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
             for i in range(cfg.num_layers):
                 x, y = _attn_layer(layer_params(p["layers"], i), x, y,
                                    positions, cache, i, widx, cfg, win,
-                                   tables)
+                                   tables, tp)
                 if (i + 1) % per == 0:
                     x, y = _cross_layer(
                         layer_params(p["cross_layers"], i // per), x, y,
-                        cache, i // per, cfg, crows, kpos)
+                        cache, i // per, cfg, crows, kpos, tp)
         else:
             if src is not None:
-                _write_cross(p["dec_cross"], encode(p, src.to(x.dtype), cfg),
-                             cfg, st)
+                _write_cross(p["dec_cross"],
+                             encode(p, src.to(x.dtype), cfg, tp), cfg, st)
             for i in range(cfg.num_layers):
                 x, y = _attn_layer(layer_params(p["dec_layers"], i), x, y,
                                    positions, cache, i, widx, cfg, win,
-                                   tables)
+                                   tables, tp)
                 x, y = _cross_layer(layer_params(p["dec_cross"], i), x, y,
-                                    cache, i, cfg, crows, kpos)
+                                    cache, i, cfg, crows, kpos, tp)
     elif cfg.family in ATTENTION_ONLY:
         for i in range(cfg.num_layers):
             x, y = _attn_layer(layer_params(p["layers"], i), x, y, positions,

@@ -46,9 +46,15 @@ class ParamInit:
         self.g = None if torch.device(device).type == "meta" \
             else torch.Generator(device=device).manual_seed(seed)
 
+    def made(self, t: torch.Tensor) -> torch.Tensor:
+        """Every tensor a method makes passes here once, in the order they
+        are made: the tensor itself (a subclass may record or cut it)."""
+        return t
+
     def normal(self, shape, scale: float):
-        return torch.empty(shape, dtype=self.dtype, device=self.device
-                           ).normal_(0.0, scale, generator=self.g)
+        return self.made(torch.empty(shape, dtype=self.dtype,
+                                     device=self.device
+                                     ).normal_(0.0, scale, generator=self.g))
 
     def stacked(self, n: int, shape, scale: Optional[float] = None,
                 dtype: Optional[torch.dtype] = None):
@@ -63,16 +69,17 @@ class ParamInit:
         for i in range(n):
             w[i].normal_(0.0, scale if scale is not None
                          else 1 / math.sqrt(fan_in), generator=self.g)
-        return w
+        return self.made(w)
 
     def uniform(self, shape, lo: float, hi: float):
         """fp32 uniform draws in [lo, hi)."""
-        return torch.empty(shape, dtype=torch.float32, device=self.device
-                           ).uniform_(lo, hi, generator=self.g)
+        return self.made(torch.empty(shape, dtype=torch.float32,
+                                     device=self.device
+                                     ).uniform_(lo, hi, generator=self.g))
 
     def zeros(self, *shape, dtype=None):
-        return torch.zeros(shape, dtype=dtype or self.dtype,
-                           device=self.device)
+        return self.made(torch.zeros(shape, dtype=dtype or self.dtype,
+                                     device=self.device))
 
 
 def init_attention(init: ParamInit, cfg: ModelConfig, n: int,
@@ -245,7 +252,7 @@ def top_k(x, k: int):
 
 
 def moe_apply(p, x, cfg: ModelConfig, *, no_drop: bool = False,
-              group_size: int = MOE_GROUP):
+              group_size: int = MOE_GROUP, tp=None):
     """x: (B, T, d) -> (y, aux loss), as the JAX package's `moe_apply`.
 
     The B*T tokens are cut into groups of `group_size` (the last padded
@@ -257,7 +264,14 @@ def moe_apply(p, x, cfg: ModelConfig, *, no_drop: bool = False,
     row (as `jax.nn.one_hot`; `F.one_hot` would raise) and nothing reads
     the device from the host. Every expert multiplies its whole queue,
     empty slots too: the products read all E experts' weights each call,
-    as the reference's do."""
+    as the reference's do.
+
+    Under tensor parallelism (`tp`, DESIGN §12) every rank routes over all
+    E experts (the router is replicated, so the picks are the same on
+    every rank) and applies its own slice of them (`tp.experts`: its
+    stacks hold that slice; all E where the stacks replicate); the routed
+    sum and the shared expert's down-projection are then partial sums,
+    made whole together by one all-reduce (`moe_sum`)."""
     B, T, d = x.shape
     m = cfg.moe
     E, K = m.num_experts, m.num_experts_per_tok
@@ -290,20 +304,40 @@ def moe_apply(p, x, cfg: ModelConfig, *, no_drop: bool = False,
         combine = combine + pos_oh.float() * gate[:, :, j, None, None]
         counts = counts + oh.sum(1, keepdim=True)
 
+    if tp is not None and tp.expert_split:
+        ex = tp.experts(E)
+        dispatch, combine = dispatch[:, :, ex], combine[:, :, ex]
     xin = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
     h = F.silu(torch.einsum("gecd,edf->gecf", xin, p["w_gate"])) \
         * torch.einsum("gecd,edf->gecf", xin, p["w_up"])
     out_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])       # (nG,E,C,d)
     y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), out_e)
     y = y.reshape(nG * G, d)[:S].reshape(B, T, d)
-    if "shared" in p:
-        y = y + mlp(p["shared"], x)
+    y = moe_sum(y, mlp(p["shared"], x) if "shared" in p else None, tp)
 
     # the load-balance aux loss (Switch / GShard)
     frac_tokens = (idx[:, :, 0, None] == ar_e).float().mean((0, 1))
     aux = E * (frac_tokens * probs.mean((0, 1))).sum() \
         * m.router_aux_loss_coef
     return y, aux
+
+
+def moe_sum(routed, shared, tp=None):
+    """The MoE's output: the routed sum plus the shared expert's (None:
+    none). Under tensor parallelism each term is a partial sum where its
+    weights are cut (`tp.expert_split`, `tp.shared_split`) and whole where
+    they replicate; the partial terms are added and made whole by one
+    all-reduce, and a whole term joins after it, so each rank adds it
+    once."""
+    r_split = tp is not None and tp.expert_split
+    if shared is None:
+        return tp.reduce(routed) if r_split else routed
+    s_split = tp is not None and tp.shared_split
+    if r_split == s_split:
+        y = routed + shared
+        return tp.reduce(y) if r_split else y
+    return tp.reduce(routed) + shared if r_split \
+        else routed + tp.reduce(shared)
 
 
 #: a write index: (B, T) tensors of one fixed shape per chunk shape, built
@@ -381,16 +415,17 @@ def self_attention_cached(p, x, positions, cache_k, cache_v, cache_pos,
     return down_proj(out, p["wo"], tp)
 
 
-def encoder_attention(p, x, positions, cfg: ModelConfig):
+def encoder_attention(p, x, positions, cfg: ModelConfig, tp=None):
     """Bidirectional self-attention of an encoder layer: x (B, S, d) at
     `positions` (B, S), RoPE on q and k, every key visible to every query
-    (the flash kernel with causal=False). No cache."""
+    (the flash kernel with causal=False). No cache. `tp` as in
+    `self_attention_cached`."""
     B, S, _ = x.shape
     q, k, v = attention_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.flash_attention(q, k, v, positions, positions, causal=False)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return down_proj(out.reshape(B, S, -1), p["wo"], tp)
 
 
 def _pool_write(pool, flat_slots, val):
@@ -435,7 +470,9 @@ def self_attention_paged(p, x, positions, pool_k, pool_v, pool_pos, tables,
 
 def cross_kv(p, enc_out, cfg: ModelConfig):
     """K and V (B, S, KV, hd) of the encoder output or image embeddings
-    (B, S, d): plain projections, no RoPE."""
+    (B, S, d): plain projections, no RoPE. Under tensor parallelism `p`
+    holds the rank's wk / wv columns and `cfg` its kv-heads, so this is
+    the rank's share of the heads."""
     B, S, _ = enc_out.shape
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     return ((enc_out @ p["wk"]).reshape(B, S, KV, hd),
@@ -443,14 +480,16 @@ def cross_kv(p, enc_out, cfg: ModelConfig):
 
 
 def cross_attention(p, x, cross_k, cross_v, cfg: ModelConfig, *,
-                    gated: bool = False, rows=None, kpos=None):
+                    gated: bool = False, rows=None, kpos=None, tp=None):
     """Cross-attention of x (B, T, d) to a request's fixed keys (no RoPE,
     every query sees every key: the queries and keys all sit at position
     0, non-causal). Contiguous (`rows` None): cross_k/v (B, S, KV, hd), the
     batch's own rows. Paged: cross_k/v are the per-slot rows (N, S, KV,
     hd) read in place through `rows` (B,), each slot a block of S keys
     (tables = rows.view(B, 1)) and `kpos` (N, S) the all-zero position map.
-    `gated`: the VLM's output scaled by tanh(gate), taken in fp32."""
+    `gated`: the VLM's output scaled by tanh(gate), taken in fp32. `tp`:
+    the rank's heads, `wo`'s product made whole (`down_proj`) before the
+    gate, as the single device scales the whole sum."""
     B, T, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(B, T, H, hd)
@@ -463,7 +502,7 @@ def cross_attention(p, x, cross_k, cross_v, cfg: ModelConfig, *,
     else:
         out = ops.paged_flash_attention(q, cross_k, cross_v, q_pos, kpos,
                                         rows.view(B, 1), causal=False)
-    out = out.reshape(B, T, H * hd) @ p["wo"]
+    out = down_proj(out.reshape(B, T, H * hd), p["wo"], tp)
     if gated:
         out = torch.tanh(p["gate"].float()).to(out.dtype) * out
     return out

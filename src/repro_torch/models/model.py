@@ -12,8 +12,9 @@ Serving (`forward` and the calls over it) runs without autograd; training
 Under tensor-parallel serving (DESIGN §12, `group=`) the model is one
 rank's: it carries the group and its local shapes
 (`distributed.sharding.TensorParallel`); `init` draws the whole weights
-from the seed and keeps the rank's slices, and the caches hold its
-kv-heads. Weights made elsewhere (`params.from_jax_params`) are cut with
+from the seed and keeps the rank's slices, cutting each tensor as soon as
+it is drawn (`init_shard`), and the caches hold its kv-heads (the cross
+K/V too). Weights made elsewhere (`params.from_jax_params`) are cut with
 `shard`.
 """
 from __future__ import annotations
@@ -25,9 +26,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config.base import ArchFamily, ModelConfig
-from repro_torch.distributed.sharding import (ServingGroup, shard_params,
-                                              tensor_parallel)
+from repro_torch.distributed.sharding import (ServingGroup, serve_spec,
+                                              shard_params, tensor_parallel)
 from repro_torch.models import backbone as B
+from repro_torch.models.layers import ParamInit
+from repro_torch.params import named_leaves
 
 # stub-frontend lengths (the modality encoders are stubs), as in the JAX
 # package
@@ -67,9 +70,12 @@ class Model(nn.Module):
     # -- params -----------------------------------------------------------
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random weights from `seed`; under a group the rank's slices of
-        the whole weights the seed gives (the same on every rank)."""
-        return self.shard(B.init_params(self.cfg, seed, self.dtype,
-                                        self.device))
+        the whole weights the seed gives (the same on every rank), never
+        holding more than its slices and one whole tensor (`init_shard`)."""
+        if self.tp is None:
+            return B.init_params(self.cfg, seed, self.dtype, self.device)
+        return init_shard(self.cfg, seed, self.dtype, self.device,
+                          self.tp.rank, self.tp.m)
 
     def shard(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """This rank's slices of whole params (`params` itself without a
@@ -187,6 +193,63 @@ class Model(nn.Module):
         logits, cache = self(params, tokens[:, None], seq_lens[:, None],
                              cache, decode=True, tables=tables, rows=rows)
         return logits[:, 0], cache
+
+
+class _Cut(ParamInit):
+    """Draws as ParamInit does and cuts each tensor, as soon as it is
+    made, to `cuts`' next entry: (axis, start, length), or None to keep
+    it whole. The whole tensor is then freed; the generator has drawn
+    exactly what the whole init draws."""
+
+    def __init__(self, seed, dtype, device, cuts):
+        super().__init__(seed, dtype, device)
+        self.cuts = iter(cuts)
+
+    def made(self, t):
+        cut = next(self.cuts)
+        return t if cut is None else t.narrow(*cut).clone()
+
+
+class _Record(ParamInit):
+    """Makes only the shapes (the meta device) and records each tensor in
+    the order it is made."""
+
+    def __init__(self, dtype):
+        super().__init__(0, dtype, "meta")
+        self.order = []
+
+    def made(self, t):
+        self.order.append(t)
+        return t
+
+
+def init_shard(cfg: ModelConfig, seed: int, dtype: torch.dtype, device,
+               rank: int, m: int) -> Dict[str, Any]:
+    """`shard_params(init_params(cfg, seed, ...), cfg, rank, m)`, equal to
+    it bit for bit, drawn without ever holding the whole weights: a run on
+    the meta device names each tensor in the order the init makes it,
+    then the real init cuts each one as it is drawn. Two ranks of a large
+    model on one card (tp (b) of chip_smoke) then fit where whole draws
+    would not. A family whose init transforms a drawn tensor before it
+    becomes a leaf (the SSM's dt, A_log) is drawn whole and cut."""
+    rec = _Record(dtype)
+    names = {id(t): n for n, t in named_leaves(
+        B.init_params(cfg, seed, dtype, "meta", init=rec))}
+    if m == 1 or len(names) != len(rec.order) \
+            or any(id(t) not in names for t in rec.order):
+        return shard_params(B.init_params(cfg, seed, dtype, device), cfg,
+                            rank, m)
+    cuts = []
+    for t in rec.order:
+        spec = serve_spec(names[id(t)], tuple(t.shape), cfg, m)
+        if "model" not in spec:
+            cuts.append(None)
+            continue
+        axis = spec.index("model")
+        n = t.shape[axis] // m
+        cuts.append((axis, rank * n, n))
+    return B.init_params(cfg, seed, dtype, device,
+                         init=_Cut(seed, dtype, device, cuts))
 
 
 def build_model(cfg: ModelConfig, dtype=None, device=None,

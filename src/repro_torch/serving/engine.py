@@ -55,17 +55,21 @@ preemption victim's K, V and position rows into a block-major host pool
 engine's one stream, which orders them after the steps that wrote those
 rows and before any later reuse: the swap path adds no synchronisation.
 
-Tensor-parallel serving (DESIGN §12, `ServeConfig.mesh_shape`, the dense
-attention family) runs one engine per rank process on a model built on
-the rank's serving group (`launch.mesh.make_serving_group`). Every rank
-runs this host code, so every decision must come out the same on each:
+Tensor-parallel serving (DESIGN §12, `ServeConfig.mesh_shape`; the dense,
+MoE, VLM and enc-dec families) runs one engine per rank process on a
+model built on the rank's serving group
+(`launch.mesh.make_serving_group`). Every rank runs this host code, so
+every decision must come out the same on each:
 the inputs they schedule from are the same, and the measured values that
 feed decisions (the clock, each retirement's wait, the interval's host
 time) are rank 0's, agreed once an interval by one broadcast on the
-group's gloo control group (`_agree`), never in a step. The pool holds
-the global block count (the per-chip budget times `model_shards`) at the
-rank's kv-heads; block tables, and so prefix sharing, are the same on
-every rank, and the swap tier moves each rank's own kv-head slice.
+group's gloo control group (`_agree`), never in a step. After an idle
+stretch (the engine's build, a drain) the first stamp agrees rank 0's
+clock afresh (`_fresh_clock`), so a stamp is never older than one
+interval's host time, idle time included. The pool holds the global
+block count (the per-chip budget times `model_shards`) at the rank's
+kv-heads; block tables, and so prefix sharing, are the same on every
+rank, and the swap tier moves each rank's own kv-head slice.
 
 The VLM and enc-dec families take per-request extras (image patch or
 audio frame embeddings, `submit(..., extras=)`), cast to the working dtype
@@ -289,9 +293,12 @@ class Engine:
         # offloaded requests awaiting swap-in, drained before `waiting`
         self.swapped: List[Request] = []
         self.now0 = time.perf_counter()
-        # under a mesh: the clock rank 0 read at the last interval's end,
-        # and its retirement waits, ahead of `_retire_step` (`_agree`)
+        # under a mesh: the clock rank 0 read at the last agreement, and
+        # its retirement waits, ahead of `_retire_step` (`_agree`); the
+        # clock is stale from the build and from each drain until the next
+        # stamp agrees it afresh (`_fresh_clock`)
         self._agreed_now = 0.0
+        self._clock_stale = True
         self._agreed_waits: "collections.deque[float]" = collections.deque()
         self._next_rid = 0
         self.total_decoded = 0
@@ -326,9 +333,9 @@ class Engine:
         self.copy_rows = 0
         self.copy_bytes = 0
         # the model's bytes, as the reference counts its global arrays: a
-        # rank holds 1/m of the K/V heads
-        whole = {k: self.model_shards if k in ("k", "v") else 1
-                 for k in self.cache}
+        # rank holds 1/m of the K/V heads, the cross K/V's too
+        whole = {k: self.model_shards if k in ("k", "v") + CROSS_KEYS
+                 else 1 for k in self.cache}
         self._row_bytes = 0 if self.paged else sum(
             (v[:, 0].numel() if k != "pos" else v[0].numel())
             * v.element_size() * whole[k] for k, v in self.cache.items())
@@ -578,6 +585,8 @@ class Engine:
         {"enc_frames": ...}, (1, enc_len, d), a tensor or an array of any
         float type) are cast to the working dtype and kept on the host for
         the request's life."""
+        if arrival_time is None:
+            self._fresh_clock()
         t = arrival_time if arrival_time is not None else self._now()
         mx = max_new_tokens or self.serve.max_new_tokens
         mx = min(mx, self.max_context - len(prompt_tokens) - 1)
@@ -610,12 +619,27 @@ class Engine:
 
     def _now(self) -> float:
         """Seconds since the engine was built; under a mesh the clock rank
-        0 read at the last agreement (`_agree`), the same on every rank
-        and late by the host time since (docs/PORT.md, "Tensor-parallel
-        serving")."""
+        0 read at the last agreement (`_agree`, `_fresh_clock`), the same
+        on every rank and late by at most one interval's host time
+        (docs/PORT.md, "Tensor-parallel serving")."""
         if self.group is not None:
             return self._agreed_now
         return time.perf_counter() - self.now0
+
+    def _fresh_clock(self) -> None:
+        """Under a mesh, the first stamp after an idle stretch (the
+        engine's build or a drain, however long) agrees rank 0's clock
+        afresh: one broadcast on the control group, at a `submit` that
+        stamps an arrival or at the top of a busy `step()`, whichever
+        comes first. The stamps that follow read it, idle time included,
+        where the clock agreed at the drain would make them early by the
+        whole idle time. Busy intervals keep their one agreement each
+        (`_agree`); every rank submits and steps alike, so the broadcasts
+        match."""
+        if self.group is not None and self._clock_stale:
+            self._agreed_now = self.group.agree(
+                [time.perf_counter() - self.now0])[0]
+            self._clock_stale = False
 
     def _agree(self, t0: float, n: int) -> Optional[float]:
         """Under a mesh, the interval's one agreement: wait for the n
@@ -658,7 +682,9 @@ class Engine:
             self._agree(time.perf_counter(), len(self._inflight))
             while self._inflight:
                 self._retire_step()
+            self._clock_stale = True
             return False
+        self._fresh_clock()
         t0 = time.perf_counter()
         tel = self.tel.snapshot(
             now=self._now(),

@@ -133,19 +133,56 @@ def test_run_graph_audit_subset_paths_anchor_configs():
 
 
 def test_one_rank_mesh_engine_audits_clean_with_its_collectives():
-    """A (1, 1) mesh engine (DESIGN §12, on a gloo group of its own): its
-    model functions and both layouts' steps, every all-reduce traced (two
-    a layer, the embedding's and the head's), pass every rule; the group
-    is left again."""
+    """(1, 1) mesh engines (DESIGN §12, on a gloo group of their own) of
+    reduced granite, qwen2-moe, llama-3.2-vision and seamless-m4t: their
+    model functions and both layouts' steps, every all-reduce traced, pass
+    every rule, and each step's all-reduces are the layout's count: two a
+    layer (attention and MLP, or attention and the experts once), a cross
+    layer's two, the embedding's and the head's, and on a step that
+    carries extras the enc-dec encoder's two a layer. The group is left
+    again."""
     import torch.distributed as dist
+
+    from repro_torch.analysis.graph_audit import MESH_ARCHS
 
     audit = GraphAudit("cpu")
     audit.mesh()
     t = audit.totals()
     assert audit.findings == []
-    assert t["functions"] == 4 and t["steps"] == t["keys"] > 0
+    assert t["functions"] == 4 * len(MESH_ARCHS)
+    assert t["steps"] == t["keys"] > 0
     assert t["collectives"]["allreduce_"] >= t["steps"] * 2 * 2
+    per = t["step_allreduces"]
+    assert len(per) == t["functions"] + t["steps"]
+    # reduced: 2 layers (the VLM's 1 cross layer, seamless's 2 encoder
+    # layers), the vocab cut at m = 1
+    want = {"granite-3-8b": (6, 6), "qwen2-moe-a2.7b": (6, 6),
+            "llama-3.2-vision-90b": (8, 8),
+            "seamless-m4t-medium": (10, 14)}
+    for arch, (plain, first) in want.items():
+        mine = {k: n for k, n in per.items()
+                if k.startswith(f"{arch} mesh ")}
+        assert mine
+        for step, n in mine.items():
+            extras = "'xchunk'" in step or step.endswith(
+                ("prefill", "prefill_paged"))
+            assert n == (first if extras else plain), step
     assert not dist.is_initialized()
+
+
+def test_mesh_audit_flags_a_dropped_allreduce(monkeypatch):
+    """An all-reduce dropped from the MoE's experts (a rank would add its
+    own experts only) is a finding on every step of the MoE's mesh
+    engine."""
+    from repro_torch.models import layers as L
+
+    keep = L.moe_sum
+    monkeypatch.setattr(L, "moe_sum", lambda r, s, tp=None: keep(r, s))
+    audit = GraphAudit("cpu")
+    audit.mesh(archs=("qwen2-moe-a2.7b",))
+    assert audit.findings
+    assert all("all-reduces where the model's layout gives" in f.message
+               for f in audit.findings)
 
 
 # -- seeded violations in the engine's steps --------------------------------

@@ -11,8 +11,14 @@ against the JAX package's rules, and the arithmetic of a rank's shard.
 * Each rank's slices, put back together, are the whole params.
 * One layer at TP 2: the two ranks' partial sums of the attention (through
   a rank-local cache of half the kv-heads) and of the SwiGLU, added,
-  within 1e-5 of the whole layer's; the vocab-parallel embedding and
-  head made whole the same way.
+  within 1e-5 of the whole layer's; so too a MoE layer's (each rank's
+  experts and its shared expert's columns), a cross layer's (the rank's
+  cross K/V heads, the VLM's gate) and an encoder layer's; the
+  vocab-parallel embedding and head made whole the same way.
+* The MoE's layout: experts cut on E where the axis divides it,
+  replicated where not (one all-reduce either way).
+* A rank's weights drawn cut (`model.init_shard`) are its slices of the
+  whole weights, bit for bit.
 """
 import numpy as np
 import pytest
@@ -29,7 +35,8 @@ from repro_torch.distributed.sharding import (TP_FAMILIES, TensorParallel,
                                               check_tp, kv_head_axes,
                                               local_config, serve_spec,
                                               shard_params, spec_for,
-                                              validate)
+                                              tensor_parallel, validate)
+from repro_torch.models.model import init_shard
 from repro_torch.models.backbone import init_cache, init_paged_cache
 from repro_torch.models import layers as L
 from repro_torch.models.backbone import init_params, layer_params
@@ -96,10 +103,13 @@ def test_cache_axes_and_per_rank_cache_shapes(arch):
                     check_tp(cfg, m)
                 continue
             lcfg = local_config(cfg, m)
-            for c in (init_cache(lcfg, 2, 32, device="meta"),
-                      init_paged_cache(lcfg, 4, 16, device="meta")):
+            for c in (init_cache(lcfg, 2, 32, device="meta", enc_len=5),
+                      init_paged_cache(lcfg, 4, 16, device="meta",
+                                       enc_len=5)):
                 assert c["k"].shape[-2:] == (KV // m, hd)
                 assert c["k"].shape[0] == cfg.num_layers
+                if "cross_k" in c:
+                    assert c["cross_k"].shape[-3:] == (5, KV // m, hd)
 
 
 def test_starcoder2_36_heads_do_not_divide_16():
@@ -149,15 +159,22 @@ class _SumGroup:
 
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "qwen1.5-32b",
-                                  "mistral-nemo-12b", "starcoder2-7b"])
+                                  "mistral-nemo-12b", "starcoder2-7b",
+                                  "qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+                                  "llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
 def test_tp2_layer_partial_sums_add_up_to_the_whole_layer(arch):
+    """The self layer's attention and its SwiGLU or MoE; the VLM's gated
+    cross layer and the enc-dec cross and encoder layers: each rank's
+    output with the all-reduce left out (`_SumGroup`), added over the
+    ranks, is the whole layer's within 1e-5."""
     cfg = get_config(arch, "reduced")
     m = 2
     check_tp(cfg, m)
     rng = np.random.RandomState(0)
     whole = init_params(cfg, 0, torch.float32, "cpu")
     for name, t in named_leaves(whole):
-        # numpy draws for every leaf: the biases and norms non-zero too
+        # numpy draws for every leaf: the biases, norms and gates non-zero
         scale = 0.1 if t.dim() <= 2 else 1 / np.sqrt(t.shape[-2])
         t.copy_(torch.from_numpy(
             (rng.standard_normal(t.shape) * scale).astype(np.float32)))
@@ -166,6 +183,10 @@ def test_tp2_layer_partial_sums_add_up_to_the_whole_layer(arch):
     x = torch.from_numpy(rng.standard_normal((B, T, cfg.d_model))
                          .astype(np.float32))
     pos = torch.arange(T, dtype=torch.int32).expand(B, T) + 3
+    if cfg.family.value in ("moe", "vlm", "encdec"):
+        _other_layers_add_up(cfg, whole, x, pos, m, rng)
+        if cfg.family.value != "vlm":
+            return
 
     def attn(p, c):
         KV, hd = c.num_kv_heads, c.resolved_head_dim
@@ -187,6 +208,114 @@ def test_tp2_layer_partial_sums_add_up_to_the_whole_layer(arch):
         got_y = got_y + L.mlp(lr["mlp"], x)
     assert float((got_a - want_a).abs().max()) < 1e-5
     assert float((got_y - want_y).abs().max()) < 1e-5
+
+
+def _other_layers_add_up(cfg, whole, x, pos, m, rng):
+    """The MoE layer (routed experts and the shared expert), the cross
+    layer (the rank's cross K/V from its wk / wv columns; the VLM's tanh
+    gate on the sum) and the encoder layer (bidirectional attention and
+    its SwiGLU) at TP m, against the whole layers."""
+    from repro_torch.models.backbone import encode
+
+    lcfg = local_config(cfg, m)
+    shards = [shard_params(whole, cfg, r, m) for r in range(m)]
+    tps = [tensor_parallel(cfg, _SumGroup(r, m)) for r in range(m)]
+    fam = cfg.family.value
+    checked = []
+
+    def add_up(key, fn):
+        want = fn(layer_params(whole[key], 0), cfg, None)
+        got = sum(fn(layer_params(sh[key], 0), lcfg, tp)
+                  for sh, tp in zip(shards, tps))
+        assert float((got - want).abs().max()) < 1e-5, key
+        checked.append(key)
+
+    if fam == "moe":
+        assert all(tp.expert_split and tp.shared_split for tp in tps)
+        add_up("layers", lambda lp, c, tp: L.moe_apply(
+            lp["moe"], x, c, no_drop=True, tp=tp)[0])
+    else:
+        enc = torch.from_numpy(rng.standard_normal((x.shape[0], 7,
+                                                    cfg.d_model))
+                               .astype(np.float32))
+        key = "cross_layers" if fam == "vlm" else "dec_cross"
+
+        def cross(lp, c, tp):
+            k, v = L.cross_kv(lp["attn"], enc, c)
+            assert k.shape[-2] == c.num_kv_heads
+            a = L.cross_attention(lp["attn"], x, k, v, c,
+                                  gated=fam == "vlm", tp=tp)
+            return a + L.mlp(lp["mlp"], x, tp)
+
+        add_up(key, cross)
+    if fam == "encdec":
+        add_up("enc_layers", lambda lp, c, tp: L.encoder_attention(
+            lp["attn"], x, pos, c, tp) + L.mlp(lp["mlp"], x, tp))
+        # the whole encoder: every rank returns the whole output once the
+        # group sums each layer (here a one-rank group's identity)
+        one = tensor_parallel(cfg, _SumGroup(0, 1))
+        want = encode(whole, x, cfg)
+        assert float((encode(whole, x, one.cfg, one) - want).abs().max()) \
+            == 0.0
+    assert checked
+
+
+@pytest.mark.parametrize("E,m,split", [(4, 2, True), (6, 4, False),
+                                       (5, 2, False)])
+def test_moe_experts_cut_on_e_or_replicated(E, m, split):
+    """The expert stacks are cut on E where m divides it (rank r applies
+    experts [r·E/m, (r+1)·E/m)) and replicated where not, as the JAX
+    package's `_validate` leaves them; the shared expert is cut on its
+    d_ff either way. A replicated routed sum is whole on every rank and
+    joins after the one all-reduce of the shared expert's partial sum, so
+    the ranks' outputs (the group's sum given back to each) are the whole
+    layer's within 1e-5."""
+    import dataclasses
+
+    base = get_config("qwen2-moe-a2.7b", "reduced")
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, num_experts=E))
+    whole = init_params(cfg, 1, torch.float32, "cpu")
+    x = torch.randn(2, 5, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    lw = layer_params(whole["layers"], 0)["moe"]
+    want, _ = L.moe_apply(lw, x, cfg, no_drop=True)
+    parts, outs = [], []
+    for r in range(m):
+        tp = tensor_parallel(cfg, _SumGroup(r, m))
+        assert tp.expert_split == split and tp.shared_split
+        assert tp.experts(E) == (slice(r * E // m, (r + 1) * E // m)
+                                 if split else slice(0, E))
+        lp = layer_params(shard_params(whole, cfg, r, m)["layers"], 0)["moe"]
+        assert lp["w_gate"].shape[0] == (E // m if split else E)
+        # each rank's term before the all-reduce, and what joins after it
+        reduced = []
+        tp.reduce = lambda t, reduced=reduced: reduced.append(t) or t
+        y, _ = L.moe_apply(lp, x, local_config(cfg, m), no_drop=True, tp=tp)
+        assert len(reduced) == 1
+        parts.append(reduced[0])
+        outs.append(y - reduced[0])
+    total = sum(parts)
+    for after in outs:
+        assert float((total + after - want).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "qwen2-moe-a2.7b",
+                                  "llama-3.2-vision-90b",
+                                  "seamless-m4t-medium", "mamba2-2.7b"])
+def test_weights_drawn_cut_are_the_whole_weights_slices(arch):
+    """`init_shard` (each tensor cut as it is drawn) gives every rank
+    `shard_params` of the whole init, bit for bit; mamba2's init, which
+    transforms drawn tensors, takes the whole-then-cut path."""
+    cfg = get_config(arch, "reduced")
+    whole = init_params(cfg, 5, torch.float32, "cpu")
+    for r in range(2):
+        want = dict(named_leaves(shard_params(whole, cfg, r, 2)))
+        got = dict(named_leaves(init_shard(cfg, 5, torch.float32, "cpu",
+                                           r, 2)))
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
 
 
 def test_vocab_parallel_embedding_and_head_add_up():
