@@ -14,7 +14,7 @@ Phases, one JSON line each:
              without the paged instantiations or an SSD library whose SASS
              (cuobjdump) holds no TF32 tensor-core instruction
              (HMMA.1688.F32.TF32).
-3. kernels   each of the 9 kernel entries against its plain PyTorch version
+3. kernels   each of the 10 kernel entries against its plain PyTorch version
              on the card at the serving path's shapes (the attention
              kernels, RMSNorm and the gated RG-LRU recurrence in bf16
              against the fp32 plain version, the SSD term, the RG-LRU scan
@@ -55,7 +55,15 @@ Phases, one JSON line each:
              over 1601 patches, a ragged last tile), and the paged cross
              read (each request's cross row one block of 1024 or 1601
              slots of the per-slot rows, tables = rows.view(B, 1)), each
-             beside SDPA where one call computes it.
+             beside SDPA where one call computes it. The split form of
+             RMSNorm (`rmsnorm_split`: a rank's share of mamba2-2.7b's
+             gated norm, 2560 of d_inner 5120, at 8 and 16 rows; its two
+             launches around the group's all-reduce), beside F.rms_norm
+             over the whole rows; kernels_split_rows: whole rows cut in
+             two simulated ranks, each half's sums made whole by adding
+             the other's, equal to the rmsnorm kernel over the whole rows
+             within 2e-2 (the reading with the sums not made whole
+             printed).
              kernels_tp_slices (the tp phase's part (c)): decode, paged
              decode and the Tq 16 / 500 chunks at granite-3-8b's TP-2
              shapes (`repro_torch.bench.tp_slices`): each rank's launch
@@ -65,8 +73,13 @@ Phases, one JSON line each:
              1024; the VLM's decode-step cross read, 32 heads on 4 over
              1601 patches, contiguous and paged), bit for bit in fp32 and
              in bf16 where both split the key axis alike, within 2e-2
-             otherwise; rank 0's serving-shape launches are timed as rows
-             of this phase (case "TP-2 rank 0: ...").
+             otherwise; recurrentgemma-9b's 8 of 16 heads on its kv-head
+             of 256 gathered whole (decode B 8 over its 2048 window,
+             contiguous and paged, and Tq 16 chunks), mamba2-2.7b's SSD
+             term on 40 of 80 heads and the gated RG-LRU on 2048 of 4096
+             channels (B 8 T 1, B 2 T 16), within 2e-2 (bf16) or 1e-4 of
+             max|whole| (fp32); rank 0's serving-shape launches are timed
+             as rows of this phase (case "TP-2 rank 0: ...").
 4. reference per arch, full width with depth cut to one layer pattern
              (granite-3-8b, starcoder2-7b, mistral-nemo-12b,
              qwen2-moe-a2.7b and mamba2-2.7b 2 layers, qwen1.5-32b 1,
@@ -94,10 +107,11 @@ Phases, one JSON line each:
              0) through `repro_torch.launch.serve.build_engine`, its CUDA
              graphs captured by `Engine.warmup` (every decode bucket and
              full-chunk lane shape; tail chunks at first use), for
-             granite-3-8b, starcoder2-7b, mistral-nemo-12b, qwen1.5-32b
-             and qwen2-moe-a2.7b (12 requests each), mamba2-2.7b and
-             recurrentgemma-9b (8 each), seamless-m4t-medium and
-             llama-3.2-vision-90b (12 each; the VLM's depth cut to 16
+             granite-3-8b (12 requests), starcoder2-7b (8),
+             mistral-nemo-12b (6), qwen1.5-32b (4), qwen2-moe-a2.7b (8),
+             mamba2-2.7b and recurrentgemma-9b (8 each),
+             seamless-m4t-medium (12) and llama-3.2-vision-90b (8;
+             the first n of one prompt stream; the VLM's depth cut to 16
              self + 4 cross layers, `DEPTH_CUTS`; each request's extras
              at the real length, gates at 0.5):
              prompts of 32-480 tokens, 32 new tokens, chunked prefill on 2
@@ -226,9 +240,11 @@ Phases, one JSON line each:
 
 15. tp      (after the serve runs, their engines released) tensor-parallel
              serving (DESIGN §12) at full width in bf16: granite-3-8b,
-             and one arch of each other family served on a mesh
-             (`TP_MORE`: qwen2-moe-a2.7b, seamless-m4t-medium,
-             llama-3.2-vision-90b at its DEPTH_CUTS). (a) tp_nccl_run /
+             and one arch of each other family (`TP_MORE`:
+             qwen2-moe-a2.7b, seamless-m4t-medium, llama-3.2-vision-90b at
+             its DEPTH_CUTS, mamba2-2.7b and recurrentgemma-9b, whose
+             single kv-head takes the head_dim fallback at m = 2). (a)
+             tp_nccl_run /
              tp_nccl_one_rank: a (1, 1) mesh over NCCL, the serve flags,
              granite in both layouts and the others paged, on CUDA graphs
              with the all-reduces captured (`run_serve`'s checks): tokens
@@ -236,30 +252,37 @@ Phases, one JSON line each:
              replay checks of phase 6 with each replay's device ms beside
              the no-mesh engine's; each engine's bucket-8 decode step (and
              a first chunk with extras) run once under the graph audit's
-             `OpTrace`, its all-reduces equal to the layout's count
-             (`graph_audit.allreduces`); the graph audit of the reduced
-             one-rank mesh engines of `graph_audit.MESH_ARCHS` on the same
-             group (every step's all-reduces against the layout's). (b)
+             `OpTrace`, its all-reduces and gathers equal to the layout's
+             counts (`graph_audit.allreduces`, `gathers`; mamba2's forward
+             launches `rmsnorm_split` 64 times and the plain norm once);
+             the graph audit of the reduced one-rank mesh engines of
+             `graph_audit.MESH_ARCHS` on the same group (every step's
+             all-reduces and gathers against the layout's). (b)
              tp_gloo_arch / tp_gloo_two_ranks: a (1, 2) mesh, two gloo
              ranks on the one card (`launch.mesh.spawn_ranks`), each
              rank's weights drawn cut (`model.init_shard`), eager (gloo's
              collectives cannot be captured; NCCL refuses two ranks on one
              card), static policy, 4 prompts of 32-96 tokens, 16 new,
              granite and qwen2-moe in both layouts, the cross families
-             paged with extras at the real lengths: both ranks decode the
+             paged with extras at the real lengths, mamba2 and
+             recurrentgemma paged: both ranks decode the
              same tokens; at a cut depth (TP_PROBE_CUTS, full width) the
              first decode step's logits within TP_LOGIT_TOL of max|logit|
              of the single-device bf16 step on the same weights and
              inputs, and the same model with one all-reduce dropped (a
              planted fault: granite's last MLP, qwen2-moe's last layer's
-             experts, the cross families' last cross `wo`) beyond it; the
+             experts, the cross families' last cross `wo`, mamba2's last
+             `out_proj`, recurrentgemma's last recurrent `w_out`) beyond
+             it; mamba2's gated norm held by a layer check (a rank's
+             normed channels against the whole norm's slice, the reading
+             with its all-reduce dropped printed); the
              cross families held at TP_PROBE_ENC_LEN cross keys and
              printed at the real length; qwen2-moe on the single device's
              replayed expert picks, the picks that differed before the
              replay counted; the single device's own spread beside; a
-             full-depth probe's all-reduces traced against the layout's;
-             finished, model_shards 2 and the pool at twice the per-chip
-             tokens; the counters and request sets of the port's
+             full-depth probe's all-reduces and gathers traced against
+             the layout's; finished, model_shards 2 (mamba2 1) and the
+             pool at that many times the per-chip tokens; the counters and request sets of the port's
              simulator at mesh_shape (1, 2); the kernels of the layout
              launched and the norms a forward (a first chunk's encoder
              taken off); weights a rank beside the whole model's; granite's
@@ -289,6 +312,11 @@ Phases, one JSON line each:
              step time (CUDA events), tokens/s, peak memory, and the model
              FLOP rate (`train_flops`) as a share of the card's dense bf16
              peak, beside the card's name and power limit.
+
+17. timing  the seconds of each stretch of phases (build, kernels,
+             references, serve, audit, sliding, eager_overlap,
+             twins_tiers, profiles, tp, train) and their total, from the
+             kernels' build to the end of training.
 
 Then the card's name and power limit, the `{"kernels": [...]}` summary,
 and as the last line `{"ok": true, "device": {...}}`. Any failure raises:
@@ -353,17 +381,20 @@ def serve_args(arch: str, cut: bool = True):
 UNCUT = (("qwen1.5-32b", True),)
 
 
-#: arch -> (requests served, kernels its main path must launch in both
+#: arch -> (requests served (fewer than granite's 12 where a family's runs
+#: are long: qwen1.5-32b decodes at b_max 2, mistral-nemo serves three
+#: pairs; the first n of the same prompt stream), kernels its main path
+#: must launch in both
 #: layouts, whether it attends (the layout's decode and chunk kernels are
 #: then added), (fused add + RMSNorm, plain RMSNorm) launches per forward,
 #: other kernels' launches per forward, prefill chunks and decode steps
 #: alike)
 FAMILIES = {
     "granite-3-8b": (12, ("rmsnorm", "add_rmsnorm"), True, (80, 1), {}),
-    "starcoder2-7b": (12, ("rmsnorm", "add_rmsnorm"), True, (64, 1), {}),
-    "mistral-nemo-12b": (12, ("rmsnorm", "add_rmsnorm"), True, (80, 1), {}),
-    "qwen1.5-32b": (12, ("rmsnorm", "add_rmsnorm"), True, (128, 1), {}),
-    "qwen2-moe-a2.7b": (12, ("rmsnorm", "add_rmsnorm"), True, (48, 1), {}),
+    "starcoder2-7b": (8, ("rmsnorm", "add_rmsnorm"), True, (64, 1), {}),
+    "mistral-nemo-12b": (6, ("rmsnorm", "add_rmsnorm"), True, (80, 1), {}),
+    "qwen1.5-32b": (4, ("rmsnorm", "add_rmsnorm"), True, (128, 1), {}),
+    "qwen2-moe-a2.7b": (8, ("rmsnorm", "add_rmsnorm"), True, (48, 1), {}),
     "mamba2-2.7b": (8, ("ssd_intra", "rmsnorm", "add_rmsnorm"), False,
                     (64, 65), {}),
     "recurrentgemma-9b": (8, ("rglru_gated_scan", "rmsnorm", "add_rmsnorm"),
@@ -373,7 +404,7 @@ FAMILIES = {
     "seamless-m4t-medium": (12, ("rmsnorm", "add_rmsnorm"), True, (48, 1),
                             {}),
     # 16 self + 4 cross layers (DEPTH_CUTS)
-    "llama-3.2-vision-90b": (12, ("rmsnorm", "add_rmsnorm"), True, (40, 1),
+    "llama-3.2-vision-90b": (8, ("rmsnorm", "add_rmsnorm"), True, (40, 1),
                              {}),
 }
 #: kernels no serve run launches: the TPU kernel's direct counterpart,
@@ -532,7 +563,8 @@ def max_err(got, want) -> float:
 
 #: the port's kernel entry functions, as they appear in mangled names
 KERNEL_NAMES = ("mma_attention_kernel", "mma_combine_kernel", "decode_kernel",
-                "flash_kernel", "rmsnorm_kernel", "ssd_kernel", "rglru_kernel")
+                "flash_kernel", "rmsnorm_kernel", "sumsq_kernel",
+                "scale_kernel", "ssd_kernel", "rglru_kernel")
 
 
 def _label(mangled: str) -> str:
@@ -883,6 +915,24 @@ def kernel_cases(dev):
                                                     eps=1e-6),
             nbytes(x, y, w, x, x), 5 * rows * d, "bf16"))
 
+    # the split form, a TP-2 rank's share of mamba2-2.7b's gated norm (2560
+    # of d_inner 5120) at a decode step's rows and a 16-token chunk's, its
+    # rows' sums taken as the whole's (the all-reduce is the group's; the
+    # whole-row check is `run_split_rows`); its library call is F.rms_norm
+    # over the whole rows, for reference
+    for rows in SPLIT_ROWS:
+        d, k = SPLIT_WIDTH
+        x, w = rn(rows, d), rn(d) * 0.1
+        xr, wr, w1 = x[:, :k].contiguous(), w[:k].contiguous(), 1.0 + w
+        cases.append((
+            "rmsnorm_split", f"rank rows={rows} d={k} of {d}",
+            lambda xr=xr, wr=wr, d=d: ops.rmsnorm_split(xr, wr, d=d),
+            lambda xr=xr, wr=wr, d=d: ref.rmsnorm_split_ref(xr, wr, d=d),
+            lambda xr=xr, wr=wr, d=d: ref.rmsnorm_split_ref(
+                xr.float(), wr.float(), d=d),
+            lambda x=x, w1=w1, d=d: F.rms_norm(x, (d,), weight=w1, eps=1e-6),
+            nbytes(xr, wr, xr), 4 * rows * k, "bf16"))
+
     # mamba2-2.7b: 80 heads of P 64, N 128; the serving chunk (Q 16), two
     # lanes' ragged last chunks (Q 7) and the config's (two chunks of 256). mamba2-like magnitudes: dt in
     # [1e-3, 1e-1], A in [-80, -1], so the decays lie in (0, 1]
@@ -964,6 +1014,11 @@ GRAPH_CASES = {("rmsnorm", "rows=8 d=4096"), ("add_rmsnorm", "rows=8 d=4096"),
                ("paged_flash_attention", "Tq=16 MB=64 bs=16"),
                ("rglru_gated_scan", "B=8 T=1 W=4096 bf16")}
 
+#: the split form's cases: rows (a decode step's 8, a 16-token chunk's)
+#: and (d_inner, a TP-2 rank's share) of mamba2-2.7b
+SPLIT_ROWS = (8, 16)
+SPLIT_WIDTH = (5120, 2560)
+
 #: kernel -> (route, source, the TPU kernel it replaces, main-path case)
 KERNELS = {
     "decode_attention": (
@@ -984,6 +1039,9 @@ KERNELS = {
     "add_rmsnorm": (
         "cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "src/repro/kernels/rmsnorm.py:25", "rows=8 d=4096"),
+    "rmsnorm_split": (
+        "cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm.py:25", "rank rows=8 d=2560 of 5120"),
     "ssd_intra": (
         "cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:38",
@@ -1019,7 +1077,7 @@ def run_kernels(dev):
                  library_ms=time_ms(lib, flush) if lib else None,
                  bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=n_ops,
                  peak=f"{peak} {PEAK_FLOPS[peak] / 1e12} TFLOP/s")
-        if name in ("rmsnorm", "add_rmsnorm"):
+        if name in ("rmsnorm", "add_rmsnorm", "rmsnorm_split"):
             r.update(host_us=host_us(kern), library_host_us=host_us(lib))
         if name.startswith("rglru"):
             # the plain versions loop over T in Python: fewer calls
@@ -1033,6 +1091,44 @@ def run_kernels(dev):
         emit("kernels", **r)
         results.append(r)
     return results
+
+
+def run_split_rows(dev) -> dict:
+    """Kernel 4's split form over two simulated ranks (`kernels_split_rows`):
+    whole rows of mamba2-2.7b's d_inner (SPLIT_WIDTH, SPLIT_ROWS rows) cut
+    in two, each half normed by `ops.rmsnorm_split` with a reduce that adds
+    the other half's fp32 sums of squares (the group's all-reduce), the
+    halves put back together: within ATOL + RTOL · |want| of the rmsnorm
+    kernel over the whole rows and of the fp32 plain norm. Beside it,
+    printed, the same halves with the reduce dropped (each half normed by
+    its own sums)."""
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    d, k = SPLIT_WIDTH
+    out = {}
+    for rows in SPLIT_ROWS:
+        x = torch.randn((rows, d), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((d,), generator=g, device=dev) * 0.1).to(
+            torch.bfloat16)
+        halves = [x[:, :k].contiguous(), x[:, k:].contiguous()]
+        sums = [(h.float() ** 2).sum(-1) for h in halves]
+        got = torch.cat([ops.rmsnorm_split(
+            h, w[r * k:(r + 1) * k].contiguous(), d=d,
+            reduce=lambda s, r=r: s + sums[1 - r])
+            for r, h in enumerate(halves)], -1)
+        dropped = torch.cat([ops.rmsnorm_split(
+            h, w[r * k:(r + 1) * k].contiguous(), d=d)
+            for r, h in enumerate(halves)], -1)
+        # max_err raises outside the tolerance
+        out[f"rows={rows} d={d} halves of {k}"] = dict(
+            vs_kernel=max_err(got, ops.rmsnorm(x, w)),
+            vs_plain=max_err(got, ref.rmsnorm_ref(x.float(), w.float())),
+            dropped_vs_kernel=float((dropped.float() - ops.rmsnorm(
+                x, w).float()).abs().max()),
+            tol=f"{ATOL} + {RTOL} * |want|")
+    emit("kernels_split_rows", **out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1581,6 +1677,9 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
     from repro_torch.serving.graphs import WARMUP_RUNS
 
     n_req, path, attends, (fused, plain), per_forward = FAMILIES[arch]
+    if mesh and arch in MESH_NORMS:
+        (fused, plain), more = MESH_NORMS[arch]
+        path, per_forward = path + tuple(more), dict(per_forward, **more)
     args = serve.build_parser().parse_args(
         serve_args(arch, cut) + (["--paged"] if paged else [])
         + ["--overlap-depth", str(depth)]
@@ -1756,11 +1855,18 @@ def run_twin(arch: str, layout: str, runs: dict):
 # tensor-parallel serving (DESIGN §12) on the one card
 
 #: the archs served tensor-parallel: the dense family's, then one arch of
-#: each other family the port serves on a mesh (the MoE's, the enc-dec's
-#: and the VLM's at its DEPTH_CUTS), and the mesh of tp (b): two gloo ranks
-#: on the one card (NCCL refuses two ranks on one device)
+#: each other family (the MoE's, the enc-dec's, the VLM's at its
+#: DEPTH_CUTS, the SSM's and the hybrid's), and the mesh of tp (b): two
+#: gloo ranks on the one card (NCCL refuses two ranks on one device)
 TP_ARCH = "granite-3-8b"
-TP_MORE = ("qwen2-moe-a2.7b", "seamless-m4t-medium", "llama-3.2-vision-90b")
+TP_MORE = ("qwen2-moe-a2.7b", "seamless-m4t-medium", "llama-3.2-vision-90b",
+           "mamba2-2.7b", "recurrentgemma-9b")
+#: kernels only a mesh's forward launches (the split form of the norm:
+#: mamba2's gated norm over a rank's d_inner / m), checked after the tp
+#: runs; and the norm launches a forward where a mesh changes them:
+#: arch -> ((fused, plain), other kernels a forward)
+TP_PATH = ("rmsnorm_split",)
+MESH_NORMS = {"mamba2-2.7b": ((64, 1), {"rmsnorm_split": 64})}
 TP_GLOO_MESH = (1, 2)
 #: tp (b)'s flags beside SERVE_ARGS, and its prompts (count, lengths): its
 #: steps run eagerly and each all-reduce goes through the host, so the
@@ -1772,7 +1878,8 @@ TP_GLOO_PROMPTS = (4, 32, 96)
 #: CPU tests hold (tests/test_torch_tp_serving.py)
 TP_GLOO_LAYOUTS = {TP_ARCH: (False, True), "qwen2-moe-a2.7b": (False, True),
                    "seamless-m4t-medium": (True,),
-                   "llama-3.2-vision-90b": (True,)}
+                   "llama-3.2-vision-90b": (True,), "mamba2-2.7b": (True,),
+                   "recurrentgemma-9b": (True,)}
 #: tp (b)'s logit rule. At full depth and random weights bf16 is chaotic:
 #: the single device differs from itself by about as much as from the two
 #: ranks when only its launch shapes change, so the rule is held at a cut
@@ -1796,7 +1903,10 @@ TP_PROBE_CUTS = {TP_ARCH: dict(num_layers=TP_PROBE_LAYERS),
                  "seamless-m4t-medium": dict(num_layers=TP_PROBE_LAYERS,
                                              encoder_layers=TP_PROBE_LAYERS),
                  "llama-3.2-vision-90b": dict(num_layers=TP_PROBE_LAYERS,
-                                              num_cross_layers=1)}
+                                              num_cross_layers=1),
+                 "mamba2-2.7b": dict(num_layers=TP_PROBE_LAYERS),
+                 # (r, r, a, r): three recurrent layers and one attention
+                 "recurrentgemma-9b": dict(num_layers=TP_PROBE_LAYERS)}
 #: cross keys a request of the cross families' held probe. A cross read
 #: over the real 1024-1601 random keys averages them to ~1/40 of a value
 #: row, so its `wo` all-reduce moves a logit by ~1-2% (a CPU estimate at
@@ -1816,30 +1926,37 @@ def tp_config(arch: str):
                                **DEPTH_CUTS.get(arch, {}))
 
 
-def count_allreduces(fn, *args):
-    """(the all-reduces `fn(*args)` dispatched, traced by the graph audit's
-    `OpTrace`; its result)."""
-    from repro_torch.analysis.graph_audit import OpTrace
+def count_collectives(fn, *args):
+    """((the all-reduces, the gathers) `fn(*args)` dispatched, traced by
+    the graph audit's `OpTrace`; its result)."""
+    from repro_torch.analysis.graph_audit import ALLREDUCE, GATHER, OpTrace
 
     with torch.no_grad(), OpTrace() as tr:
         out = fn(*args)
-    return tr.collectives.get("allreduce_", 0), out
+    return (tr.collectives.get(ALLREDUCE, 0),
+            tr.collectives.get(GATHER, 0)), out
 
 
 def run_tp_kernels(dev):
-    """tp (c): kernels 1-3 per rank at the TP-2 shapes
+    """tp (c): kernels 1-3, 5 and 6 per rank at the TP-2 shapes
     (`repro_torch.bench.tp_slices`: granite-3-8b's decode, paged decode and
     chunks, each rank's 16 query heads on its 4 kv-heads; the non-causal
     launches of seamless-m4t's encoder, 8 of 16 heads at Tq = Tk = 1024,
     and of the VLM's decode-step cross read, 32 heads on 4 kv-heads over
-    1601 patches, contiguous and paged), compared with the same heads of
-    the whole launch, in bf16 and fp32: bit for bit in fp32 and where both
-    launches split the key axis alike, within 2e-2 elsewhere. Rank 0's
+    1601 patches, contiguous and paged; recurrentgemma-9b's 8 of 16 heads
+    on its kv-head of 256 gathered whole, decode B 8 over its 2048 window,
+    contiguous and paged, and Tq 16 chunks; mamba2-2.7b's SSD term on 40
+    of 80 heads; the gated RG-LRU on 2048 of 4096 channels, B 8 T 1 and B
+    2 T 16), compared with the same heads or channels of the whole launch,
+    in bf16 and fp32: an attention launch on the rank's kv-heads bit for
+    bit in fp32 and where both launches split the key axis alike, every
+    other case within 2e-2 (bf16) or 1e-4 of max|whole| (fp32). Rank 0's
     serving shapes (decode B 8 over rows of 33-1024 slots, the Tq 16
-    chunks, the non-causal cases) are timed like the kernels phase's rows
-    (with their plain versions, SDPA where one call computes the same
-    function, and bounds at the rank's bytes and operations). Returns
-    (the slice checks, the timed rows)."""
+    chunks, the non-causal cases, the hybrid's attention, the SSD and
+    RG-LRU cases) are timed like the kernels phase's rows (with their
+    plain versions, SDPA where one call computes the same function, and
+    bounds at the rank's bytes and operations). Returns (the slice
+    checks, the timed rows)."""
     import torch.nn.functional as F
     from repro_torch.bench import tp_slices
     from repro_torch.kernels import ref
@@ -1848,8 +1965,20 @@ def run_tp_kernels(dev):
     plains = {"decode_attention": ref.decode_attention_ref,
               "paged_decode_attention": ref.paged_decode_attention_ref,
               "flash_attention": ref.flash_attention_ref,
-              "paged_flash_attention": ref.paged_flash_attention_ref}
+              "paged_flash_attention": ref.paged_flash_attention_ref,
+              "ssd_intra": ref.ssd_intra_ref,
+              "rglru_gated_scan": ref.rglru_gated_scan_ref}
     timed_cases = ("B=8 fill=33-1024", "Tq=16")
+
+    def timed(case, dtype):
+        """Rank 0's serving shapes: granite's, the non-causal launches,
+        the hybrid's attention and RG-LRU in bf16, the SSD term (fp32)."""
+        if case.name == "ssd_intra":
+            return True
+        return dtype == torch.bfloat16 and (
+            not case.causal or case.label in timed_cases
+            or case.label.startswith("hybrid")
+            or case.name == "rglru_gated_scan")
 
     def sdpa(case, a):
         if case.name == "decode_attention":
@@ -1874,16 +2003,17 @@ def run_tp_kernels(dev):
             c = tp_slices.compare(case)
             c["ok"] = tp_slices.verdict(c)
             checks.append(c)
-            if dtype != torch.bfloat16 or (case.causal and case.label
-                                           not in timed_cases):
+            if not timed(case, dtype):
                 continue
             a = case.rank_args(0)
             kw = {} if case.causal else {"causal": False}
+            if case.label.startswith("hybrid"):
+                kw["window"] = tp_slices.HYBRID[3]
             got = case.fn(*a)
             want = plains[case.name](*[t.float() if t.is_floating_point()
                                        else t for t in a], **kw)
             lib = sdpa(case, a)
-            b_ms, b_by = bound(case.rank_bytes(), case.rank_ops(), "bf16")
+            b_ms, b_by = bound(case.rank_bytes(), case.rank_ops(), case.peak)
             r = dict(name=case.name, case=f"TP-2 rank 0: {case.label}",
                      max_abs_err=max_err(got, want),
                      tol=f"{ATOL} + {RTOL} * |plain|",
@@ -1893,7 +2023,8 @@ def run_tp_kernels(dev):
                      library_ms=time_ms(lib, flush) if lib else None,
                      bound_ms=b_ms, bound_by=b_by, bytes=case.rank_bytes(),
                      ops=case.rank_ops(),
-                     peak=f"bf16 {PEAK_FLOPS['bf16'] / 1e12} TFLOP/s",
+                     peak=f"{case.peak} {PEAK_FLOPS[case.peak] / 1e12} "
+                          f"TFLOP/s",
                      splits_whole=c["splits_whole"],
                      splits_rank=c["splits_rank"])
             emit("kernels", **r)
@@ -1907,21 +2038,31 @@ def run_tp_kernels(dev):
 
 
 def step_allreduces(eng) -> dict:
-    """The all-reduces of the engine's bucket-8 decode step and, where the
-    family takes extras, of a first chunk with them, each run once eagerly
-    on its static all-padding inputs under `OpTrace`, beside the model
-    layout's count (`graph_audit.allreduces`)."""
-    from repro_torch.analysis.graph_audit import allreduces
+    """The all-reduces and gathers of the engine's bucket-8 decode step
+    and, where the family takes extras, of a first chunk with them, each
+    run once eagerly on its static all-padding inputs under `OpTrace`,
+    beside the model layout's counts (`graph_audit.allreduces`,
+    `gathers`)."""
+    from repro_torch.analysis.graph_audit import allreduces, gathers
 
     keys = [("decode", max(eng.buckets))] + sorted(
         (k for k in eng.graphs.steps if k[0] == "xchunk"), key=str)[:1]
     out = {}
     for key in keys:
         st = eng._step(key)
-        n, _ = count_allreduces(st.fn, st.inputs)
+        (n, g), _ = count_collectives(st.fn, st.inputs)
+        m, tp = eng.model.local_cfg, eng.model.tp
         out[str(key)] = dict(traced=n, layout=allreduces(
-            eng.model.local_cfg, eng.model.tp, key[0] == "xchunk"))
+            m, tp, key[0] == "xchunk"), gathers=g, gathers_layout=gathers(
+            m, tp))
     return out
+
+
+def counts_hold(counts: dict) -> bool:
+    """Every traced step's all-reduces and gathers are the layout's."""
+    return all(c["traced"] == c["layout"]
+               and c.get("gathers", 0) == c.get("gathers_layout", 0)
+               for c in counts.values())
 
 
 def run_tp_nccl(served, graphs, launches) -> dict:
@@ -1978,8 +2119,7 @@ def run_tp_nccl(served, graphs, launches) -> dict:
                     no_mesh_interval_s_mean=zero["interval_s_mean"],
                     seconds=time.perf_counter() - t0)
                 emit("tp_nccl_run", run=name, **out[name])
-                if not same or diff or any(c["traced"] != c["layout"]
-                                           for c in counts.values()):
+                if not same or diff or not counts_hold(counts):
                     bad[name] = (same, diff, counts)
             t0 = time.perf_counter()
             audit = GraphAudit(torch.device("cuda"))
@@ -2038,15 +2178,29 @@ def planted_fault(arch: str, cfg, tp):
     collectives still match): granite's last layer's MLP (rank 0 then adds
     its own share only), a MoE's last layer's experts (`layers.moe_sum`
     without the group), a cross family's last cross layer's `wo`
-    (`layers.cross_attention` without the group)."""
+    (`layers.cross_attention` without the group), mamba2's last layer's
+    `out_proj` and the hybrid's last recurrent layer's `w_out` (their
+    modules' `down_proj` without the group)."""
     import itertools
 
     from repro_torch.config.base import ArchFamily
     from repro_torch.models import layers as L
-    from repro_torch.models.backbone import n_cross_layers
+    from repro_torch.models import rglru as R
+    from repro_torch.models import ssm as S
+    from repro_torch.models.backbone import layer_counts, n_cross_layers
 
     calls = itertools.count()
-    if cfg.family == ArchFamily.MOE:
+    if cfg.family in (ArchFamily.SSM, ArchFamily.HYBRID):
+        # the module's only down-projection: out_proj / w_out, once a layer
+        mod = S if cfg.family == ArchFamily.SSM else R
+        keep, n = mod.down_proj, layer_counts(cfg)[1]
+        mod.down_proj = lambda x, w, tp=None: keep(x, w) \
+            if next(calls) % n == n - 1 else keep(x, w, tp)
+        try:
+            yield
+        finally:
+            mod.down_proj = keep
+    elif cfg.family == ArchFamily.MOE:
         keep, n = L.moe_sum, cfg.num_layers
         L.moe_sum = lambda r, s, tp=None: keep(r, s) \
             if next(calls) % n == n - 1 else keep(r, s, tp)
@@ -2152,7 +2306,7 @@ def _tp_gloo_arch(group, rank: int, world: int, arch: str) -> dict:
     TP_ARCH rank 0 then serves the single-device runs too."""
     import numpy as np
     import torch.distributed as dist
-    from repro_torch.analysis.graph_audit import allreduces
+    from repro_torch.analysis.graph_audit import allreduces, gathers
     from repro_torch.bench.kv_swap import prompts as make_prompts
     from repro_torch.bench.kv_swap import request_sets
     from repro_torch.kernels import ops
@@ -2190,10 +2344,10 @@ def _tp_gloo_arch(group, rank: int, world: int, arch: str) -> dict:
         if probe:
             # the probe's all-reduces: a first chunk (with the extras)
             # and a decode step; a decode step alone
-            n_probe, logits = count_allreduces(
+            (n_probe, g_probe), logits = count_collectives(
                 _tp_probe, eng.model, eng.params, prompts, lo - 1, full_ex)
             if eng.group is not None:
-                n_dec, _ = count_allreduces(
+                (n_dec, g_dec), _ = count_collectives(
                     eng.model.decode_step, eng.params,
                     torch.zeros(1, dtype=torch.int64, device="cuda"),
                     torch.zeros(1, dtype=torch.int32, device="cuda"),
@@ -2201,8 +2355,11 @@ def _tp_gloo_arch(group, rank: int, world: int, arch: str) -> dict:
                 m, tp = eng.model.local_cfg, eng.model.tp
                 counts = {
                     "probe": dict(traced=n_probe, layout=allreduces(
-                        m, tp, full_ex is not None) + allreduces(m, tp)),
-                    "decode": dict(traced=n_dec, layout=allreduces(m, tp))}
+                        m, tp, full_ex is not None) + allreduces(m, tp),
+                        gathers=g_probe, gathers_layout=2 * gathers(m, tp)),
+                    "decode": dict(traced=n_dec, layout=allreduces(m, tp),
+                                   gathers=g_dec,
+                                   gathers_layout=gathers(m, tp))}
             if eng.group is None:
                 # the single device's own bf16 spread: each prompt alone,
                 # other GEMM and attention launch shapes than the batch's
@@ -2227,7 +2384,10 @@ def _tp_gloo_arch(group, rank: int, world: int, arch: str) -> dict:
                    + s["step_device_s_mean"],
                    intervals=len(eng.step_host_trace),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   kv_heads=int(eng.cache["k"].shape[-2]),
+                   kv_heads=int(eng.cache["k"].shape[-2])
+                   if "k" in eng.cache else None,
+                   kv_dim=int(eng.cache["k"].shape[-1])
+                   if "k" in eng.cache else None,
                    cross_kv_heads=int(eng.cache["cross_k"].shape[-2])
                    if "cross_k" in eng.cache else None,
                    weights_gb=sum(t.numel() * t.element_size() for _, t in
@@ -2257,6 +2417,8 @@ def _tp_gloo_arch(group, rank: int, world: int, arch: str) -> dict:
         if logits is not None:
             out["tp_logits"] = logits
     out["tp_cut"] = _tp_cut_probe(group, arch, prompts, lo - 1, picks)
+    if cfg.ssm is not None:
+        out["norm_layer"] = _tp_split_norm(group, cfg)
     if rank == 0:
         out["single_cut"] = single_cut
     if rank == 0 and arch == TP_ARCH:
@@ -2270,6 +2432,40 @@ def _tp_gloo_arch(group, rank: int, world: int, arch: str) -> dict:
             if logits is not None:
                 out["single_logits"] = logits
     dist.barrier(group=group.control)
+    return out
+
+
+def _tp_split_norm(group, cfg, dev="cuda") -> dict:
+    """mamba2's gated norm held by a layer check of its own (the logit
+    rule may not see its all-reduce dropped: random halves of a row have
+    similar mean squares): rows of d_inner drawn from a seed (the same on
+    every rank), the rank's channels normed by `ops.rmsnorm_split` over
+    the group, against its slice of the rmsnorm kernel's whole rows, within
+    ATOL + RTOL · |want|; the same with the reduce dropped, printed."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.ssm import ssm_dims
+    from repro_torch.distributed.sharding import tensor_parallel
+
+    tp = tensor_parallel(cfg, group)
+    d = ssm_dims(cfg)[0]
+    mine = tp.part(d)
+    g = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for rows in SPLIT_ROWS:
+        x = torch.randn((rows, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        w = (torch.randn((d,), generator=g, device=dev) * 0.1).to(
+            torch.bfloat16)
+        want = ops.rmsnorm(x, w, eps=cfg.rms_eps)[:, mine]
+        xr, wr = x[:, mine].contiguous(), w[mine].contiguous()
+        got = ops.rmsnorm_split(xr, wr, d=d, eps=cfg.rms_eps,
+                                reduce=tp.reduce)
+        dropped = ops.rmsnorm_split(xr, wr, d=d, eps=cfg.rms_eps)
+        scale = float(want.float().abs().max())
+        out[f"rows={rows}"] = dict(
+            max_abs_err=max_err(got, want),
+            dropped_rel=float((dropped.float() - want.float()).abs().max())
+            / scale)
     return out
 
 
@@ -2304,9 +2500,11 @@ def _tp_gloo_check(arch: str, res: dict, launches) -> tuple:
     the failures)."""
     from repro_torch.bench.kv_swap import prompts as make_prompts
     from repro_torch.bench.kv_swap import sim_twin
+    from repro_torch.core.memory_model import kv_shard_factor
     from repro_torch.launch import serve
 
     cfg = tp_config(arch)
+    shards = kv_shard_factor(cfg, TP_GLOO_MESH[-1])
     tp_cut, one_cut = res.pop("tp_cut"), res.pop("single_cut")
     cut = {"tp": _rel(tp_cut["sound"], one_cut["sound"]),
            "single_rows": _rel(one_cut["rows"], one_cut["sound"]),
@@ -2323,6 +2521,9 @@ def _tp_gloo_check(arch: str, res: dict, launches) -> tuple:
     out = dict(seconds=res["seconds"], logits_rel_err=dict(
         cut, layers=TP_PROBE_CUTS[arch], tol=TP_LOGIT_TOL),
         whole_weights_gb=res["whole_weights_gb"])
+    if "norm_layer" in res:
+        # max_err raised on the rank had a row been out of tolerance
+        out["norm_layer"] = res["norm_layer"]
     for k in ("prefill", "decode"):
         if cut["tp"][k] > TP_LOGIT_TOL:
             bad.append(f"{arch} {k} logits {cut['tp'][k]} at "
@@ -2340,7 +2541,10 @@ def _tp_gloo_check(arch: str, res: dict, launches) -> tuple:
                                      == one_dec.argmax(-1)).mean())
     n, lo, hi = TP_GLOO_PROMPTS
     prompts = make_prompts(cfg.vocab_size, n, lo, hi)
-    fused, plain = FAMILIES[arch][3]
+    _, fpath, attends, (fused, plain), per_forward = FAMILIES[arch]
+    if arch in MESH_NORMS:
+        (fused, plain), more = MESH_NORMS[arch]
+        per_forward = dict(per_forward, **more)
     for paged in TP_GLOO_LAYOUTS[arch]:
         layout = "paged" if paged else "contiguous"
         rec = res[layout]
@@ -2365,7 +2569,8 @@ def _tp_gloo_check(arch: str, res: dict, launches) -> tuple:
             ranks_agree=rec["ranks_agree"],
             finished=s["finished"], model_shards=s["model_shards"],
             pool_tokens=s["pool_tokens"], twin_diff=twin_diff,
-            kv_heads=rec["kv_heads"], cross_kv_heads=rec["cross_kv_heads"],
+            kv_heads=rec["kv_heads"], kv_dim=rec["kv_dim"],
+            cross_kv_heads=rec["cross_kv_heads"],
             weights_gb=rec["weights_gb"], params_b=rec["params_b"],
             interval_s_mean=rec["interval_s_mean"],
             step_host_s_mean=s["step_host_s_mean"],
@@ -2387,25 +2592,27 @@ def _tp_gloo_check(arch: str, res: dict, launches) -> tuple:
                 single_interval_s_mean=one["interval_s_mean"])
         if not rec["ranks_agree"]:
             bad.append(f"{arch} {layout}: the ranks' tokens differ")
-        if s["finished"] != n or s["model_shards"] != 2 \
-                or s["pool_tokens"] != 2 * 8192:
+        if s["finished"] != n or s["model_shards"] != shards \
+                or s["pool_tokens"] != shards * 8192:
             bad.append(f"{arch} {layout}: finished {s['finished']}, shards "
                        f"{s['model_shards']}, pool {s['pool_tokens']}")
         if twin_diff:
             bad.append(f"{arch} {layout}: engine and simulator differ "
                        f"{twin_diff}")
-        if rec["allreduces"] and any(c["traced"] != c["layout"]
-                                     for c in rec["allreduces"].values()):
+        if rec["allreduces"] and not counts_hold(rec["allreduces"]):
             bad.append(f"{arch} {layout}: all-reduces {rec['allreduces']}")
-        path = ATTENTION[paged] + ("rmsnorm", "add_rmsnorm")
+        path = fpath + tuple(per_forward) \
+            + (ATTENTION[paged] if attends else ())
         other = ATTENTION[not paged]
-        if any(fwd_launches[k] <= 0 for k in path) \
+        if any(fwd_launches[k] <= 0 for k in path if per_forward.get(k, 1)) \
                 or any(fwd_launches[k] for k in other):
             bad.append(f"{arch} {layout}: launches {rec['launches']}")
         fwd = fwd_launches["rmsnorm"] // plain
-        if fwd_launches["add_rmsnorm"] != fused * fwd:
-            bad.append(f"{arch} {layout}: {fwd_launches['add_rmsnorm']} "
-                       f"fused norms in {fwd} forwards")
+        if fwd_launches["add_rmsnorm"] != fused * fwd or any(
+                fwd_launches[k] != c * fwd for k, c in per_forward.items()):
+            bad.append(f"{arch} {layout}: {fwd_launches} in {fwd} "
+                       f"forwards, not {fused} + {plain} norms and "
+                       f"{per_forward} a forward")
     return out, bad
 
 
@@ -2420,8 +2627,9 @@ def run_tp_gloo(card: str, launches) -> dict:
     picks that differed before the replay counted); a forward's
     all-reduces, traced on the full-depth probe, equal to the layout's
     count; the counters equal to the port's simulator on the same flags
-    with `mesh_shape` (1, 2) (`model_shards` 2); weights a rank beside the
-    whole model's; granite's 40-layer readings and the share of greedy
+    with `mesh_shape` (1, 2) (`model_shards` 2, mamba2's 1); mamba2's
+    gated norm held by a layer check of its own (`_tp_split_norm`);
+    weights a rank beside the whole model's; granite's 40-layer readings and the share of greedy
     tokens equal to the single-device run's, printed, not held (chaos
     swamps them); interval times beside the card's name and power limit.
     A correctness path: gloo copies each all-reduce through the host, so
@@ -3276,6 +3484,15 @@ def main() -> int:
     dev = torch.device("cuda")
     emit("env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0))
+    start = last = time.perf_counter()
+    phase_s = {}
+
+    def lap(name):
+        """The seconds since the previous lap, under `name`."""
+        nonlocal last
+        now = time.perf_counter()
+        phase_s[name] = now - last
+        last = now
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -3298,13 +3515,17 @@ def main() -> int:
         raise AssertionError("the SSD kernel has no TF32 tensor-core "
                              "instruction in its SASS")
 
+    lap("build")
     kres = run_kernels(dev)
+    split_rows = run_split_rows(dev)
     tp_slices, tp_rows = run_tp_kernels(dev)
     kres += tp_rows
+    lap("kernels")
     refs = [run_reference(dev, arch) for arch in REFERENCE]
     cross_refs = [run_cross_reference(dev, arch) for arch in CROSS_REFERENCE]
     sliding_ref = run_sliding_reference(dev)
     prefix_ref = run_prefix_reference(dev)
+    lap("references")
     serves, runs, launches, graphs, served = {}, {}, {}, {}, {}
     from repro_torch.analysis.graph_audit import GraphAudit
     full_audit, full_audit_s, synced = GraphAudit(dev), 0.0, None
@@ -3358,7 +3579,9 @@ def main() -> int:
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    lap("serve")
     audit = run_audit(dev, full_audit, full_audit_s, synced)
+    lap("audit")
     layout_tokens = {arch: agreement(arch) for arch in FAMILIES}
     emit("layout_tokens", **layout_tokens)
     # the sliding variant: the contiguous ring wraps, the paged pool masks
@@ -3405,7 +3628,9 @@ def main() -> int:
             raise AssertionError(f"{key}: the layouts' tokens differ: "
                                  f"{agree}")
         serves[key] = layouts
-    if any((n > 0) == (k in OFF_PATH) for k, n in launches.items()):
+    lap("sliding")
+    if any((n > 0) == (k in OFF_PATH) for k, n in launches.items()
+           if k not in TP_PATH):
         raise AssertionError(f"a path kernel never launched, or an "
                              f"off-path one did: {launches}")
     # the same run with every step eager: the same tokens and counters,
@@ -3443,6 +3668,7 @@ def main() -> int:
                                  f"counters differ from depth 0's: {diff}")
         overlap[f"{arch}_{layout}"] = fields
         served[arch, layout, OVERLAP_DEPTH] = (fields, reqs)
+    lap("eager_overlap")
     twins = {f"{arch}_{layout}": run_twin(arch, layout, {
         depth: served[key] for depth, key in (
             (0, (arch, layout)), (OVERLAP_DEPTH, (arch, layout, OVERLAP_DEPTH)))
@@ -3452,6 +3678,7 @@ def main() -> int:
     tiers, tier_launches, (swap_eng, swap_log, _) = run_tiers()
     for k, n in tier_launches.items():
         launches[k] = launches.get(k, 0) + n
+    lap("twins_tiers")
     arch, layout = PROFILED
     profile = run_profile(arch, layout == "paged")
     profile_overlap = run_profile(arch, layout == "paged",
@@ -3461,14 +3688,24 @@ def main() -> int:
     del swap_eng, swap_log
     gc.collect()
     torch.cuda.empty_cache()
+    lap("profiles")
     # tensor-parallel serving (DESIGN §12): one NCCL rank on graphs, then
     # two gloo ranks on the one card, eager
     tp = dict(nccl=run_tp_nccl(served, graphs, launches),
               gloo=run_tp_gloo(card, launches), slices=tp_slices)
+    if not all(launches.get(k) for k in TP_PATH):
+        raise AssertionError(f"a kernel of the mesh path never launched in "
+                             f"the tp runs: {launches}")
+    lap("tp")
     # training, once every serving engine is released
     train_runs = {"reduced": run_train_reduced(dev)}
     for arch in TRAIN_FULL:
         train_runs[arch] = run_train_full(dev, card, arch)
+    lap("train")
+    # the script's seconds from its build on (the imports before it and
+    # the summary after it take under a second)
+    timing = dict(phases=phase_s, seconds=time.perf_counter() - start)
+    emit("timing", **timing)
 
     summary = []
     for name, (route, source, replaces, case) in KERNELS.items():
@@ -3497,7 +3734,7 @@ def main() -> int:
          "twin": twins, "tiers": tiers, "prefix_reference": prefix_ref,
          "sliding_reference": sliding_ref, "layout_tokens": layout_tokens,
          "profile_swap": profile_swap, "audit": audit, "train": train_runs,
-         "tp": tp,
+         "tp": tp, "split_rows": split_rows, "timing": timing,
          "serve_eager": {f"{arch}_{layout}": eager}},
         indent=1))
     print(card)

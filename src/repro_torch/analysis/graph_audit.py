@@ -37,14 +37,15 @@ kernel wrapper's dtype is audited, its launch is not (on the CPU a
 wrapper runs its plain version, every op of which is seen).
 
 A tensor-parallel step (DESIGN §12) adds its collectives, `c10d`'s
-`allreduce_`, which move nothing to the host (gloo on the CPU, NCCL on the
-card) and pass every rule. `GraphAudit.mesh` audits one-rank mesh
-engines' steps in both layouts (`MESH_ARCHS`: one arch of each family the
-port serves on a mesh), on a (1, 1) serving group, and counts each traced
-step's all-reduces: a step whose count is not `allreduces`' (the count the
-model's layout gives, a forward's plus the encoder's where the step
-carries extras) is a finding, as a dropped or doubled all-reduce would
-leave a rank's sum partial or twice whole.
+`allreduce_` and `_allgather_base_`, which move nothing to the host (gloo
+on the CPU, NCCL on the card) and pass every rule. `GraphAudit.mesh`
+audits one-rank mesh engines' steps in both layouts (`MESH_ARCHS`: one
+arch of each family), on a (1, 1) serving group, and counts each traced
+step's all-reduces and gathers: a step whose counts are not `allreduces`'
+and `gathers`' (the counts the model's layout gives, a forward's plus the
+encoder's where the step carries extras) is a finding, as a dropped or
+doubled all-reduce would leave a rank's sum partial or twice whole, and a
+dropped gather a rank's gate products or attention on its own slice.
 """
 from __future__ import annotations
 
@@ -86,9 +87,11 @@ CHUNK = 8
 ENC_LEN = 16
 BLOCK_SIZE = 16
 #: the archs whose one-rank mesh engines `GraphAudit.mesh` audits: one of
-#: each family the port serves on a mesh
+#: each family
 MESH_ARCHS = ("granite-3-8b", "qwen2-moe-a2.7b", "llama-3.2-vision-90b",
-              "seamless-m4t-medium")
+              "seamless-m4t-medium", "mamba2-2.7b", "recurrentgemma-9b")
+#: the c10d op names of a traced step's all-reduces and gathers
+ALLREDUCE, GATHER = "allreduce_", "_allgather_base_"
 
 
 def allreduces(cfg: ModelConfig, tp, extras: bool = False) -> int:
@@ -96,14 +99,18 @@ def allreduces(cfg: ModelConfig, tp, extras: bool = False) -> int:
     (`sharding.TensorParallel`), from the model's layout: the embedding's
     and the head's where the vocab is cut; a self layer's attention `wo`,
     and its SwiGLU's `w_down` where d_ff is cut (the MoE's experts and
-    shared expert once, where either is cut: `layers.moe_sum`); a cross
-    layer's `wo` and SwiGLU alike; and with `extras` (a first chunk) the
-    enc-dec encoder's layers, as a self layer's."""
+    shared expert once, where either is cut: `layers.moe_sum`); a
+    recurrent layer's `w_out` and SwiGLU as a self layer's; a Mamba2
+    layer's gated-norm sums and `out_proj`; a cross layer's `wo` and
+    SwiGLU alike; and with `extras` (a first chunk) the enc-dec encoder's
+    layers, as a self layer's."""
     mlp = 1 + int(tp.mlp_split)
     n = 2 * int(tp.vocab_split)
     if cfg.family == ArchFamily.MOE:
         shared = bool(cfg.moe.shared_ff_dim) and tp.shared_split
         return n + cfg.num_layers * (1 + int(tp.expert_split or shared))
+    if cfg.family == ArchFamily.SSM:
+        return n + 2 * cfg.num_layers
     n += cfg.num_layers * mlp
     if cfg.family == ArchFamily.VLM:
         n += cfg.num_cross_layers * mlp
@@ -112,6 +119,18 @@ def allreduces(cfg: ModelConfig, tp, extras: bool = False) -> int:
         if extras:
             n += cfg.encoder_layers * mlp
     return n
+
+
+def gathers(cfg: ModelConfig, tp) -> int:
+    """All-gathers one forward of `cfg` makes on `tp`'s group: a recurrent
+    layer's post-conv x (for the gate products, `rglru._core`), and under
+    the head_dim fallback two an attention layer (the chunk's new K and V
+    rows before RoPE, the layer's cache or pool slab before the kernel:
+    `layers.rope_qkv`, `layers.kv_read`)."""
+    if cfg.family != ArchFamily.HYBRID:
+        return 0
+    n_att = sum(1 for k in cfg.layer_kinds() if k == "attention")
+    return cfg.num_layers - n_att + 2 * n_att * int(tp.hd_split)
 
 
 def _bind(func, args, kwargs) -> Dict[str, object]:
@@ -225,8 +244,10 @@ class GraphAudit:
         self.captures = 0
         self.launches: Dict[str, int] = collections.Counter()
         self.collectives: Dict[str, int] = collections.Counter()
-        #: traced step -> its all-reduces (the mesh engines' steps)
+        #: traced step -> its all-reduces and gathers (the mesh engines'
+        #: steps)
         self.step_allreduces: Dict[str, int] = {}
+        self.step_gathers: Dict[str, int] = {}
         #: arch -> the config fields `card_config` changed
         self.cuts: Dict[str, Dict[str, int]] = {}
 
@@ -241,7 +262,8 @@ class GraphAudit:
         self.ops += tr.ops
         self.collectives.update(tr.collectives)
         if tr.collectives:
-            self.step_allreduces[step] = tr.collectives.get("allreduce_", 0)
+            self.step_allreduces[step] = tr.collectives.get(ALLREDUCE, 0)
+            self.step_gathers[step] = tr.collectives.get(GATHER, 0)
         self.findings.extend(audit_trace(tr, step, path))
 
     def model(self, model, params, name: str, path: str) -> None:
@@ -387,6 +409,14 @@ class GraphAudit:
                     RULE, path, 1,
                     f"{step}: {n} all-reduces where the model's layout "
                     f"gives {want} — a partial sum dropped or summed twice"))
+            g, want = self.step_gathers[step], gathers(model.local_cfg,
+                                                       model.tp)
+            if g != want:
+                self.findings.append(Finding(
+                    RULE, path, 1,
+                    f"{step}: {g} gathers where the model's layout gives "
+                    f"{want} — a rank computing on its own slice of what "
+                    f"must be whole"))
 
     def arch(self, arch: str, variant: str = "reduced") -> None:
         """The model-level functions and both layouts' engine steps of one
@@ -421,6 +451,7 @@ class GraphAudit:
                     launches=dict(sorted(self.launches.items())),
                     collectives=dict(sorted(self.collectives.items())),
                     step_allreduces=dict(self.step_allreduces),
+                    step_gathers=dict(self.step_gathers),
                     cuts=self.cuts)
 
 

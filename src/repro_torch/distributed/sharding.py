@@ -17,22 +17,30 @@ JAX package's `distributed/sharding.py`, on `torch.distributed`.
   partial sum, all-reduced before it joins the residual stream; a
   vocab-sharded embedding is a masked local lookup and an all-reduce, a
   vocab-sharded head an all-gather (every rank then holds the same full
-  logits). The MoE's routed experts are cut on E (expert parallelism:
-  rank r holds experts [r·E/m, (r+1)·E/m) and applies only those); where
-  E does not divide the axis its stacks replicate, as the JAX package's
-  `_validate` leaves them.
+  logits). Where a rank needs whole an activation it holds a slice of
+  (the RG-LRU's gate products, the K/V under the head_dim fallback) it
+  gathers it (`gather`). The MoE's routed experts are cut on E (expert
+  parallelism: rank r holds experts [r·E/m, (r+1)·E/m) and applies only
+  those); where E does not divide the axis its stacks replicate, as the
+  JAX package's `_validate` leaves them.
 * `ServingGroup`: this process's place in a (data, model) layout: its
   tensor-parallel group, the ranks sharing its data index, and a gloo
   control group over every rank, on which rank 0's measured values are
   broadcast (`agree`). `launch.mesh.make_serving_group` installs it as
   the ambient serving group, the twin of `set_serving_mesh`.
 
-The port splits no head: it serves a mesh only where the kv-heads divide
-the model axis (and so the query heads too). K/V stored sharded on
-head_dim (`kv_head_axes`' fallback) is not ported and raises, as do the
-hybrid and SSM families (`check_tp`). The dense, MoE, VLM and enc-dec
-families are served; the cross-attention K/V of the VLM and enc-dec
-families hold a rank's kv-heads, as `serve_cache_shardings` shards them.
+The port splits no query head: it serves a mesh where the query heads
+divide the model axis and either the kv-heads divide it too (a rank holds
+KV/m of them) or the head_dim fallback applies (`kv_head_axes`: a rank's
+cache holds hd/m channels of every kv-head, gathered to the whole hd
+before each attention read). Every family is served: the dense, MoE, VLM
+and enc-dec families on their heads (the cross K/V of the VLM and enc-dec
+families hold a rank's kv-heads, as `serve_cache_shardings` shards them;
+under the fallback they raise, a later slice), mamba2's mixer cut by
+segment (`segments`: its z, x and dt columns and its x conv channels per
+rank, B and C whole) with the gated norm's sum of squares all-reduced,
+and RecurrentGemma's RG-LRU channels per rank, its gate products reading
+the whole post-conv x through one gather.
 """
 from __future__ import annotations
 
@@ -43,20 +51,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.config.base import ArchFamily, ModelConfig
+from repro_torch.models.ssm import ssm_dims
 
 Spec = Tuple[Any, ...]
 
-#: the families served under a mesh, and where each other one goes
-TP_FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.VLM,
-               ArchFamily.ENCDEC)
-LATER_SLICE = {
-    ArchFamily.HYBRID: "the hybrid and SSM families' (RG-LRU channels over "
-                       "\"model\", its single kv head sharded on head_dim, "
-                       "the all-reduced gated norm)",
-    ArchFamily.SSM: "the hybrid and SSM families' (mamba2's in_proj "
-                    "segments, ssd_intra per rank, the all-reduced gated "
-                    "norm)",
-}
+#: families with cross-attention K/V, which the head_dim fallback does not
+#: serve yet
+CROSS_FAMILIES = (ArchFamily.VLM, ArchFamily.ENCDEC)
 
 
 def spec_for(name: str, ndim: int, cfg: ModelConfig,
@@ -156,57 +157,128 @@ def kv_head_axes(m: int, kv: int, hd: int) -> Tuple[Optional[str],
 
 
 def check_tp(cfg: ModelConfig, m: int) -> None:
-    """Raise unless the port serves `cfg` on a model axis of m."""
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving of the {cfg.family.value} "
-            f"family is not ported yet; it is a later slice, "
-            f"{LATER_SLICE[cfg.family]}")
-    kv_ax, hd_ax = kv_head_axes(m, cfg.num_kv_heads, cfg.resolved_head_dim)
-    if kv_ax is None:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_kv_heads} kv-heads on a model axis of "
-            f"{m}: " + ("the head_dim fallback (K/V stored sharded on "
-                        "head_dim) is not ported" if hd_ax else
-                        "neither kv-heads nor head_dim divide the axis"))
+    """Raise unless the port serves `cfg` on a model axis of m: mamba2's
+    SSD heads, the RG-LRU channels and the query heads must divide the
+    axis (the port splits no head), and the kv-heads too unless the
+    head_dim fallback takes them (then every rank's query heads must read
+    one kv-head, and no cross K/V may be cut on head_dim)."""
+    def refuse(why: str):
+        raise NotImplementedError(f"{cfg.name} on a model axis of {m}: "
+                                  f"{why}")
+
+    if cfg.family == ArchFamily.SSM:
+        _, H, _, _ = ssm_dims(cfg)
+        if H % m:
+            refuse(f"its {H} SSD heads do not divide the axis")
+    if cfg.family == ArchFamily.HYBRID \
+            and (cfg.rglru.lru_width or cfg.d_model) % m:
+        refuse("its RG-LRU channels do not divide the axis")
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if not H:
+        return
+    kv_ax, hd_ax = kv_head_axes(m, KV, cfg.resolved_head_dim)
+    if kv_ax is None and hd_ax is None:
+        refuse(f"neither its {KV} kv-heads nor head_dim "
+               f"{cfg.resolved_head_dim} divide the axis")
+    if H % m:
+        refuse(f"its {H} query heads do not divide the axis (the port "
+               f"splits no query head)")
+    if hd_ax is None:
+        return
+    if m % KV:
+        refuse(f"under the head_dim fallback a rank's {H // m} query heads "
+               f"would read parts of two of the {KV} kv-heads")
+    if cfg.family in CROSS_FAMILIES:
+        refuse("its cross-attention K/V under the head_dim fallback (K/V "
+               "stored sharded on head_dim) is not ported; it is a later "
+               "slice")
 
 
 def local_config(cfg: ModelConfig, m: int) -> ModelConfig:
-    """The config of one rank's heads: H/m query heads on KV/m kv-heads at
-    the same head_dim. Heads are kv-major, so query heads
-    [r·H/m, (r+1)·H/m) read exactly kv-heads [r·KV/m, (r+1)·KV/m)."""
+    """The config of one rank's heads: H/m query heads at the same
+    head_dim, on KV/m kv-heads (heads are kv-major, so query heads
+    [r·H/m, (r+1)·H/m) read exactly kv-heads [r·KV/m, (r+1)·KV/m)), or
+    under the head_dim fallback on all KV, of which they read one
+    (`TensorParallel.kv_head`). The widths of mamba2's mixer and of the
+    RG-LRU stay whole here: a rank's share of them comes from
+    `TensorParallel.m`."""
     check_tp(cfg, m)
+    kv = cfg.num_kv_heads
     return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
-                               num_kv_heads=cfg.num_kv_heads // m,
+                               num_kv_heads=kv // m if kv % m == 0 else kv,
                                head_dim=cfg.resolved_head_dim)
+
+
+def segments(name: str, cfg: ModelConfig
+             ) -> Optional[List[Tuple[int, bool]]]:
+    """The port's cut of mamba2's `in_proj` and `conv_*` along their last
+    axis: (width, cut) a segment, in order, a cut segment split over the
+    ranks and a whole one kept on every rank; None for every other leaf.
+    `in_proj`'s columns are z, x, B, C and dt (`d_proj = 2 d_in + 2 N +
+    H`): a rank takes its d_in/m of z and x and its H/m of dt, and B and
+    C whole (one group: every head reads them); the conv's channels are
+    x, B and C alike. The §5 rule cuts the flat columns contiguously,
+    which GSPMD reshards and explicit slices cannot: rank 0 would hold
+    all of z and part of x."""
+    if cfg.family != ArchFamily.SSM:
+        return None
+    d_in, H, _, N = ssm_dims(cfg)
+    if name.endswith("mixer/in_proj"):
+        return [(d_in, True), (d_in, True), (N, False), (N, False),
+                (H, True)]
+    if name.endswith(("mixer/conv_w", "mixer/conv_b")):
+        return [(d_in, True), (N, False), (N, False)]
+    return None
+
+
+def shard_leaf(name: str, t: torch.Tensor, cfg: ModelConfig, rank: int,
+               m: int) -> torch.Tensor:
+    """Rank `rank`'s slice of one whole leaf on a model axis of m, copied
+    (so the whole leaf can be freed): cut by `segments` where it has
+    them, else along the axis its `serve_spec` puts on "model" (the
+    rank's contiguous block); `t` itself where it replicates."""
+    if m == 1:
+        return t
+    segs = segments(name, cfg)
+    if segs is not None:
+        parts, at = [], 0
+        for width, cut in segs:
+            n = width // m if cut else width
+            parts.append(t.narrow(-1, at + (rank * n if cut else 0), n))
+            at += width
+        return torch.cat(parts, -1)
+    spec = serve_spec(name, tuple(t.shape), cfg, m)
+    if "model" not in spec:
+        return t
+    axis = spec.index("model")
+    n = t.shape[axis] // m
+    return t.narrow(axis, rank * n, n).clone()
 
 
 def shard_params(params: Dict[str, Any], cfg: ModelConfig, rank: int,
                  m: int, prefix: str = "") -> Dict[str, Any]:
-    """Rank `rank`'s slices of whole params on a model axis of m: each
-    leaf cut along the axis its `serve_spec` puts on "model" (the rank's
-    contiguous block, copied, so the whole leaf can be freed), else kept
-    whole (replicated)."""
+    """Rank `rank`'s slices of whole params on a model axis of m, leaf by
+    leaf (`shard_leaf`)."""
     if not 0 <= rank < m:
         raise ValueError(f"rank {rank} outside a model axis of {m}")
     out: Dict[str, Any] = {}
     for k, v in params.items():
         name = f"{prefix}{k}"
-        if isinstance(v, dict):
-            out[k] = shard_params(v, cfg, rank, m, name + "/")
-            continue
-        spec = serve_spec(name, tuple(v.shape), cfg, m)
-        axis = spec.index("model") if "model" in spec else -1
-        if axis < 0 or m == 1:
-            out[k] = v
-        else:
-            n = v.shape[axis] // m
-            out[k] = v.narrow(axis, rank * n, n).clone()
+        out[k] = shard_params(v, cfg, rank, m, name + "/") \
+            if isinstance(v, dict) else shard_leaf(name, v, cfg, rank, m)
     return out
 
 
 # ---------------------------------------------------------------------------
 # groups and collectives
+
+
+#: the all-gather into one tensor: `all_gather_single` where torch has it
+#: (2.13 has it and deprecates the old name, with a warning), else
+#: `all_gather_into_tensor`. The old name calls the new one, so both
+#: dispatch c10d's `_allgather_base_`, the op the graph audit counts.
+_all_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
 
 
 @dataclasses.dataclass
@@ -236,6 +308,17 @@ class ServingGroup:
         dist.all_reduce(x, group=self.tp)
         return x
 
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., n) of each rank -> (..., m·n) on every rank, the ranks'
+        slices in rank order along the last axis: one all-gather into a
+        tensor of a fixed shape (it captures in a CUDA graph on NCCL),
+        then the rank axis moved beside the last."""
+        m = self.model_size
+        out = x.new_empty((m * x.shape[0],) + tuple(x.shape[1:]))
+        _all_gather(out, x.contiguous(), group=self.tp)
+        return out.view((m,) + tuple(x.shape)).movedim(0, -2).reshape(
+            tuple(x.shape[:-1]) + (m * x.shape[-1],))
+
     def agree(self, values: Sequence[float]) -> List[float]:
         """Rank 0's `values` on every rank: one broadcast of a small
         float64 host tensor on the control group. Every rank runs the
@@ -257,14 +340,29 @@ class TensorParallel:
     vocab_split: bool           # embed (and lm_head) cut on the vocab
     expert_split: bool = False  # the MoE's expert stacks cut on E
     shared_split: bool = False  # the MoE's shared expert cut on its d_ff
+    hd_split: bool = False      # K/V cut on head_dim (the fallback)
+
+    def part(self, n: int) -> slice:
+        """This rank's contiguous slice of n: its SSD heads or RG-LRU
+        channels, or its experts where they are cut."""
+        k = n // self.m
+        return slice(self.rank * k, (self.rank + 1) * k)
 
     def experts(self, n: int) -> slice:
         """The experts of n that this rank applies: its contiguous slice
         of E when the stacks are cut on E, else all of them."""
-        if not self.expert_split:
-            return slice(0, n)
-        k = n // self.m
-        return slice(self.rank * k, (self.rank + 1) * k)
+        return self.part(n) if self.expert_split else slice(0, n)
+
+    def kv_dim(self, hd: int) -> int:
+        """The head_dim a rank's K/V cache stores: hd/m under the head_dim
+        fallback, else the whole hd."""
+        return hd // self.m if self.hd_split else hd
+
+    @property
+    def kv_head(self) -> int:
+        """Under the head_dim fallback, the kv-head this rank's query
+        heads read (heads are kv-major and m is a multiple of KV)."""
+        return self.rank * self.cfg.num_kv_heads // self.m
 
     @property
     def m(self) -> int:
@@ -277,6 +375,11 @@ class TensorParallel:
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         """A partial sum made whole on every rank."""
         return self.group.all_reduce(x)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' slices of the last axis, whole on every rank
+        (`ServingGroup.gather`)."""
+        return self.group.gather(x)
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor):
         """The embedding rows of `tokens`: a masked lookup in the rank's
@@ -321,7 +424,10 @@ def tensor_parallel(cfg: ModelConfig, group: ServingGroup) -> TensorParallel:
     return TensorParallel(group, lcfg, mlp_split=mlp[1] == "model",
                           vocab_split=vocab[0] == "model",
                           expert_split="model" in experts[1:2],
-                          shared_split="model" in shared[1:2])
+                          shared_split="model" in shared[1:2],
+                          hd_split=kv_head_axes(
+                              m, cfg.num_kv_heads,
+                              cfg.resolved_head_dim)[1] == "model")
 
 
 # The process's ambient serving group (DESIGN §12), installed by

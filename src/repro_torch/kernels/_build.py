@@ -48,6 +48,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "rmsnorm": [_I] + [_P] * 3 + [_I] * 2 + [_F, _P],
         # dtype, x, y, w, sum_out, out, rows, d, eps, stream
         "add_rmsnorm": [_I] + [_P] * 5 + [_I] * 2 + [_F, _P],
+        # dtype, x, ss, rows, d, stream
+        "rmsnorm_sumsq": [_I] + [_P] * 2 + [_I] * 2 + [_P],
+        # dtype, x, ss, w, out, rows, d, d_total, eps, stream
+        "rmsnorm_scale": [_I] + [_P] * 4 + [_I] * 3 + [_F, _P],
     },
     "ssd_scan": {
         # xdt, cum_a, Br, Cr, y, s, Z, Q, H, P, N, stream

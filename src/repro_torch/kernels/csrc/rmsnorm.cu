@@ -4,7 +4,8 @@
 // rmsnorm(s), where the norm reads the rounded s, so the residual stream is
 // bit for bit PyTorch's `x + y`.
 //
-// Replaces the Pallas kernel `rmsnorm_kernel` of src/repro/kernels/rmsnorm.py.
+// Replaces the Pallas kernel `rmsnorm_kernel` of src/repro/kernels/rmsnorm.py
+// (its split form: the same norm of a row cut over the ranks).
 //
 // Bound: device-memory bytes (one row reduction and an elementwise scale;
 // 4 operations an element). So each row is read once and written once:
@@ -20,6 +21,17 @@
 // flight. At the decode shape the call is bound by its launch and one
 // round trip to memory, which the fused add shares with the norm instead
 // of paying it in a launch of its own.
+//
+// The split form, for a row cut over the ranks of a tensor-parallel group
+// (mamba2's gated norm over d_inner, a rank holding d_inner / m of it):
+// rmsnorm_sumsq writes each row's fp32 sum of squares of the rank's slice,
+// the caller sums the ranks' sums (an all-reduce of rows x 4 bytes), and
+// rmsnorm_scale writes x * rsqrt(total / d_total + eps) * (1 + w) for the
+// slice. A thread takes its elements, and the block its warps' sums, in
+// the rmsnorm kernel's order, and the scale is its expression, so over a
+// whole row (a one-rank group) the pair is the rmsnorm kernel bit for bit.
+// One block a row for the sums; the scale is elementwise, one 16-byte
+// pack a thread.
 //
 // Widths: d a multiple of 16 / sizeof(T) takes the 16-byte path; any other
 // d takes one element a load. A row is held as NV loads a thread, NV in
@@ -182,6 +194,93 @@ int dispatch(const void* x, const void* y, const void* w, void* sum_out,
   return (int)cudaErrorInvalidValue;
 }
 
+// ss[row] = sum of x[row, :]^2 in fp32, one block a row.
+template <typename T, int VW>
+__global__ void __launch_bounds__(kThreads)
+sumsq_kernel(const T* __restrict__ x, float* __restrict__ ss, int d) {
+  using P = Pack<T, VW>;
+  const int nvec = d / VW, tid = threadIdx.x;
+  __shared__ float red[kThreads / 32];
+  const P* row = reinterpret_cast<const P*>(x + (size_t)blockIdx.x * d);
+  float s = 0.f;
+  for (int c = tid; c < nvec; c += kThreads) {
+    const P v = row[c];
+#pragma unroll
+    for (int e = 0; e < VW; ++e) {
+      const float f = to_f(v.v[e]);
+      s = fmaf(f, f, s);
+    }
+  }
+  s = warp_sum(s);
+  if ((tid & 31) == 0) red[tid >> 5] = s;
+  __syncthreads();
+  if (tid == 0) {
+    float tot = 0.f;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) tot += red[i];
+    ss[blockIdx.x] = tot;
+  }
+}
+
+// out = x * rsqrt(ss[row] / d_total + eps) * (1 + w); x, out (rows, d),
+// w (d,), one pack a thread over a grid-stride loop.
+template <typename T, int VW>
+__global__ void __launch_bounds__(kThreads)
+scale_kernel(const T* __restrict__ x, const float* __restrict__ ss,
+             const T* __restrict__ w, T* __restrict__ out, int rows, int d,
+             int d_total, float eps) {
+  using P = Pack<T, VW>;
+  const int nvec = d / VW;
+  const long long total = (long long)rows * nvec;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < total; i += (long long)gridDim.x * kThreads) {
+    const int row = (int)(i / nvec), c = (int)(i % nvec);
+    const float r = rsqrtf(ss[row] / (float)d_total + eps);
+    const P xv = reinterpret_cast<const P*>(x + (size_t)row * d)[c];
+    const P wv = reinterpret_cast<const P*>(w)[c];
+    P o;
+#pragma unroll
+    for (int e = 0; e < VW; ++e)
+      o.v[e] = round_to<T>(to_f(xv.v[e]) * r * (1.f + to_f(wv.v[e])));
+    reinterpret_cast<P*>(out + (size_t)row * d)[c] = o;
+  }
+}
+
+template <typename T>
+int split_sumsq(const void* x, void* ss, int rows, int d, void* stream) {
+  if (rows <= 0) return 0;
+  if (d <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  constexpr int V = 16 / sizeof(T);
+  if (d % V == 0)
+    sumsq_kernel<T, V><<<rows, kThreads, 0, s>>>((const T*)x, (float*)ss, d);
+  else
+    sumsq_kernel<T, 1><<<rows, kThreads, 0, s>>>((const T*)x, (float*)ss, d);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int split_scale(const void* x, const void* ss, const void* w, void* out,
+                int rows, int d, int d_total, float eps, void* stream) {
+  if (rows <= 0) return 0;
+  if (d <= 0 || d_total < d) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  constexpr int V = 16 / sizeof(T);
+  const bool wide = d % V == 0;
+  const long long packs = (long long)rows * (wide ? d / V : d);
+  const long long want = (packs + kThreads - 1) / kThreads;
+  const int grid = want < 4096 ? (int)want : 4096;
+  if (wide)
+    scale_kernel<T, V><<<grid, kThreads, 0, s>>>(
+        (const T*)x, (const float*)ss, (const T*)w, (T*)out, rows, d,
+        d_total, eps);
+  else
+    scale_kernel<T, 1><<<grid, kThreads, 0, s>>>(
+        (const T*)x, (const float*)ss, (const T*)w, (T*)out, rows, d,
+        d_total, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x, out: (rows, d); w: (d,). Returns
@@ -207,5 +306,27 @@ extern "C" int add_rmsnorm(int dtype, const void* x, const void* y,
   if (dtype == 1)
     return dispatch<__nv_bfloat16, true>(x, y, w, sum_out, out, rows, d, eps,
                                          stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split form's sums: ss (rows,) fp32 = each row's sum of squares of x
+// (rows, d), the rank's slice of rows of width d_total.
+extern "C" int rmsnorm_sumsq(int dtype, const void* x, void* ss, int rows,
+                             int d, void* stream) {
+  if (dtype == 0) return split_sumsq<float>(x, ss, rows, d, stream);
+  if (dtype == 1) return split_sumsq<__nv_bfloat16>(x, ss, rows, d, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split form's scale: out = x * rsqrt(ss / d_total + eps) * (1 + w),
+// x, out (rows, d), ss (rows,) fp32 (the whole rows' sums), w (d,).
+extern "C" int rmsnorm_scale(int dtype, const void* x, const void* ss,
+                             const void* w, void* out, int rows, int d,
+                             int d_total, float eps, void* stream) {
+  if (dtype == 0)
+    return split_scale<float>(x, ss, w, out, rows, d, d_total, eps, stream);
+  if (dtype == 1)
+    return split_scale<__nv_bfloat16>(x, ss, w, out, rows, d, d_total, eps,
+                                      stream);
   return (int)cudaErrorInvalidValue;
 }

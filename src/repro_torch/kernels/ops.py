@@ -23,14 +23,16 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  paged_flash_attention_cuda)
 from repro_torch.kernels.rglru_scan import (rglru_gated_scan_cuda,
                                             rglru_scan_cuda)
-from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import (add_rmsnorm_cuda, rmsnorm_cuda,
+                                         rmsnorm_split_cuda)
 from repro_torch.kernels.ssd_scan import ssd_intra_cuda
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0,
                             "flash_attention": 0,
                             "paged_flash_attention": 0, "rmsnorm": 0,
-                            "add_rmsnorm": 0, "ssd_intra": 0,
+                            "add_rmsnorm": 0, "rmsnorm_split": 0,
+                            "ssd_intra": 0,
                             "rglru_scan": 0, "rglru_gated_scan": 0}
 
 
@@ -116,6 +118,19 @@ def add_rmsnorm(x, y, w, *, eps: float = 1e-6):
     _no_backward("add_rmsnorm", x, y, w)
     out = add_rmsnorm_cuda(x, y, w, eps=eps)
     LAUNCHES["add_rmsnorm"] += 1
+    return out
+
+
+def rmsnorm_split(x, w, *, d: int, eps: float = 1e-6, reduce=None):
+    """RMSNorm of rows of width d cut over a tensor-parallel group: x
+    (..., d/m) the rank's slice, w its weight slice, `reduce` the
+    all-reduce of the rows' fp32 sums of squares (a count is one call:
+    its two launches around the reduce)."""
+    if not x.is_cuda:
+        return ref.rmsnorm_split_ref(x, w, d=d, eps=eps, reduce=reduce)
+    _no_backward("rmsnorm_split", x, w)
+    out = rmsnorm_split_cuda(x, w, d=d, eps=eps, reduce=reduce)
+    LAUNCHES["rmsnorm_split"] += 1
     return out
 
 

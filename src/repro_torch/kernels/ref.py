@@ -119,6 +119,19 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+def rmsnorm_split_ref(x, w, *, d: int, eps: float = 1e-6, reduce=None):
+    """The split form of `rmsnorm_ref`: x (..., d/m) a rank's slice of rows
+    of width d, w its slice of the weight, `reduce` the sum of the rows'
+    fp32 partial sums of squares, a (...,) tensor, over the ranks (None:
+    the slice is the whole row, and this is `rmsnorm_ref`)."""
+    x32 = x.float()
+    ss = (x32 * x32).sum(dim=-1)
+    if reduce is not None:
+        ss = reduce(ss)
+    y = x32 * torch.rsqrt(ss[..., None] / d + eps) * (1.0 + w.float())
+    return y.to(x.dtype)
+
+
 def add_rmsnorm_ref(x, y, w, *, eps: float = 1e-6):
     """(s, rmsnorm(s)) with s = x + y in x's dtype: the residual add and the
     norm that reads it, the norm taken of the rounded s."""

@@ -12,6 +12,14 @@ before the reduction), takes the sum of squares by warp shuffles and one
 shared-memory step, keeps the weight for all its rows, and the grid is
 capped at the SMs' resident blocks. The fused add saves the residual
 add's own launch and one read and write of the residual stream.
+
+The split form (`rmsnorm_split_cuda`) normalises a row cut over the ranks
+of a tensor-parallel group, as mamba2's gated norm over d_inner is: one
+launch takes the rank's fp32 sums of squares (a block a row), the
+caller's `reduce` makes them whole (an all-reduce of rows x 4 bytes), and
+a second launch scales the rank's slice. Over a whole row it is the
+rmsnorm kernel bit for bit (`ref.rmsnorm_split_ref` is its plain
+version).
 """
 from __future__ import annotations
 
@@ -70,3 +78,26 @@ def add_rmsnorm_cuda(x, y, w, *, eps: float = 1e-6):
         _build.DTYPE_CODE[x.dtype], *ptrs, x.numel() // d, d, eps,
         _build.stream()), "add_rmsnorm")
     return s, out
+
+
+def rmsnorm_split_cuda(x, w, *, d: int, eps: float = 1e-6, reduce=None):
+    """x: (..., d/m) CUDA tensor, a rank's slice of rows of width d; w:
+    (d/m,) its slice of the weight; `reduce` sums a (...,) fp32 tensor of
+    the rows' partial sums of squares over the group (None: the slice is
+    the whole row). Returns the slice of rms_norm(rows) * (1 + w)."""
+    dl = _width(x, w)
+    x = x.contiguous()
+    rows = x.numel() // dl
+    lib, code = _build.library("rmsnorm"), _build.DTYPE_CODE[x.dtype]
+    ss = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    px, = _build.cuda_args(x, dtype=x.dtype)
+    _build.check(lib.rmsnorm_sumsq(code, px, *_build.cuda_args(ss), rows,
+                                   dl, _build.stream()), "rmsnorm_sumsq")
+    if reduce is not None:
+        ss = reduce(ss)
+    out = torch.empty_like(x)
+    pw, po = _build.cuda_args(w, out, dtype=x.dtype)
+    _build.check(lib.rmsnorm_scale(code, px, *_build.cuda_args(ss), pw, po,
+                                   rows, dl, d, eps, _build.stream()),
+                 "rmsnorm_scale")
+    return out

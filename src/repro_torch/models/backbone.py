@@ -188,11 +188,14 @@ def logits_head(p, x, pending, cfg: ModelConfig, tp=None):
 # caches
 
 
-def _state_cache(cfg: ModelConfig, rows: int, dt, device) -> Cache:
+def _state_cache(cfg: ModelConfig, rows: int, dt, device, m: int = 1
+                 ) -> Cache:
     """Per-request state with `rows` rows on axis 1: the conv history in
-    the working dtype, the SSM / RG-LRU state in fp32."""
+    the working dtype, the SSM / RG-LRU state in fp32; a rank's on a
+    model axis of m (mamba2: its d_inner/m conv channels beside whole B
+    and C, its H/m heads' state; the RG-LRU: its w/m channels)."""
     if cfg.family == ArchFamily.SSM:
-        d_in, H, P, N = S.ssm_dims(cfg)
+        d_in, H, P, N = S.ssm_dims(cfg, m)
         L_ = cfg.num_layers
         return {"conv": torch.zeros((L_, rows, cfg.ssm.conv_width - 1,
                                      d_in + 2 * N), dtype=dt, device=device),
@@ -200,7 +203,7 @@ def _state_cache(cfg: ModelConfig, rows: int, dt, device) -> Cache:
                                    device=device)}
     if cfg.family == ArchFamily.HYBRID:
         _, n_rec = layer_counts(cfg)
-        w = cfg.rglru.lru_width or cfg.d_model
+        w = (cfg.rglru.lru_width or cfg.d_model) // m
         return {"conv": torch.zeros((n_rec, rows, cfg.rglru.conv_width - 1, w),
                                     dtype=dt, device=device),
                 "rec": torch.zeros((n_rec, rows, w), dtype=torch.float32,
@@ -220,29 +223,40 @@ def _cross_cache(cfg: ModelConfig, rows: int, enc_len: int, dt,
             for k in CROSS_KEYS}
 
 
+def _tp_dims(cfg: ModelConfig, tp) -> Tuple[int, int]:
+    """(model axis, the head_dim the K/V cache stores) under `tp` (a
+    `distributed.sharding.TensorParallel`; hd/m under the head_dim
+    fallback)."""
+    hd = cfg.resolved_head_dim
+    return (1, hd) if tp is None else (tp.m, tp.kv_dim(hd))
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_context: int, dtype=None,
-               device="cpu", chunk: int = 1, enc_len: int = 0) -> Cache:
+               device="cpu", chunk: int = 1, enc_len: int = 0,
+               tp=None) -> Cache:
     """Contiguous serving cache: K/V rows (a ring for windowed attention)
     and `pos` for the attention layers, plus the per-request state and the
-    cross-attention K/V of `enc_len` keys a row."""
+    cross-attention K/V of `enc_len` keys a row. `tp`: a rank's, its
+    state slices and its K/V head_dim (`cfg` its local heads)."""
     dt = cfg_dtype(cfg, dtype)
+    m, kv_hd = _tp_dims(cfg, tp)
     c: Cache = {}
     n_att, _ = layer_counts(cfg)
     if n_att:
         S_ = phys_cache_len(cfg, max_context, chunk)
-        shape = (n_att, batch, S_, cfg.num_kv_heads, cfg.resolved_head_dim)
+        shape = (n_att, batch, S_, cfg.num_kv_heads, kv_hd)
         c["k"] = torch.zeros(shape, dtype=dt, device=device)
         c["v"] = torch.zeros(shape, dtype=dt, device=device)
         c["pos"] = torch.full((batch, S_), -1, dtype=torch.int32,
                               device=device)
-    c.update(_state_cache(cfg, batch, dt, device))
+    c.update(_state_cache(cfg, batch, dt, device, m))
     c.update(_cross_cache(cfg, batch, enc_len, dt, device))
     return c
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      dtype=None, device="cpu", n_slots: int = 0,
-                     enc_len: int = 0) -> Cache:
+                     enc_len: int = 0, tp=None) -> Cache:
     """Physically paged serving cache (DESIGN §9): K/V in
     (layers, num_blocks + 1, block_size, KV, hd) pools shared by every
     request and indexed through per-request block tables; `pos` is the
@@ -254,18 +268,18 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     Per-request state and cross-attention K/V stay per slot, pinned to a
     request for its life: `n_slots` rows plus row `n_slots`, the padding
     sentinel, which reads zeros and is never written
-    (`forward_cached(rows=...)`)."""
+    (`forward_cached(rows=...)`). `tp` as in `init_cache`."""
     dt = cfg_dtype(cfg, dtype)
+    m, kv_hd = _tp_dims(cfg, tp)
     c: Cache = {}
     n_att, _ = layer_counts(cfg)
     if n_att:
-        shape = (n_att, num_blocks + 1, block_size, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
+        shape = (n_att, num_blocks + 1, block_size, cfg.num_kv_heads, kv_hd)
         c["k"] = torch.zeros(shape, dtype=dt, device=device)
         c["v"] = torch.zeros(shape, dtype=dt, device=device)
         c["pos"] = torch.full((num_blocks + 1, block_size), -1,
                               dtype=torch.int32, device=device)
-    c.update(_state_cache(cfg, n_slots + 1, dt, device))
+    c.update(_state_cache(cfg, n_slots + 1, dt, device, m))
     c.update(_cross_cache(cfg, n_slots + 1, enc_len, dt, device))
     return c
 
@@ -373,25 +387,30 @@ class _State:
                                        torch.where(keep, new, old))
 
 
-def _ssm_layer(lp, x, pending, cfg, st: _State, i, decode):
+def _ssm_layer(lp, x, pending, cfg, st: _State, i, decode, tp=None):
+    """A Mamba2 layer; under `tp` the rank's share of the mixer, its
+    output made whole (`ssm.mamba2_block`)."""
     conv0, ssm0 = st.get("conv", i), st.get("ssm", i)
     x, h = _norm_in(x, pending, lp["ln1"], cfg)
     y, (conv1, ssm1) = S.mamba2_block(lp["mixer"], h, cfg, conv_state=conv0,
-                                      ssm_state=ssm0, decode=decode)
+                                      ssm_state=ssm0, decode=decode, tp=tp)
     st.put("conv", i, conv0, conv1)
     st.put("ssm", i, ssm0, ssm1)
     return x, y
 
 
-def _rec_layer(lp, x, pending, cfg, st: _State, i):
+def _rec_layer(lp, x, pending, cfg, st: _State, i, tp=None):
+    """An RG-LRU layer and its SwiGLU; under `tp` the rank's channels and
+    d_ff columns, both outputs made whole (`rglru.rglru_block`,
+    `layers.mlp`)."""
     conv0, rec0 = st.get("conv", i), st.get("rec", i)
     x, h = _norm_in(x, pending, lp["ln1"], cfg)
     y, (conv1, rec1) = R.rglru_block(lp["rec"], h, cfg, conv_state=conv0,
-                                     rec_state=rec0)
+                                     rec_state=rec0, tp=tp)
     st.put("conv", i, conv0, conv1)
     st.put("rec", i, rec0, rec1)
     x, h = L.add_rms_norm(x, y, lp["ln2"], cfg.rms_eps)
-    return x, L.mlp(lp["mlp"], h)
+    return x, L.mlp(lp["mlp"], h, _mlp_tp(tp))
 
 
 def encode(p: Params, frames, cfg: ModelConfig, tp=None):
@@ -462,12 +481,15 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     projected (the frames encoded, then projected) into the rows' cross
     K/V, which later calls read. Cast to the working dtype.
     tp: one rank's view of a tensor-parallel group
-    (`distributed.sharding.TensorParallel`; the dense, MoE, VLM and
-    enc-dec families): `p` holds the rank's shards, `cfg` its local heads
-    (`tp.cfg`), the cache its kv-heads (the cross K/V too); partial sums
-    are all-reduced (`_attn_layer`, `_cross_layer`, `encode`: the self,
-    cross and encoder attention's `wo`, the MLPs' `w_down`, the MoE's
-    experts once a layer), the embedding and logits made whole."""
+    (`distributed.sharding.TensorParallel`; every family): `p` holds the
+    rank's shards, `cfg` its local heads (`tp.cfg`), the cache its
+    kv-heads (the cross K/V too) or under the head_dim fallback hd/m of
+    every kv-head, and its share of the per-request state; partial sums
+    are all-reduced (`_attn_layer`, `_cross_layer`, `encode`,
+    `_ssm_layer`, `_rec_layer`: the self, cross and encoder attention's
+    `wo`, the MLPs' `w_down`, the MoE's experts once a layer, mamba2's
+    gated-norm sums and `out_proj`, the RG-LRU's `w_out`), the embedding
+    and logits made whole."""
     if decode and tokens.shape[1] != 1:
         raise ValueError("decode takes one token per row")
     if tables is not None and rows is None \
@@ -512,18 +534,18 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     elif cfg.family == ArchFamily.SSM:
         for i in range(cfg.num_layers):
             x, y = _ssm_layer(layer_params(p["layers"], i), x, y, cfg, st, i,
-                              decode)
+                              decode, tp)
     else:
         i_att = i_rec = 0
         for kind in cfg.layer_kinds():
             if kind == "attention":
                 x, y = _attn_layer(layer_params(p["att_layers"], i_att), x, y,
                                    positions, cache, i_att, widx, cfg, win,
-                                   tables)
+                                   tables, tp)
                 i_att += 1
             else:
                 x, y = _rec_layer(layer_params(p["rec_layers"], i_rec), x, y,
-                                  cfg, st, i_rec)
+                                  cfg, st, i_rec, tp)
                 i_rec += 1
     if last_only:
         x, y = x[:, -1:], y[:, -1:]

@@ -71,11 +71,12 @@ class ParamInit:
                          else 1 / math.sqrt(fan_in), generator=self.g)
         return self.made(w)
 
-    def uniform(self, shape, lo: float, hi: float):
-        """fp32 uniform draws in [lo, hi)."""
-        return self.made(torch.empty(shape, dtype=torch.float32,
-                                     device=self.device
-                                     ).uniform_(lo, hi, generator=self.g))
+    def uniform(self, shape, lo: float, hi: float, then=None):
+        """fp32 uniform draws in [lo, hi); `then` transforms them before
+        the result is made (the leaf, not the raw draws, passes `made`)."""
+        u = torch.empty(shape, dtype=torch.float32,
+                        device=self.device).uniform_(lo, hi, generator=self.g)
+        return self.made(u if then is None else then(u))
 
     def zeros(self, *shape, dtype=None):
         return self.made(torch.zeros(shape, dtype=dtype or self.dtype,
@@ -396,6 +397,45 @@ def paged_write_index(positions, tables, block_size: int,
     return flat, real
 
 
+def rope_qkv(p, x, positions, cfg: ModelConfig, tp=None):
+    """(q, k, v) of x (B, T, d) at absolute `positions`, RoPE on q and k:
+    q (B, T, H, hd) of the rank's heads, k and v what the rank's cache
+    stores, (B, T, KV, hd). Under the head_dim fallback (`tp.hd_split`)
+    the rank's wk / wv columns are a slice of the flat KV·hd outputs, so
+    the chunk's new k and v rows are gathered over the group first (RoPE
+    pairs channel i with i + hd/2, which a slice does not hold), and the
+    rank keeps its hd/m channels of every kv-head: (B, T, KV, hd/m)."""
+    if tp is None or not tp.hd_split:
+        q, k, v = attention_qkv(p, x, cfg)
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta), v)
+    B, T, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    k, v = tp.gather(torch.stack([k, v])).reshape(2, B, T, KV, hd).unbind(0)
+    c = tp.kv_dim(hd)
+    mine = slice(tp.rank * c, (tp.rank + 1) * c)
+    return (apply_rope(q.reshape(B, T, H, hd), positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta)[..., mine],
+            v[..., mine])
+
+
+def kv_read(k, v, tp=None):
+    """The K/V an attention launch reads from a layer's cache or pool slab
+    (..., KV, hd): the cache itself; under the head_dim fallback the
+    ranks' hd/m slices gathered to the whole hd (one gather of a fixed
+    shape, K and V together), at the kv-head the rank's query heads
+    read."""
+    if tp is None or not tp.hd_split:
+        return k, v
+    kv = tp.gather(torch.stack([k, v]))
+    h = tp.kv_head
+    return (kv[0, ..., h:h + 1, :].contiguous(),
+            kv[1, ..., h:h + 1, :].contiguous())
+
+
 def self_attention_cached(p, x, positions, cache_k, cache_v, cache_pos,
                           widx: WriteIndex, cfg: ModelConfig, *,
                           window: int = 0, tp=None):
@@ -404,14 +444,14 @@ def self_attention_cached(p, x, positions, cache_k, cache_v, cache_pos,
     x: (B, T, d) new tokens at absolute `positions` (B, T); cache_k/v:
     (B, S, KV, hd), written in place at `widx` (`cache_write_index`);
     cache_pos: (B, S), already holding this chunk's positions. `tp`: the
-    rank's heads (`cfg` their local config), `wo`'s product summed over
-    the group (`down_proj`)."""
-    q, k, v = attention_qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    rank's heads (`cfg` their local config; under the head_dim fallback
+    the cache holds hd/m of every kv-head, `rope_qkv`, `kv_read`), `wo`'s
+    product summed over the group (`down_proj`)."""
+    q, k, v = rope_qkv(p, x, positions, cfg, tp)
     cache_put(cache_k, widx, k)
     cache_put(cache_v, widx, v)
-    out = attend(q, cache_k, cache_v, positions, cache_pos, window=window)
+    out = attend(q, *kv_read(cache_k, cache_v, tp), positions, cache_pos,
+                 window=window)
     return down_proj(out, p["wo"], tp)
 
 
@@ -445,21 +485,21 @@ def self_attention_paged(p, x, positions, pool_k, pool_v, pool_pos, tables,
     positions; tables: (B, MB) physical block ids (-1 = unallocated).
     Decode and chunks both walk the block table in the kernels (paged
     flash decode, paged flash attention); nothing is gathered first.
-    `tp` as in `self_attention_cached`."""
+    `tp` as in `self_attention_cached` (under the head_dim fallback the
+    layer's whole pool slab is gathered)."""
     B, T, _ = x.shape
-    q, k, v = attention_qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = rope_qkv(p, x, positions, cfg, tp)
     flat, _ = widx
     _pool_write(pool_k, flat, k)
     _pool_write(pool_v, flat, v)
+    rk, rv = kv_read(pool_k, pool_v, tp)
     if T == 1:
-        out = ops.paged_decode_attention(q[:, 0], pool_k, pool_v,
-                                         positions[:, 0], pool_pos, tables,
+        out = ops.paged_decode_attention(q[:, 0], rk, rv, positions[:, 0],
+                                         pool_pos, tables,
                                          window=window).reshape(B, 1, -1)
     else:
-        out = ops.paged_flash_attention(q, pool_k, pool_v, positions,
-                                        pool_pos, tables, window=window,
+        out = ops.paged_flash_attention(q, rk, rv, positions, pool_pos,
+                                        tables, window=window,
                                         causal=True).reshape(B, T, -1)
     return down_proj(out, p["wo"], tp)
 

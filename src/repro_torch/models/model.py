@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config.base import ArchFamily, ModelConfig
-from repro_torch.distributed.sharding import (ServingGroup, serve_spec,
+from repro_torch.distributed.sharding import (ServingGroup, shard_leaf,
                                               shard_params, tensor_parallel)
 from repro_torch.models import backbone as B
 from repro_torch.models.layers import ParamInit
@@ -141,7 +141,8 @@ class Model(nn.Module):
         cross keys a row (0: the family's default, `default_enc_len`)."""
         return B.init_cache(self.local_cfg, batch, max_context, self.dtype,
                             self.device, chunk=prefill_chunk,
-                            enc_len=enc_len or default_enc_len(self.cfg))
+                            enc_len=enc_len or default_enc_len(self.cfg),
+                            tp=self.tp)
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          n_slots: int = 0, enc_len: int = 0):
@@ -151,7 +152,8 @@ class Model(nn.Module):
         0 for the default) and the padding sentinel (DESIGN §9)."""
         return B.init_paged_cache(self.local_cfg, num_blocks, block_size,
                                   self.dtype, self.device, n_slots=n_slots,
-                                  enc_len=enc_len or default_enc_len(self.cfg))
+                                  enc_len=enc_len or default_enc_len(self.cfg),
+                                  tp=self.tp)
 
     @torch.no_grad()
     def forward(self, params, tokens, positions, cache, *,
@@ -197,17 +199,17 @@ class Model(nn.Module):
 
 class _Cut(ParamInit):
     """Draws as ParamInit does and cuts each tensor, as soon as it is
-    made, to `cuts`' next entry: (axis, start, length), or None to keep
-    it whole. The whole tensor is then freed; the generator has drawn
-    exactly what the whole init draws."""
+    made, to rank `rank`'s slice of the leaf `names` gives it next
+    (`sharding.shard_leaf`). The whole tensor is then freed; the
+    generator has drawn exactly what the whole init draws."""
 
-    def __init__(self, seed, dtype, device, cuts):
+    def __init__(self, seed, dtype, device, cfg, rank, m, names):
         super().__init__(seed, dtype, device)
-        self.cuts = iter(cuts)
+        self.cfg, self.rank, self.m = cfg, rank, m
+        self.names = iter(names)
 
     def made(self, t):
-        cut = next(self.cuts)
-        return t if cut is None else t.narrow(*cut).clone()
+        return shard_leaf(next(self.names), t, self.cfg, self.rank, self.m)
 
 
 class _Record(ParamInit):
@@ -230,8 +232,9 @@ def init_shard(cfg: ModelConfig, seed: int, dtype: torch.dtype, device,
     the meta device names each tensor in the order the init makes it,
     then the real init cuts each one as it is drawn. Two ranks of a large
     model on one card (tp (b) of chip_smoke) then fit where whole draws
-    would not. A family whose init transforms a drawn tensor before it
-    becomes a leaf (the SSM's dt, A_log) is drawn whole and cut."""
+    would not. An init whose made tensors are not its leaves one for one
+    is drawn whole and cut (every family's are, since the SSM's dt_bias,
+    A_log and D and the RG-LRU's lam are made as leaves)."""
     rec = _Record(dtype)
     names = {id(t): n for n, t in named_leaves(
         B.init_params(cfg, seed, dtype, "meta", init=rec))}
@@ -239,17 +242,8 @@ def init_shard(cfg: ModelConfig, seed: int, dtype: torch.dtype, device,
             or any(id(t) not in names for t in rec.order):
         return shard_params(B.init_params(cfg, seed, dtype, device), cfg,
                             rank, m)
-    cuts = []
-    for t in rec.order:
-        spec = serve_spec(names[id(t)], tuple(t.shape), cfg, m)
-        if "model" not in spec:
-            cuts.append(None)
-            continue
-        axis = spec.index("model")
-        n = t.shape[axis] // m
-        cuts.append((axis, rank * n, n))
-    return B.init_params(cfg, seed, dtype, device,
-                         init=_Cut(seed, dtype, device, cuts))
+    return B.init_params(cfg, seed, dtype, device, init=_Cut(
+        seed, dtype, device, cfg, rank, m, [names[id(t)] for t in rec.order]))
 
 
 def build_model(cfg: ModelConfig, dtype=None, device=None,

@@ -9,6 +9,15 @@ kernel launch on the card, its plain version on the CPU), in prefill and in
 decode alike: a decode step is T = 1. Only the two gate products stay
 outside it. The recurrent state is fp32 whatever the working dtype.
 
+Under tensor-parallel serving (`tp`, a `distributed.sharding.
+TensorParallel`) a rank holds w/m channels: its columns of `w_x`,
+`w_gate_branch`, `w_a` and `w_i`, its conv channels, `lam`, `b_a`, `b_i`
+and state, and its rows of `w_out`. The gate products `x @ w_a` and
+`x @ w_i` read every channel of the post-conv x, so the rank gathers x
+(one all-gather a layer) before them; the recurrence then runs on the
+rank's channels, and `(y · gate) @ w_out` is a partial sum made whole by
+`layers.down_proj`.
+
 Training runs the same block over the whole sequence with the plain
 recurrence (`ref.rglru_gated_scan_ref`, `rglru_block_train`), never
 `kernels.ops` (the kernels have no backward).
@@ -21,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import RGLRU_C as _C
-from repro_torch.models.layers import ParamInit, out_scale
+from repro_torch.models.layers import ParamInit, down_proj, out_scale
 from repro_torch.models.ssm import causal_conv
 
 
@@ -40,8 +49,8 @@ def init_rglru_block(init: ParamInit, cfg: ModelConfig, n: int):
          "b_i": init.zeros(n, w, dtype=torch.float32)}
     # Lambda = softplus^-1(-log(u) / c), u in [0.9^2, 0.999^2]: a^c in
     # about (0.9, 0.999) (the paper's appendix)
-    u = init.uniform((n, w), 0.9 ** 2, 0.999 ** 2)
-    p["lam"] = torch.log(torch.expm1(-torch.log(u) / _C))
+    p["lam"] = init.uniform((n, w), 0.9 ** 2, 0.999 ** 2, then=lambda u:
+                            torch.log(torch.expm1(-torch.log(u) / _C)))
     p["w_out"] = init.stacked(n, (w, d), out_scale(cfg))
     return p
 
@@ -53,22 +62,27 @@ def rglru_core(p, x, *, h0=None):
     return _core(ops.rglru_gated_scan, p, x, h0)
 
 
-def _core(scan, p, x, h0):
+def _core(scan, p, x, h0, tp=None):
     """`rglru_core` through `scan`: the kernel's entry (serving) or its
-    plain version (training)."""
+    plain version (training). Under `tp` x is the rank's channels, and the
+    gate products read the whole x, gathered over the group."""
     if h0 is None:
         h0 = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
                          device=x.device)
-    return scan(x @ p["w_a"], x @ p["w_i"], x, p["lam"], p["b_a"],
+    xw = x if tp is None else tp.gather(x)
+    return scan(xw @ p["w_a"], xw @ p["w_i"], x, p["lam"], p["b_a"],
                 p["b_i"], h0.contiguous())
 
 
-def rglru_block(p, u, cfg: ModelConfig, *, conv_state=None, rec_state=None):
+def rglru_block(p, u, cfg: ModelConfig, *, conv_state=None, rec_state=None,
+                tp=None):
     """The RecurrentGemma recurrent block. u: (B, T, d).
 
     Returns (out (B, T, d), (conv_state, rec_state)). The GeLU of the gate
-    branch is the tanh approximation, JAX's default."""
-    return _block(ops.rglru_gated_scan, p, u, conv_state, rec_state)
+    branch is the tanh approximation, JAX's default. `tp`: the rank's
+    channels (its params and state slices); out is whole on every
+    rank."""
+    return _block(ops.rglru_gated_scan, p, u, conv_state, rec_state, tp)
 
 
 def rglru_block_train(p, u, cfg: ModelConfig):
@@ -78,11 +92,11 @@ def rglru_block_train(p, u, cfg: ModelConfig):
     return out
 
 
-def _block(scan, p, u, conv_state, rec_state):
+def _block(scan, p, u, conv_state, rec_state, tp=None):
     """`rglru_block` with the recurrence by `scan` (as `_core`)."""
     gate = F.gelu((u @ p["w_gate_branch"]).float(),
                   approximate="tanh").to(u.dtype)
     x = u @ p["w_x"]
     x, conv_state = causal_conv(x, p["conv_w"], p["conv_b"], conv_state)
-    y, rec_state = _core(scan, p, x, rec_state)
-    return (y * gate) @ p["w_out"], (conv_state, rec_state)
+    y, rec_state = _core(scan, p, x, rec_state, tp)
+    return down_proj(y * gate, p["w_out"], tp), (conv_state, rec_state)

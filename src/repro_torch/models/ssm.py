@@ -7,6 +7,15 @@ version on the CPU); the inter-chunk recurrence is a plain loop over the
 chunks. Decode is the O(1) recurrent step. The SSM state is fp32 whatever
 the working dtype.
 
+Under tensor-parallel serving (`tp`, a `distributed.sharding.
+TensorParallel`) a rank runs its share of the mixer: d_inner/m channels
+of z and x in H/m heads (its `in_proj` and `conv_*` cut by segment,
+`sharding.segments`), B and C whole, the SSD on its heads, and the gated
+norm over all of d_inner by the split form of the RMSNorm kernel (the
+rows' sums of squares all-reduced, `ops.rmsnorm_split`); `out_proj`'s
+product, over its rows, is then a partial sum made whole by
+`layers.down_proj`. The residual stream stays whole.
+
 Training runs the same chunked SSD over the whole sequence in plain
 differentiable ops (`ssd_chunked_train`, `mamba2_block_train`): the
 intra-chunk term by `ref.ssd_intra_ref` and the gated norm by
@@ -22,15 +31,16 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.models.layers import ParamInit, out_scale
+from repro_torch.models.layers import ParamInit, down_proj, out_scale
 
 
-def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
-    """(d_inner, heads, head_dim P, state_dim N)."""
+def ssm_dims(cfg: ModelConfig, m: int = 1) -> Tuple[int, int, int, int]:
+    """(d_inner, heads, head_dim P, state_dim N); with m, a rank's share
+    on a model axis of m: d_inner/m channels in H/m heads."""
     s = cfg.ssm
     d_inner = s.expand * cfg.d_model
     nheads = s.num_heads or d_inner // s.head_dim
-    return d_inner, nheads, s.head_dim, s.state_dim
+    return d_inner // m, nheads // m, s.head_dim, s.state_dim
 
 
 def init_mamba2_block(init: ParamInit, cfg: ModelConfig, n: int):
@@ -43,15 +53,18 @@ def init_mamba2_block(init: ParamInit, cfg: ModelConfig, n: int):
     in_proj = init.stacked(n, (d, d_proj))
     conv_w = init.stacked(n, (cfg.ssm.conv_width, conv_ch), 0.2)
     # dt_bias = softplus^-1(dt), dt log-uniform in [1e-3, 1e-1]
-    dt = torch.exp(init.uniform((n, H), math.log(1e-3), math.log(1e-1)))
+    dt_bias = init.uniform((n, H), math.log(1e-3), math.log(1e-1),
+                           then=lambda u: torch.log(torch.expm1(
+                               torch.exp(u))))
     return {
         "in_proj": in_proj,
         "conv_w": conv_w,
         "conv_b": init.zeros(n, conv_ch),
-        "dt_bias": torch.log(torch.expm1(dt)),
-        "A_log": torch.log(torch.arange(1, H + 1, dtype=torch.float32,
-                                        device=init.device)).repeat(n, 1),
-        "D": torch.ones(n, H, dtype=torch.float32, device=init.device),
+        "dt_bias": dt_bias,
+        "A_log": init.made(torch.log(torch.arange(
+            1, H + 1, dtype=torch.float32, device=init.device)).repeat(n, 1)),
+        "D": init.made(torch.ones(n, H, dtype=torch.float32,
+                                  device=init.device)),
         "norm_w": init.zeros(n, d_in),
         "out_proj": init.stacked(n, (d_in, d), out_scale(cfg)),
     }
@@ -151,48 +164,65 @@ def causal_conv(x, w, b, state=None):
 # full block
 
 
-def _split_proj(z, cfg: ModelConfig):
-    """in_proj output -> (gate, x, B, C, dt_raw)."""
-    d_in, H, _, N = ssm_dims(cfg)
+def _split_proj(z, cfg: ModelConfig, m: int = 1):
+    """in_proj output -> (gate, x, B, C, dt_raw), a rank's on an axis of
+    m."""
+    d_in, H, _, N = ssm_dims(cfg, m)
     return torch.split(z, [d_in, d_in, N, N, H], dim=-1)
 
 
-def _mixer_in(p, u, cfg: ModelConfig, conv_state):
+def _heads(v, tp):
+    """A replicated per-head leaf (dt_bias, A_log, D): the rank's heads."""
+    return v if tp is None else v[tp.part(v.shape[-1])]
+
+
+def _mixer_in(p, u, cfg: ModelConfig, conv_state, tp=None):
     """in_proj, the causal conv and the SSD's inputs of u (B, T, d):
-    (gate, x (B, T, H, P), Bm, Cm, dt (fp32), A, conv_state)."""
-    d_in, H, P, N = ssm_dims(cfg)
+    (gate, x (B, T, H, P), Bm, Cm, dt (fp32), A, conv_state), of the
+    rank's channels and heads under `tp`."""
+    m = 1 if tp is None else tp.m
+    d_in, H, P, N = ssm_dims(cfg, m)
     z = u @ p["in_proj"]
-    gate, xs, Bm, Cm, dt_raw = _split_proj(z, cfg)
+    gate, xs, Bm, Cm, dt_raw = _split_proj(z, cfg, m)
     xbc = torch.cat([xs, Bm, Cm], dim=-1)
     xbc, conv_state = causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     xbc = F.silu(xbc)
     xs, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
     Bsz, T, _ = xs.shape
     xh = xs.reshape(Bsz, T, H, P)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"].float())
+    dt = F.softplus(dt_raw.float() + _heads(p["dt_bias"], tp))
+    A = -torch.exp(_heads(p["A_log"], tp).float())
     return gate, xh, Bm, Cm, dt, A, conv_state
 
 
-def _mixer_out(p, y, xh, gate, cfg: ModelConfig, norm):
-    """The skip term D x, the gated RMSNorm (`norm`) and out_proj."""
-    y = y + xh.float().to(y.dtype) * p["D"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(y.shape[0], y.shape[1], -1)
-    y = norm(y * F.silu(gate), p["norm_w"], eps=cfg.rms_eps)
-    return y @ p["out_proj"]
+def _mixer_out(p, y, xh, gate, cfg: ModelConfig, norm, tp=None):
+    """The skip term D x, the gated RMSNorm (`norm`; under `tp` the split
+    form over the whole d_inner) and out_proj (made whole under `tp`)."""
+    D = _heads(p["D"], tp)
+    y = y + xh.float().to(y.dtype) * D.to(y.dtype)[None, None, :, None]
+    y = y.reshape(y.shape[0], y.shape[1], -1) * F.silu(gate)
+    if tp is None:
+        y = norm(y, p["norm_w"], eps=cfg.rms_eps)
+    else:
+        y = ops.rmsnorm_split(y, p["norm_w"], d=ssm_dims(cfg)[0],
+                              eps=cfg.rms_eps, reduce=tp.reduce)
+    return down_proj(y, p["out_proj"], tp)
 
 
 def mamba2_block(p, u, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
-                 decode: bool = False):
-    """u: (B, T, d). Returns (out (B, T, d), (conv_state, ssm_state))."""
-    gate, xh, Bm, Cm, dt, A, conv_state = _mixer_in(p, u, cfg, conv_state)
+                 decode: bool = False, tp=None):
+    """u: (B, T, d). Returns (out (B, T, d), (conv_state, ssm_state)).
+    `tp`: the rank's share of the mixer (its params and state slices);
+    out is whole on every rank."""
+    gate, xh, Bm, Cm, dt, A, conv_state = _mixer_in(p, u, cfg, conv_state,
+                                                     tp)
     if decode:
         y, ssm_state = ssd_decode_step(xh, dt, A, Bm, Cm, ssm_state)
     else:
         chunk = min(cfg.ssm.chunk_size, xh.shape[1])
         y, ssm_state = ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0=ssm_state)
-    return _mixer_out(p, y, xh, gate, cfg, ops.rmsnorm), (conv_state,
-                                                         ssm_state)
+    return _mixer_out(p, y, xh, gate, cfg, ops.rmsnorm, tp), (conv_state,
+                                                             ssm_state)
 
 
 def mamba2_block_train(p, u, cfg: ModelConfig):

@@ -96,7 +96,8 @@ from repro_torch.core.lanes import lane_order, pack_chunks
 from repro_torch.core.memory_model import MemoryModel, kv_shard_factor
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.distributed.sharding import check_tp
-from repro_torch.models.backbone import CROSS_KEYS, STATE_KEYS, extras_key
+from repro_torch.models.backbone import (CROSS_KEYS, STATE_KEYS, extras_key,
+                                         init_cache, init_paged_cache)
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serving.cost_model import PROFILES, CostModel
 from repro_torch.serving.graphs import Staging, Step, StepGraphs
@@ -332,18 +333,22 @@ class Engine:
         # copy-on-write block duplications (DESIGN §10)
         self.copy_rows = 0
         self.copy_bytes = 0
-        # the model's bytes, as the reference counts its global arrays: a
-        # rank holds 1/m of the K/V heads, the cross K/V's too
-        whole = {k: self.model_shards if k in ("k", "v") + CROSS_KEYS
-                 else 1 for k in self.cache}
+        # the model's bytes, as the reference counts its global arrays: the
+        # whole model's cache shapes (under a mesh a rank holds its share
+        # of the K/V heads or head_dim, of the cross K/V and of the state)
+        whole = init_paged_cache(
+            self.cfg, 1, serve.block_size, model.dtype, "meta", n_slots=1,
+            enc_len=self.enc_len) if self.paged else init_cache(
+            self.cfg, 1, max_context, model.dtype, "meta",
+            chunk=prefill_chunk, enc_len=self.enc_len)
         self._row_bytes = 0 if self.paged else sum(
             (v[:, 0].numel() if k != "pos" else v[0].numel())
-            * v.element_size() * whole[k] for k, v in self.cache.items())
+            * v.element_size() for k, v in whole.items())
         # per-block pool bytes: the unit a copy-on-write duplicates
         self._blk_bytes = sum(
             (v[0].numel() if k == "pos" else v[:, 0].numel())
-            * v.element_size() * whole[k]
-            for k, v in self.cache.items() if k in POOL_KEYS) \
+            * v.element_size()
+            for k, v in whole.items() if k in POOL_KEYS) \
             if self.paged else 0
         self.decode_steps = 0
         self.batch_trace: List[int] = []

@@ -3,16 +3,19 @@
     PYTHONPATH=src python tests/_torch_tp_ranks.py
 
 Runs the port's tensor-parallel engine (fp32, the CPU, gloo) in 2 ranks on
-a (1, 2) mesh and then in 4 ranks on a (2, 2) mesh, through
-`launch.mesh.spawn_ranks`, and prints one line `RESULT<json>`: per
+a (1, 2) mesh, then in 4 ranks on a (2, 2) mesh and in 4 on a (1, 4) mesh,
+through `launch.mesh.spawn_ranks`, and prints one line `RESULT<json>`: per
 scenario, rank 0's tokens and counters and whether every rank's tokens,
 batch sizes and block tables agreed step for step. Reduced granite-3-8b
-serves the scenarios of the dense family; the MoE, VLM and enc-dec
-families (`FAMILIES`: reduced qwen2-moe-a2.7b, kimi-k2-1t-a32b,
-llama-3.2-vision-90b, seamless-m4t-medium, and a qwen2-moe of 5 experts,
-which the model axis does not divide) serve `FAM_LENS` in both layouts on
-both meshes, with extras where the family takes them. The weights are
-`numpy_params(cfg)`, which the test also hands to the JAX engine.
+serves the scenarios of the dense family (at (1, 4) only its two layouts:
+its 2 kv-heads take the head_dim fallback there); the MoE, VLM, enc-dec,
+SSM and hybrid families (`FAMILIES`: reduced qwen2-moe-a2.7b,
+kimi-k2-1t-a32b, llama-3.2-vision-90b, seamless-m4t-medium, a qwen2-moe
+of 5 experts, which the model axis does not divide, mamba2-2.7b and
+recurrentgemma-9b, whose single kv-head takes the fallback) serve
+`FAM_LENS` in both layouts on the (1, 2) and (2, 2) meshes, with extras
+where the family takes them. The weights are `numpy_params(cfg)`, which
+the test also hands to the JAX engine.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.analysis.graph_audit import OpTrace
+from repro_torch.analysis.graph_audit import ALLREDUCE, GATHER, OpTrace
 from repro_torch.config.base import ServeConfig
 from repro_torch.config.registry import get_config
 from repro_torch.launch import serve as port_serve
@@ -43,7 +46,11 @@ TIGHT = [40, 44, 38, 46]
 #: reduced qwen2-moe with 5 experts, whose stacks replicate at m = 2
 E5 = "qwen2-moe-e5"
 FAMILIES = ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "llama-3.2-vision-90b",
-            "seamless-m4t-medium", E5)
+            "seamless-m4t-medium", E5, "mamba2-2.7b", "recurrentgemma-9b")
+#: the meshes, and the one whose model axis of 4 takes granite's head_dim
+#: fallback
+MESHES = ((1, 2), (2, 2), (1, 4))
+FALLBACK = (1, 4)
 FAM_LENS = [28, 34, 22, 30]
 FAM_SEED = 4
 #: cross keys a request of the VLM and enc-dec runs
@@ -137,7 +144,9 @@ def report(eng, hs, group, steps):
         "agree": all(x == same[0] for x in same),
         "counters": {k: s[k] for k in COUNTERS},
         "eta": eng.mem.eta,
-        "kv_heads": int(eng.cache["k"].shape[-2]),
+        **({"kv_heads": int(eng.cache["k"].shape[-2]),
+            "kv_dim": int(eng.cache["k"].shape[-1])}
+           if "k" in eng.cache else {}),
         **({"cross_heads": int(eng.cache["cross_k"].shape[-2])}
            if "cross_k" in eng.cache else {}),
         "finished": sorted(h.rid for h in hs
@@ -268,7 +277,8 @@ def families(group, mesh):
 
 def forward_allreduces(model, params):
     """The all-reduces of one first chunk (with extras where the family
-    takes them) and of one decode step, traced (`graph_audit.OpTrace`)."""
+    takes them) and of one decode step, and their gathers, traced
+    (`graph_audit.OpTrace`)."""
     cfg = model.local_cfg
     cross = extras_of(cfg, 1, 0)[0]
     key = "enc_frames" if cfg.family.value == "encdec" else "images"
@@ -280,11 +290,13 @@ def forward_allreduces(model, params):
     with OpTrace() as tr:
         model.prefill(params, tokens, torch.arange(8, dtype=torch.int32)[None],
                       cache, extras=extras, last_only=True)
-    out["prefill"] = tr.collectives["allreduce_"]
+    out["prefill"] = tr.collectives[ALLREDUCE]
+    out["prefill_gathers"] = tr.collectives[GATHER]
     with OpTrace() as tr:
         model.decode_step(params, tokens[:, 0], torch.tensor(
             [8], dtype=torch.int32), cache)
-    out["decode"] = tr.collectives["allreduce_"]
+    out["decode"] = tr.collectives[ALLREDUCE]
+    out["decode_gathers"] = tr.collectives[GATHER]
     return out
 
 
@@ -310,6 +322,12 @@ def rank_main(rank, world, mesh):
     cfg = get_config(ARCH, "reduced")
     model = build_model(cfg, torch.float32, "cpu", group=group)
     params = model.shard(from_jax_params(numpy_params()))
+    if mesh == FALLBACK:
+        return {layout: run_engine(model, params, group,
+                                   serve_cfg(mesh, paged=paged), LENS, 8,
+                                   seed=0)
+                for layout, paged in (("paged", True),
+                                      ("contiguous", False))}
     out = {
         "paged": run_engine(model, params, group, serve_cfg(mesh), LENS, 8,
                             seed=0),
@@ -339,7 +357,7 @@ def rank_main(rank, world, mesh):
 
 if __name__ == "__main__":
     res = {}
-    for mesh in ((1, 2), (2, 2)):
+    for mesh in MESHES:
         t0 = time.perf_counter()
         res[",".join(map(str, mesh))] = spawn_ranks(
             rank_main, mesh[0] * mesh[1], (mesh,), timeout_s=240)

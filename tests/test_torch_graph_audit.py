@@ -134,13 +134,16 @@ def test_run_graph_audit_subset_paths_anchor_configs():
 
 def test_one_rank_mesh_engine_audits_clean_with_its_collectives():
     """(1, 1) mesh engines (DESIGN §12, on a gloo group of their own) of
-    reduced granite, qwen2-moe, llama-3.2-vision and seamless-m4t: their
-    model functions and both layouts' steps, every all-reduce traced, pass
-    every rule, and each step's all-reduces are the layout's count: two a
-    layer (attention and MLP, or attention and the experts once), a cross
-    layer's two, the embedding's and the head's, and on a step that
-    carries extras the enc-dec encoder's two a layer. The group is left
-    again."""
+    reduced granite, qwen2-moe, llama-3.2-vision, seamless-m4t, mamba2 and
+    recurrentgemma: their model functions and both layouts' steps, every
+    collective traced, pass every rule, and each step's all-reduces and
+    gathers are the layout's counts: two all-reduces a layer (attention
+    and MLP, or attention and the experts once; mamba2's gated-norm sums
+    and `out_proj`; a recurrent layer's `w_out` and MLP), a cross layer's
+    two, the embedding's and the head's, and on a step that carries
+    extras the enc-dec encoder's two a layer; one gather a recurrent
+    layer (at m = 1 the hybrid's kv-head is not cut on head_dim). The
+    group is left again."""
     import torch.distributed as dist
 
     from repro_torch.analysis.graph_audit import MESH_ARCHS
@@ -156,10 +159,12 @@ def test_one_rank_mesh_engine_audits_clean_with_its_collectives():
     assert len(per) == t["functions"] + t["steps"]
     # reduced: 2 layers (the VLM's 1 cross layer, seamless's 2 encoder
     # layers), the vocab cut at m = 1
-    want = {"granite-3-8b": (6, 6), "qwen2-moe-a2.7b": (6, 6),
-            "llama-3.2-vision-90b": (8, 8),
-            "seamless-m4t-medium": (10, 14)}
-    for arch, (plain, first) in want.items():
+    want = {"granite-3-8b": (6, 6, 0), "qwen2-moe-a2.7b": (6, 6, 0),
+            "llama-3.2-vision-90b": (8, 8, 0),
+            "seamless-m4t-medium": (10, 14, 0), "mamba2-2.7b": (6, 6, 0),
+            "recurrentgemma-9b": (8, 8, 2)}
+    assert set(want) == set(MESH_ARCHS)
+    for arch, (plain, first, gathered) in want.items():
         mine = {k: n for k, n in per.items()
                 if k.startswith(f"{arch} mesh ")}
         assert mine
@@ -167,6 +172,7 @@ def test_one_rank_mesh_engine_audits_clean_with_its_collectives():
             extras = "'xchunk'" in step or step.endswith(
                 ("prefill", "prefill_paged"))
             assert n == (first if extras else plain), step
+            assert t["step_gathers"][step] == gathered, step
     assert not dist.is_initialized()
 
 
@@ -182,6 +188,22 @@ def test_mesh_audit_flags_a_dropped_allreduce(monkeypatch):
     audit.mesh(archs=("qwen2-moe-a2.7b",))
     assert audit.findings
     assert all("all-reduces where the model's layout gives" in f.message
+               for f in audit.findings)
+
+
+def test_mesh_audit_flags_a_dropped_gather(monkeypatch):
+    """The RG-LRU's gather of x dropped (a rank's gate products would read
+    its own channels only) is a finding on every step of the hybrid's
+    mesh engine."""
+    from repro_torch.models import rglru as RG
+
+    keep = RG._core
+    monkeypatch.setattr(RG, "_core", lambda scan, p, x, h0, tp=None:
+                        keep(scan, p, x, h0))
+    audit = GraphAudit("cpu")
+    audit.mesh(archs=("recurrentgemma-9b",))
+    assert audit.findings
+    assert all("gathers where the model's layout gives" in f.message
                for f in audit.findings)
 
 

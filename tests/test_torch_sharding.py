@@ -7,8 +7,11 @@ against the JAX package's rules, and the arithmetic of a rank's shard.
   param leaf of all ten archs, reduced and full (the port's params built
   on the meta device), at model axes 2, 4 and 16; the serving specs as
   `serve_param_shardings` strips them.
-* The starcoder2 36-heads case.
-* Each rank's slices, put back together, are the whole params.
+* The starcoder2 36-heads case, and which layouts the port serves: the
+  head_dim fallback for self-attention K/V, not yet for cross K/V.
+* Each rank's slices, put back together, are the whole params (mamba2's
+  `in_proj` and `conv_*` by their segments: a rank's z, x and dt columns
+  and x conv channels, B and C whole).
 * One layer at TP 2: the two ranks' partial sums of the attention (through
   a rank-local cache of half the kv-heads) and of the SwiGLU, added,
   within 1e-5 of the whole layer's; so too a MoE layer's (each rank's
@@ -19,7 +22,15 @@ against the JAX package's rules, and the arithmetic of a rank's shard.
   replicated where not (one all-reduce either way).
 * A rank's weights drawn cut (`model.init_shard`) are its slices of the
   whole weights, bit for bit.
+* The SSM and hybrid families at m simulated ranks (threads whose group
+  sums and gathers for real): a mamba2 block (the split gated norm) and
+  an RG-LRU block (the gathered x), prefill and decode, give the whole
+  block's output on every rank and the slices of its state; the split
+  norm's plain version is the whole row's norm; under the head_dim
+  fallback the ranks' caches, gathered, are the one-device cache.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -31,11 +42,15 @@ from repro.distributed.sharding import kv_head_axes as jax_kv_head_axes
 
 from repro_torch.config.registry import get_config, list_archs
 from repro_torch.core.memory_model import kv_shard_factor
-from repro_torch.distributed.sharding import (TP_FAMILIES, TensorParallel,
+from repro_torch.distributed.sharding import (ServingGroup, TensorParallel,
                                               check_tp, kv_head_axes,
-                                              local_config, serve_spec,
-                                              shard_params, spec_for,
-                                              tensor_parallel, validate)
+                                              local_config, segments,
+                                              serve_spec, shard_params,
+                                              spec_for, tensor_parallel,
+                                              validate)
+from repro_torch.kernels import ref
+from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SM
 from repro_torch.models.model import init_shard
 from repro_torch.models.backbone import init_cache, init_paged_cache
 from repro_torch.models import layers as L
@@ -83,12 +98,31 @@ def test_rule_table_matches_the_jax_package(arch, variant):
                 (name, m)
 
 
+def _port_serves(cfg, m) -> bool:
+    """The layouts the port serves, written out: the SSD heads and the
+    RG-LRU channels divide the axis; the query heads divide it, and the
+    kv-heads too, or head_dim under the fallback, where each rank's query
+    heads read one kv-head and no cross K/V is cut on head_dim."""
+    if cfg.family.value == "ssm":
+        return SM.ssm_dims(cfg)[1] % m == 0
+    if cfg.family.value == "hybrid" and cfg.rglru.lru_width % m:
+        return False
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if H % m or (KV % m and hd % m):
+        return False
+    return KV % m == 0 or (m % KV == 0
+                           and cfg.family.value not in ("vlm", "encdec"))
+
+
 @pytest.mark.parametrize("arch", list_archs())
 def test_cache_axes_and_per_rank_cache_shapes(arch):
     """The cache rule (`kv_head_axes`) is the JAX package's, and agrees
     with the pool's shard count (`kv_shard_factor`); where the port serves
-    a mesh, a rank's caches hold KV/m heads at the same head_dim
-    (`serve_cache_shardings`' shards)."""
+    a mesh, a rank's caches hold KV/m heads at the same head_dim, or under
+    the head_dim fallback all KV heads at hd/m (`serve_cache_shardings`'
+    shards), and its share of the per-request state: mamba2's d_inner/m
+    conv channels beside whole B and C and its H/m heads' state, the
+    RG-LRU's w/m channels; elsewhere `check_tp` raises."""
     for variant in ("reduced", "full"):
         cfg = get_config(arch, variant)
         KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -98,32 +132,69 @@ def test_cache_axes_and_per_rank_cache_shapes(arch):
             if cfg.kv_bytes_per_token():
                 assert kv_shard_factor(cfg, m) \
                     == (m if axes != (None, None) else 1)
-            if cfg.family not in TP_FAMILIES or axes[0] is None:
+            if not _port_serves(cfg, m):
                 with pytest.raises(NotImplementedError):
                     check_tp(cfg, m)
                 continue
-            lcfg = local_config(cfg, m)
-            for c in (init_cache(lcfg, 2, 32, device="meta", enc_len=5),
-                      init_paged_cache(lcfg, 4, 16, device="meta",
-                                       enc_len=5)):
-                assert c["k"].shape[-2:] == (KV // m, hd)
-                assert c["k"].shape[0] == cfg.num_layers
+            tp = tensor_parallel(cfg, _SumGroup(0, m))
+            assert tp.hd_split == (axes[0] is None)
+            want_kv = (KV, hd // m) if tp.hd_split else (KV // m, hd)
+            for c in (init_cache(tp.cfg, 2, 32, device="meta", enc_len=5,
+                                 tp=tp),
+                      init_paged_cache(tp.cfg, 4, 16, device="meta",
+                                       enc_len=5, tp=tp)):
+                if KV:
+                    assert c["k"].shape[-2:] == want_kv
+                    assert c["k"].shape[0] == sum(
+                        k == "attention" for k in cfg.layer_kinds())
                 if "cross_k" in c:
                     assert c["cross_k"].shape[-3:] == (5, KV // m, hd)
+                if cfg.family.value == "ssm":
+                    d_in, H, P, N = SM.ssm_dims(cfg)
+                    assert c["conv"].shape[-1] == d_in // m + 2 * N
+                    assert c["ssm"].shape[-3:] == (H // m, P, N)
+                if cfg.family.value == "hybrid":
+                    w = cfg.rglru.lru_width
+                    assert c["conv"].shape[-1] == c["rec"].shape[-1] \
+                        == w // m
 
 
 def test_starcoder2_36_heads_do_not_divide_16():
     """36 heads on a 16-way model axis must not shard (the JAX file's
-    case); the port, which splits no head, refuses starcoder2 at 16 (its 4
-    kv-heads would need the head_dim fallback) and serves it at 4."""
+    case); the port, which splits no query head, refuses starcoder2 at 8
+    and 16 (its 4 kv-heads would take the head_dim fallback, but its 36
+    query heads do not divide the axis) and serves it at 4."""
     sizes = {"data": 16, "model": 16}
     assert validate((None, "model"), (10, 36), sizes) == (None, None)
     assert validate((None, "model"), (10, 64), sizes) == (None, "model")
     cfg = get_config("starcoder2-7b", "full")
     assert cfg.num_heads == 36
-    with pytest.raises(NotImplementedError, match="head_dim fallback"):
-        check_tp(cfg, 16)
+    for m in (8, 16):
+        with pytest.raises(NotImplementedError, match="36 query heads do "
+                                                      "not divide"):
+            check_tp(cfg, m)
     assert local_config(cfg, 4).num_heads == 9
+
+
+def _reassemble(name, parts, cfg, m, axis):
+    """The whole leaf from its m ranks' slices: along `axis`, or, for a
+    leaf cut by segment, each cut segment's slices in rank order and each
+    whole one (the same on every rank) once."""
+    segs = segments(name, cfg)
+    if segs is None:
+        return torch.cat(parts, axis)
+    out, at = [], 0
+    for width, cut in segs:
+        n = width // m if cut else width
+        pieces = [p.narrow(-1, at, n) for p in parts]
+        if cut:
+            out.append(torch.cat(pieces, -1))
+        else:
+            assert all(torch.equal(x, pieces[0]) for x in pieces)
+            out.append(pieces[0])
+        at += n
+    assert at == parts[0].shape[-1]
+    return torch.cat(out, -1)
 
 
 @pytest.mark.parametrize("m", [2, 4])
@@ -137,14 +208,34 @@ def test_shards_concatenate_to_the_whole_params(arch, m):
     for name, w in named_leaves(whole):
         spec = serve_spec(name, tuple(w.shape), cfg, m)
         parts = [s[name] for s in shards]
-        if "model" in spec:
+        if "model" in spec or segments(name, cfg):
             split += 1
-            axis = spec.index("model")
-            assert all(p.shape[axis] * m == w.shape[axis] for p in parts)
-            assert torch.equal(torch.cat(parts, axis), w), name
+            axis = spec.index("model") if "model" in spec else -1
+            assert torch.equal(_reassemble(name, parts, cfg, m, axis), w), \
+                name
         else:
             assert all(p is w for p in parts), name
     assert split > 0
+
+
+def test_mamba2_segment_cut_at_full_width():
+    """mamba2-2.7b at m = 2: a rank's `in_proj` holds 5416 of the 10576
+    columns (its 2560 of z and of x, B and C's 128 each, its 40 of the 80
+    dt heads; the §5 rule's flat cut would give rank 0 all of z and 168
+    columns of x), its conv 2560 + 256 of 5376 channels, its `norm_w`
+    2560 and its `out_proj` 2560 rows; dt_bias, A_log and D stay whole."""
+    cfg = get_config("mamba2-2.7b", "full")
+    whole = dict(named_leaves(init_params(cfg, device="meta")))
+    mine = dict(named_leaves(shard_params(
+        init_params(cfg, device="meta"), cfg, 1, 2)))
+    assert whole["layers/mixer/in_proj"].shape[-1] == 10576
+    assert mine["layers/mixer/in_proj"].shape[-1] == 5416
+    assert mine["layers/mixer/conv_w"].shape[-1] == 2816
+    assert mine["layers/mixer/conv_b"].shape[-1] == 2816
+    assert mine["layers/mixer/norm_w"].shape[-1] == 2560
+    assert mine["layers/mixer/out_proj"].shape[-2] == 2560
+    for k in ("dt_bias", "A_log", "D"):
+        assert mine[f"layers/mixer/{k}"].shape[-1] == 80
 
 
 class _SumGroup:
@@ -302,11 +393,13 @@ def test_moe_experts_cut_on_e_or_replicated(E, m, split):
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "qwen2-moe-a2.7b",
                                   "llama-3.2-vision-90b",
-                                  "seamless-m4t-medium", "mamba2-2.7b"])
+                                  "seamless-m4t-medium", "mamba2-2.7b",
+                                  "recurrentgemma-9b"])
 def test_weights_drawn_cut_are_the_whole_weights_slices(arch):
     """`init_shard` (each tensor cut as it is drawn) gives every rank
-    `shard_params` of the whole init, bit for bit; mamba2's init, which
-    transforms drawn tensors, takes the whole-then-cut path."""
+    `shard_params` of the whole init, bit for bit: mamba2's segment-cut
+    mixer and its transformed dt_bias, and RecurrentGemma's lam, are cut
+    as they are made too."""
     cfg = get_config(arch, "reduced")
     whole = init_params(cfg, 5, torch.float32, "cpu")
     for r in range(2):
@@ -334,3 +427,222 @@ def test_vocab_parallel_embedding_and_head_add_up():
         head = head + tp.gather_vocab(h @ shard.T)
     assert torch.equal(emb, embed[tokens])
     assert float((head - h @ embed.T).abs().max()) == 0.0
+
+
+# -- the SSM and hybrid families at m simulated ranks -------------------------
+
+
+class _Hub:
+    """m threads' meeting point: each hands in its tensor and gets every
+    rank's back, in rank order."""
+
+    def __init__(self, m):
+        self.slots, self.wall = [None] * m, threading.Barrier(m, timeout=60)
+
+    def swap(self, rank, x):
+        self.slots[rank] = x
+        self.wall.wait()
+        got = list(self.slots)
+        self.wall.wait()
+        return got
+
+
+class _ThreadRank(ServingGroup):
+    """One simulated rank of a (1, m) group, run in a thread: its
+    all-reduce sums the ranks' tensors in rank order, its gather
+    concatenates their slices along the last axis."""
+
+    def __init__(self, hub, rank, m):
+        super().__init__((1, m), rank, m, "gloo", None, None)
+        self.hub = hub
+
+    def all_reduce(self, x):
+        parts = self.hub.swap(self.rank, x.clone())
+        return x.copy_(sum(parts[1:], parts[0]))
+
+    def gather(self, x):
+        return torch.cat(self.hub.swap(self.rank, x), -1)
+
+
+def _on_ranks(m, fn):
+    """fn(rank, group) in m threads of one simulated group; the results in
+    rank order (a thread's exception is raised here)."""
+    hub, out = _Hub(m), [None] * m
+
+    def run(r):
+        try:
+            out[r] = fn(r, _ThreadRank(hub, r, m))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            out[r] = e
+            hub.wall.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(m)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    for o in out:
+        if isinstance(o, BaseException):
+            raise o
+    return out
+
+
+def _numpy_weights(cfg, seed=0):
+    """The whole weights with every leaf drawn with numpy (non-zero norms,
+    biases and conv biases)."""
+    rng = np.random.RandomState(seed)
+    whole = init_params(cfg, 0, torch.float32, "cpu")
+    for name, t in named_leaves(whole):
+        if name.endswith(("A_log", "lam")):
+            continue            # the decays stay as the init draws them
+        scale = 0.1 if t.dim() <= 2 else 1 / np.sqrt(t.shape[-2])
+        t.copy_(torch.from_numpy(
+            (rng.standard_normal(t.shape) * scale).astype(np.float32)))
+    return whole
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_rank_blocks_sum_to_the_whole_block(arch, m):
+    """A mamba2 block and an RG-LRU block at m simulated ranks (a prefill
+    of 7 tokens from zero state, then a decode step, on each rank's params
+    and state slices): the group sums the ranks' partial `out_proj` /
+    `w_out` products (and mamba2's gated-norm sums of squares), and every
+    rank's output is the whole block's within 1e-5; each rank's state is
+    its slice of the whole block's (mamba2: its x conv channels beside
+    whole B and C, its heads' SSM state; the RG-LRU: its channels)."""
+    cfg = get_config(arch, "reduced")
+    whole = _numpy_weights(cfg)
+    rng = np.random.RandomState(1)
+    u = torch.from_numpy(rng.standard_normal((2, 8, cfg.d_model))
+                         .astype(np.float32))
+    ssm = arch.startswith("mamba2")
+    key = "layers" if ssm else "rec_layers"
+
+    def block(p, x, tp, state):
+        if ssm:
+            conv, h = state
+            return SM.mamba2_block(p["mixer"], x, cfg, conv_state=conv,
+                                   ssm_state=h, decode=x.shape[1] == 1,
+                                   tp=tp)
+        conv, h = state
+        return RG.rglru_block(p["rec"], x, cfg, conv_state=conv,
+                              rec_state=h, tp=tp)
+
+    def steps(p, tp):
+        y1, st = block(p, u[:, :7], tp, (None, None))
+        y2, st = block(p, u[:, 7:], tp, st)
+        return torch.cat([y1, y2], 1), st
+
+    want, (conv_w, h_w) = steps(layer_params(whole[key], 0), None)
+
+    def rank(r, group):
+        tp = tensor_parallel(cfg, group)
+        return steps(layer_params(shard_params(whole, cfg, r, m)[key], 0),
+                     tp)
+
+    outs = _on_ranks(m, rank)
+    for r, (y, (conv, h)) in enumerate(outs):
+        assert float((y - want).abs().max()) < 1e-5, r
+        if ssm:
+            d_in, H, _, N = SM.ssm_dims(cfg)
+            k = d_in // m
+            assert torch.allclose(conv[..., :k],
+                                  conv_w[..., r * k:(r + 1) * k], atol=1e-6)
+            assert torch.allclose(conv[..., k:], conv_w[..., d_in:],
+                                  atol=1e-6)
+            hh = H // m
+            assert torch.allclose(h, h_w[:, r * hh:(r + 1) * hh], atol=1e-5)
+        else:
+            k = cfg.rglru.lru_width // m
+            assert torch.allclose(conv, conv_w[..., r * k:(r + 1) * k],
+                                  atol=1e-6)
+            assert torch.allclose(h, h_w[:, r * k:(r + 1) * k], atol=1e-5)
+
+
+def test_split_norm_plain_version_is_the_whole_rows_norm():
+    """`ref.rmsnorm_split_ref` on m ranks' slices of a row, their sums of
+    squares added over the ranks, is `rmsnorm_ref` of the whole row's
+    slices within 1e-6 (in bf16 within a bf16 step); with no reduce it is
+    `rmsnorm_ref` bit for bit."""
+    g = torch.Generator().manual_seed(0)
+    d, m = 256, 4
+    for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 1e-2)):
+        x = (torch.randn(3, 5, d, generator=g) * 3).to(dtype)
+        w = (torch.randn(d, generator=g) * 0.1).to(dtype)
+        want = ref.rmsnorm_ref(x, w, eps=1e-5)
+        assert torch.equal(ref.rmsnorm_split_ref(x, w, d=d, eps=1e-5), want)
+        k = d // m
+        sums = [(x[..., r * k:(r + 1) * k].float() ** 2).sum(-1)
+                for r in range(m)]
+        total = sum(sums[1:], sums[0])
+        got = torch.cat([ref.rmsnorm_split_ref(
+            x[..., r * k:(r + 1) * k], w[r * k:(r + 1) * k], d=d, eps=1e-5,
+            reduce=lambda s: total) for r in range(m)], -1)
+        assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("arch,m", [("recurrentgemma-9b", 2),
+                                    ("recurrentgemma-9b", 4),
+                                    ("granite-3-8b", 4)])
+def test_fallback_kv_gathered_from_the_ranks_equals_one_device(arch, m,
+                                                               paged):
+    """Under the head_dim fallback (the hybrid's single kv-head, reduced
+    granite's 2 at m = 4) each rank's cache holds hd/m of every kv-head;
+    after a chunk of 6 tokens and a decode step, the ranks' caches
+    concatenated on head_dim are the one-device cache within 1e-6, and
+    every rank's attention output (its heads' partial `wo` products summed
+    by the group) is the whole layer's within 1e-5."""
+    cfg = get_config(arch, "reduced")
+    whole = _numpy_weights(cfg)
+    key = "att_layers" if cfg.family.value == "hybrid" else "layers"
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.standard_normal((2, 7, cfg.d_model))
+                         .astype(np.float32))
+    pos = torch.arange(7, dtype=torch.int32).expand(2, 7) + 3
+    S, bs = 16, 4
+
+    def attend(lp, c, tp):
+        hd = tp.kv_dim(c.resolved_head_dim) if tp else c.resolved_head_dim
+        outs = []
+        if paged:
+            k = torch.zeros(2 * S // bs + 1, bs, c.num_kv_heads, hd)
+            v = torch.zeros_like(k)
+            kpos = torch.full(k.shape[:2], -1, dtype=torch.int32)
+            tables = torch.arange(2 * S // bs, dtype=torch.int32).view(2, -1)
+            for sl in (slice(0, 6), slice(6, 7)):
+                widx = L.paged_write_index(pos[:, sl], tables, bs,
+                                           spare=k.shape[0] - 1)
+                kpos.view(-1)[widx[0]] = pos[:, sl]
+                outs.append(L.self_attention_paged(
+                    lp["attn"], x[:, sl], pos[:, sl], k, v, kpos, tables,
+                    widx, c, tp=tp))
+        else:
+            k = torch.zeros(2, S, c.num_kv_heads, hd)
+            v = torch.zeros_like(k)
+            kpos = torch.full((2, S), -1, dtype=torch.int32)
+            for sl in (slice(0, 6), slice(6, 7)):
+                widx = L.cache_write_index(pos[:, sl], S)
+                L.cache_put(kpos, widx, pos[:, sl])
+                outs.append(L.self_attention_cached(
+                    lp["attn"], x[:, sl], pos[:, sl], k, v, kpos, widx, c,
+                    tp=tp))
+        return torch.cat(outs, 1), k, v
+
+    want, k_w, v_w = attend(layer_params(whole[key], 0), cfg, None)
+
+    def rank(r, group):
+        tp = tensor_parallel(cfg, group)
+        assert tp.hd_split
+        return attend(layer_params(shard_params(whole, cfg, r, m)[key], 0),
+                      tp.cfg, tp)
+
+    outs = _on_ranks(m, rank)
+    for got, _, _ in outs:
+        assert float((got - want).abs().max()) < 1e-5
+    for mine, ref_kv in ((1, k_w), (2, v_w)):
+        cat = torch.cat([o[mine] for o in outs], -1)
+        assert cat.shape == ref_kv.shape
+        assert float((cat - ref_kv).abs().max()) < 1e-6

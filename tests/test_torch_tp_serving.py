@@ -4,13 +4,15 @@ tests/test_tp_serving.py.
 A subprocess (`tests/_torch_tp_ranks.py`) runs the port's engine in rank
 processes over gloo (`launch.mesh.spawn_ranks`, one process a rank): 2
 ranks on a (1, 2) mesh, then 4 on a (2, 2) mesh, reduced granite-3-8b in
-fp32 on weights drawn with numpy, and the MoE, VLM and enc-dec families
-(reduced qwen2-moe-a2.7b, kimi-k2-1t-a32b, llama-3.2-vision-90b,
-seamless-m4t-medium, and a qwen2-moe of 5 experts, which a model axis of
-2 does not divide: its expert stacks replicate). Meanwhile the JAX
-package's single-device engine serves the same requests on the same
-weights (and extras) in this process. The assertions follow the JAX
-file's:
+fp32 on weights drawn with numpy (also on a (1, 4) mesh, where its 2
+kv-heads take the head_dim fallback), and the MoE, VLM, enc-dec, SSM and
+hybrid families (reduced qwen2-moe-a2.7b, kimi-k2-1t-a32b,
+llama-3.2-vision-90b, seamless-m4t-medium, a qwen2-moe of 5 experts,
+which a model axis of 2 does not divide: its expert stacks replicate,
+mamba2-2.7b, and recurrentgemma-9b, whose single kv-head takes the
+fallback). Meanwhile the JAX package's single-device engine serves the
+same requests on the same weights (and extras) in this process. The
+assertions follow the JAX file's:
 
 * tokens equal to the JAX engine's, on every rank, in both layouts, for
   every family;
@@ -21,13 +23,14 @@ file's:
 * (2, 2) parity with the port's simulator, swap off and on;
 
 and the port's own: the families' counters equal the port's simulator's
-at `model_shards` 2; the `sla` policy with rank 1's clock skewed decides
+at `model_shards` 2 (1 for the attention-free mamba2); the `sla` policy with rank 1's clock skewed decides
 alike on both ranks (the engine agrees rank 0's measured values); after
 an idle gap the mesh engine's TTFT is the no-mesh engine's (its clock is
 agreed afresh, idle time included); a forward's all-reduces are the count
 the layout gives; the CLI's --mesh path at overlap depth 2 equals depth 0
 and the no-mesh run; a one-rank group serves each family's tokens bit for
-bit; and the families without a tensor-parallel port raise.
+bit; and the layouts the port does not serve yet (cross K/V under the
+head_dim fallback, query heads that do not divide the axis) raise.
 """
 import dataclasses
 import json
@@ -49,9 +52,10 @@ from repro.serving.cost_model import PROFILES as JPROFILES
 from repro.serving.cost_model import CostModel as JCostModel
 from repro.serving.engine import Engine as JEngine
 
-from repro_torch.analysis.graph_audit import allreduces
+from repro_torch.analysis.graph_audit import allreduces, gathers
 from repro_torch.config.base import ServeConfig
-from repro_torch.config.registry import get_config, list_archs
+from repro_torch.config.registry import get_config
+from repro_torch.core.memory_model import kv_shard_factor
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.distributed.sharding import ServingGroup, tensor_parallel
 from repro_torch.launch import serve as port_serve
@@ -213,14 +217,30 @@ def test_skewed_clock_sla_decides_alike_on_every_rank(results):
 
 
 @pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_head_dim_fallback_tokens_equal_the_jax_engine(results, layout):
+    """Reduced granite on a (1, 4) mesh: its 2 kv-heads do not divide the
+    axis, so each rank's cache holds a quarter of head_dim of both
+    kv-heads (gathered whole before each attention read); the JAX engine's
+    tokens on every rank, and the pool at 4 x the per-chip tokens."""
+    r = results["ranks"]["1,4"][layout]
+    cfg = get_config(R.ARCH, "reduced")
+    assert r["agree"] and r["drained"]
+    assert r["tokens"] == results["single"]["tokens"]
+    assert (r["kv_heads"], r["kv_dim"]) == (cfg.num_kv_heads,
+                                            cfg.resolved_head_dim // 4)
+    assert r["counters"]["model_shards"] == 4
+    assert r["eta"] == r["counters"]["pool_tokens"] == 4 * 256
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
 @pytest.mark.parametrize("mesh", MESHES)
 @pytest.mark.parametrize("name", R.FAMILIES)
 def test_family_tokens_equal_the_jax_engine_on_every_rank(results, name,
                                                           mesh, layout):
     """The MoE (experts cut on E, or replicated where 5 do not divide the
-    axis), VLM and enc-dec families on a mesh: the JAX single-device
-    engine's tokens, on every rank (the ranks' batch sizes and block
-    tables agreed after every interval)."""
+    axis), VLM, enc-dec, SSM and hybrid families on a mesh: the JAX
+    single-device engine's tokens, on every rank (the ranks' batch sizes
+    and block tables agreed after every interval)."""
     r = results["ranks"][mesh]["families"][f"{name} {layout}"]
     assert r["agree"] and r["drained"]
     assert r["finished"] == list(range(len(R.FAM_LENS)))
@@ -231,8 +251,10 @@ def test_family_tokens_equal_the_jax_engine_on_every_rank(results, name,
 @pytest.mark.parametrize("name", R.FAMILIES)
 def test_family_counters_equal_the_simulator(results, name, mesh):
     """The families' mesh runs against the port's simulator on the same
-    per-chip budget (scaled by `model_shards` 2), in both layouts; a rank
-    holds half the kv-heads, in its cross K/V too."""
+    per-chip budget (scaled by `model_shards`: 2, and 1 for mamba2, which
+    has no token pool to shard), in both layouts; a rank holds half the
+    kv-heads, in its cross K/V too, or under the head_dim fallback (the
+    hybrid's single kv-head) half of head_dim."""
     cfg = R.family_config(name)
     shape = tuple(int(a) for a in mesh.split(","))
     for layout in ("paged", "contiguous"):
@@ -252,9 +274,15 @@ def test_family_counters_equal_the_simulator(results, name, mesh):
         for k in ("admitted", "preemptions", "oom_events", "rejected",
                   "sla_requests_met", "goodput_tokens"):
             assert r["counters"][k] == getattr(res, k), (layout, k)
-        assert r["eta"] == sim.mem.eta == r["counters"]["pool_tokens"] == 512
-        assert r["counters"]["model_shards"] == 2
-        assert r["kv_heads"] == cfg.num_kv_heads // 2
+        shards = kv_shard_factor(cfg, 2)
+        assert shards == (1 if name == "mamba2-2.7b" else 2)
+        assert r["eta"] == sim.mem.eta == r["counters"]["pool_tokens"] \
+            == 256 * shards
+        assert r["counters"]["model_shards"] == shards
+        if "kv_heads" in r:
+            KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+            assert (r["kv_heads"], r["kv_dim"]) == (
+                (KV // 2, hd) if KV % 2 == 0 else (KV, hd // 2))
         if "cross_heads" in r:
             assert r["cross_heads"] == cfg.num_kv_heads // 2
 
@@ -262,14 +290,17 @@ def test_family_counters_equal_the_simulator(results, name, mesh):
 @pytest.mark.parametrize("name", R.FAMILIES)
 def test_family_forward_allreduces_are_the_layouts(results, name):
     """A (1, 2) rank's first chunk with extras and its decode step, traced
-    (`graph_audit.OpTrace`): their all-reduces are `allreduces`' count
-    for the rank's layout (the encoder's too on a first chunk)."""
+    (`graph_audit.OpTrace`): their all-reduces and gathers are
+    `allreduces`' and `gathers`' counts for the rank's layout (the
+    encoder's too on a first chunk)."""
     r = results["ranks"]["1,2"]["families"][f"{name} paged"]
     cfg = R.family_config(name)
     tp = tensor_parallel(cfg, _fake_group(2))
     extras = cfg.family.value in ("vlm", "encdec")
     assert r["allreduces"] == {"prefill": allreduces(cfg, tp, extras),
-                               "decode": allreduces(cfg, tp)}
+                               "decode": allreduces(cfg, tp),
+                               "prefill_gathers": gathers(cfg, tp),
+                               "decode_gathers": gathers(cfg, tp)}
 
 
 def test_allreduce_counts_of_the_full_configs_at_two():
@@ -285,6 +316,20 @@ def test_allreduce_counts_of_the_full_configs_at_two():
     assert count("llama-3.2-vision-90b", num_layers=16,
                  num_cross_layers=4) == 16 * 2 + 4 * 2 + 2
     assert count("granite-3-8b") == 40 * 2       # an odd vocab: not cut
+    assert count("mamba2-2.7b") == 64 * 2 + 2
+    assert count("recurrentgemma-9b") == 38 * 2 + 2
+
+
+def test_gather_counts_of_the_hybrid():
+    """recurrentgemma-9b's gathers a forward: one a recurrent layer (26),
+    and at m > 1, where its single kv-head takes the head_dim fallback,
+    two an attention layer (12); none in the other families."""
+    cfg = get_config("recurrentgemma-9b", "full")
+    assert gathers(cfg, tensor_parallel(cfg, _fake_group(1))) == 26
+    assert gathers(cfg, tensor_parallel(cfg, _fake_group(2))) == 26 + 24
+    for arch in ("mamba2-2.7b", "granite-3-8b"):
+        cfg = get_config(arch, "full")
+        assert gathers(cfg, tensor_parallel(cfg, _fake_group(2))) == 0
 
 
 def test_clock_after_an_idle_gap_matches_the_no_mesh_engine(results,
@@ -353,34 +398,32 @@ class _OneRank(ServingGroup):
     def all_reduce(self, x):
         return x
 
+    def gather(self, x):
+        return x
+
     def agree(self, values):
         return list(values)
 
 
-@pytest.mark.parametrize("arch", [a for a in list_archs()
-                                  if get_config(a, "reduced").family.value
-                                  in ("hybrid", "ssm")])
-def test_families_without_a_tp_port_raise_under_a_mesh(arch):
-    cfg = get_config(arch, "reduced")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        check_ported(ServeConfig(mesh_shape=(1, 2)), cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(cfg, torch.float32, "cpu", group=_fake_group(2))
-
-
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
                                   "llama-3.2-vision-90b",
-                                  "seamless-m4t-medium"])
+                                  "seamless-m4t-medium", "mamba2-2.7b",
+                                  "recurrentgemma-9b"])
 def test_tp_families_build_and_serve_on_a_group(arch):
-    """The MoE, VLM and enc-dec families pass `check_ported` on a (1, 2)
-    mesh and build a rank's model (half the heads, the layout's splits);
-    on a one-rank group the engine serves the no-mesh engine's tokens and
-    counters bit for bit (a one-rank all-reduce is the identity), extras
-    included."""
+    """The MoE, VLM, enc-dec, SSM and hybrid families pass `check_ported`
+    on a (1, 2) mesh, reduced and full, and build a rank's model (half the
+    heads, or the hybrid's single kv-head on half of head_dim; the
+    layout's splits); on a one-rank group the engine serves the no-mesh
+    engine's tokens and counters bit for bit (a one-rank all-reduce and
+    gather are the identity), extras included."""
     cfg = get_config(arch, "reduced")
     check_ported(ServeConfig(mesh_shape=(1, 2)), cfg)
+    check_ported(ServeConfig(mesh_shape=(1, 2)), get_config(arch, "full"))
     half = build_model(cfg, torch.float32, "cpu", group=_fake_group(2))
-    assert half.local_cfg.num_kv_heads == cfg.num_kv_heads // 2
+    KV = cfg.num_kv_heads
+    assert half.tp.hd_split == (KV % 2 != 0)
+    assert half.local_cfg.num_kv_heads == (KV if KV % 2 else KV // 2)
+    assert half.local_cfg.num_heads == cfg.num_heads // 2
     assert half.tp.mlp_split or cfg.moe is not None
     if cfg.moe is not None:
         assert half.tp.expert_split and half.tp.shared_split
@@ -407,13 +450,16 @@ def test_tp_families_build_and_serve_on_a_group(arch):
 
 
 def test_head_dim_fallback_raises():
-    """Reduced granite has 2 kv-heads: at a model axis of 4 the JAX
-    package stores K/V sharded on head_dim, which the port does not; nor
-    for reduced llama-3.2-vision's 2 kv-heads (its cross K/V included)."""
+    """The head_dim fallback (K/V stored sharded on head_dim where the
+    kv-heads do not divide the axis) is served for self-attention
+    (reduced granite's 2 kv-heads at a model axis of 4), and still raises
+    for cross-attention K/V, a later slice: reduced llama-3.2-vision's 2
+    kv-heads at 4."""
     cfg = get_config(R.ARCH, "reduced")
-    with pytest.raises(NotImplementedError, match="head_dim fallback"):
-        check_ported(ServeConfig(mesh_shape=(1, 4)), cfg)
-    with pytest.raises(NotImplementedError, match="head_dim fallback"):
+    check_ported(ServeConfig(mesh_shape=(1, 4)), cfg)
+    with pytest.raises(NotImplementedError,
+                       match="cross-attention K/V under the head_dim "
+                             "fallback .* later slice"):
         check_ported(ServeConfig(mesh_shape=(1, 4)),
                      get_config("llama-3.2-vision-90b", "reduced"))
     # a mesh given to the engine needs a model on a group of that shape
