@@ -309,14 +309,29 @@ Phases, one JSON line each:
              the last 5 below the mean of the first 5, and at step 1 every
              param leaf's gradient (each layer's slice of a stacked leaf)
              finite with a non-zero norm; the median
-             step time (CUDA events), tokens/s, peak memory, and the model
-             FLOP rate (`train_flops`) as a share of the card's dense bf16
-             peak, beside the card's name and power limit.
-
-17. timing  the seconds of each stretch of phases (build, kernels,
+             step time (CUDA events), tokens/s, peak memory (and the
+             bytes allocated once the params are made, before the AdamW
+             state), and the model FLOP rate (`train_flops`) as a share of
+             the card's dense bf16 peak, beside the card's name and power
+             limit.
+17. dryrun  the dry run (`repro_torch.launch.dryrun.run_one`, one rank's
+             step on the meta device): (a) dryrun_predicted: the two
+             full-width training runs of the train phase (granite-3-8b on
+             16 of 40 layers, mamba2-2.7b whole; bf16, fp32 moments, B 8,
+             T 256, remat) reckoned on a (1, 1) mesh, their predicted
+             peak within 5% of the measured one and the part above the
+             state (params and moments) within 25%; (b) dryrun_fit: the
+             whole granite-3-8b's rows at B 8, T 256 on (1, 1), (1, 2),
+             (2, 1) and (1, 8), printed (bytes a rank, fits the card's 80
+             GB or not); (c) dryrun_one_rank: one training step of
+             granite-3-8b at full width cut to 4 layers on a (1, 1) NCCL
+             group (the autograd collectives, traced in the forward and
+             the backward) against the no-group step: the loss and every
+             gradient bit for bit.
+18. timing  the seconds of each stretch of phases (build, kernels,
              references, serve, audit, sliding, eager_overlap,
-             twins_tiers, profiles, tp, train) and their total, from the
-             kernels' build to the end of training.
+             twins_tiers, profiles, tp, train, dryrun) and their total,
+             from the kernels' build to the end of the dry run.
 
 Then the card's name and power limit, the `{"kernels": [...]}` summary,
 and as the last line `{"ok": true, "device": {...}}`. Any failure raises:
@@ -1341,6 +1356,7 @@ def run_train_full(dev, card: str, arch: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    after_init = torch.cuda.memory_allocated()
     res = train(model, tcfg, log=None, params=params)
     peak = torch.cuda.max_memory_allocated()
     losses = res["losses"]
@@ -1367,7 +1383,9 @@ def run_train_full(dev, card: str, arch: str) -> dict:
         grad_norm_min_slice=min(norms, key=norms.get),
         step_ms=res["step_ms"], step_ms_median=step_s * 1e3,
         tokens_per_s=tokens / step_s, wall_tokens_per_s=res["tokens_per_s"],
-        peak_memory_gb=peak / 1e9, flops_per_step=flops,
+        peak_memory_gb=peak / 1e9, peak_memory_bytes=peak,
+        allocated_after_init_bytes=after_init,
+        moment_bytes=8 * n_params, flops_per_step=flops,
         flops_formula="3 x (2 N B T + 4 B T^2 H hd L_att + L_ssm (2 B T Q "
                       "(N_state + H P) + 4 B T N_state H P))",
         model_tflops=flops / step_s / 1e12,
@@ -1383,6 +1401,152 @@ def run_train_full(dev, card: str, arch: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return fields
+
+
+#: the dry run's training shape: the train phase's batch and length
+DRY_SHAPE = dict(name="train_smoke", seq_len=256, global_batch=8,
+                 kind="train")
+#: meshes of the whole granite-3-8b's fit rows: one card, two as a model
+#: axis, two as a data axis (FSDP), one NVLink node of 8
+FIT_MESHES = ({"data": 1, "model": 1}, {"data": 1, "model": 2},
+              {"data": 2, "model": 1}, {"data": 1, "model": 8})
+#: the predicted peak against the measured one, and the part above the
+#: params and moments
+DRY_PEAK_TOL, DRY_TEMP_TOL = 0.05, 0.25
+#: the layers of the one-rank NCCL training step
+DRY_RANK_LAYERS = 4
+
+
+def run_dryrun(dev, card: str, train_runs: dict) -> dict:
+    """The dryrun phase: (a) the train phase's peaks predicted on the meta
+    device, (b) the whole granite-3-8b's fit rows, (c) a one-rank NCCL
+    training step bit for bit with no group. The rows of (a) and (b) run
+    in spawned processes (the meta device, no card), all at once and
+    beside (c) on the card."""
+    import concurrent.futures
+    import dataclasses
+    import multiprocessing
+    from repro_torch.config.base import InputShape
+    from repro_torch.config.registry import get_config
+    from repro_torch.launch.dryrun import run_one
+
+    t0 = time.perf_counter()
+    shape = InputShape(**DRY_SHAPE)
+    granite = get_config("granite-3-8b", "full")
+    out, bad = {"predicted": {}, "fit": []}, []
+    with concurrent.futures.ProcessPoolExecutor(
+            len(TRAIN_FULL) + len(FIT_MESHES),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        predicted = {}
+        for arch, (layers, _) in TRAIN_FULL.items():
+            whole = get_config(arch, "full")
+            cfg = dataclasses.replace(whole, num_layers=layers) if layers \
+                else whole
+            predicted[arch] = pool.submit(run_one, cfg, shape,
+                                          {"data": 1, "model": 1},
+                                          arch=arch)
+        fit = [pool.submit(run_one, granite, shape, mesh,
+                           arch="granite-3-8b") for mesh in FIT_MESHES]
+        out["one_rank"] = _dry_one_rank(dev)
+        predicted = {arch: f.result() for arch, f in predicted.items()}
+        fit = [f.result() for f in fit]
+    for arch, row in predicted.items():
+        if row["status"] != "ok":
+            emit("dryrun_predicted", arch=arch, **row)
+            bad.append(arch)
+            continue
+        run = train_runs[arch]
+        state = run["allocated_after_init_bytes"] + run["moment_bytes"]
+        measured_above = run["peak_memory_bytes"] - state
+        peak_err = row["peak_bytes"] / run["peak_memory_bytes"] - 1
+        temp_err = row["temp_size_in_bytes"] / measured_above - 1
+        out["predicted"][arch] = dict(
+            card=card, layers=run["layers"], status=row["status"],
+            predicted_peak_bytes=row["peak_bytes"],
+            measured_peak_bytes=run["peak_memory_bytes"],
+            peak_rel_err=peak_err,
+            predicted_arguments_bytes=row["argument_size_in_bytes"],
+            measured_state_bytes=state,
+            predicted_above_state_bytes=row["temp_size_in_bytes"],
+            measured_above_state_bytes=measured_above,
+            above_state_rel_err=temp_err, arguments=row["arguments"],
+            flops=row["flops"], meta_s=row["meta_s"])
+        emit("dryrun_predicted", arch=arch, **out["predicted"][arch])
+        if abs(peak_err) > DRY_PEAK_TOL or abs(temp_err) > DRY_TEMP_TOL:
+            bad.append(arch)
+    keep = ("mesh", "status", "reason", "argument_size_in_bytes",
+            "gathered_bytes", "temp_size_in_bytes", "peak_bytes", "fits",
+            "capacity_bytes", "capacity_of", "flops", "collectives",
+            "serve_weight_bytes", "meta_s")
+    for row in fit:
+        out["fit"].append({k: row[k] for k in keep if k in row})
+        emit("dryrun_fit", arch="granite-3-8b", card=card,
+             batch=shape.global_batch, seq=shape.seq_len,
+             peak_gb=row["peak_bytes"] / 1e9, **out["fit"][-1])
+        if row["status"] != "ok":
+            bad.append(row["mesh"])
+    out["seconds"] = time.perf_counter() - t0
+    if bad or not out["one_rank"]["bit_for_bit"]:
+        raise AssertionError(f"dryrun: the predicted peaks are off or a "
+                             f"row failed {bad}, or the one-rank step "
+                             f"departs: {out['one_rank']}")
+    return out
+
+
+def _dry_one_rank(dev) -> dict:
+    """(c): granite-3-8b at full width on DRY_RANK_LAYERS layers, one
+    training step's loss and gradients on a (1, 1) NCCL group against
+    the no-group step's, the group's collectives traced."""
+    import dataclasses
+    import tempfile
+    from repro_torch.analysis.graph_audit import ALLREDUCE, GATHER, OpTrace
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.launch.mesh import close_serving_group, make_serving_group
+    from repro_torch.models.model import build_model
+    from repro_torch.params import named_leaves
+    from repro_torch.training.data import MarkovData
+    from repro_torch.training.train_loop import (to_device, trainable,
+                                                 value_and_grad)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("granite-3-8b", "full"),
+                              num_layers=DRY_RANK_LAYERS)
+    tcfg = TrainConfig()
+    batch = to_device(next(MarkovData(cfg, tcfg).batches()), dev)
+    whole = build_model(cfg, torch.bfloat16, dev).init(0)
+    loss1, _, g1 = value_and_grad(build_model(cfg, torch.bfloat16, dev),
+                                  trainable(whole), batch)
+    with tempfile.TemporaryDirectory() as d:
+        group = make_serving_group((1, 1), "nccl", 0, 1,
+                                   init_method=f"file://{d}/store")
+        try:
+            model = build_model(cfg, torch.bfloat16, dev, group=group)
+            with OpTrace() as tr:
+                loss, _, g = value_and_grad(model,
+                                            trainable(model.shard(whole)),
+                                            batch)
+            torch.cuda.synchronize()
+        finally:
+            close_serving_group()
+    want = dict(named_leaves(g1))
+    differ = [n for n, x in named_leaves(g) if not torch.equal(x, want[n])]
+    res = dict(layers=cfg.num_layers, loss=float(loss),
+               no_group_loss=float(loss1),
+               loss_equal=bool(torch.equal(loss, loss1)),
+               leaves=len(want), leaves_differ=differ,
+               bit_for_bit=bool(torch.equal(loss, loss1)) and not differ,
+               allreduces=tr.collectives.get(ALLREDUCE, 0),
+               gathers=tr.collectives.get(GATHER, 0),
+               seconds=time.perf_counter() - t0)
+    emit("dryrun_one_rank", **res)
+    if not res["allreduces"]:
+        raise AssertionError("dryrun (c): the group's step traced no "
+                             "all-reduce")
+    del g, g1, whole, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def to_cpu(t):
@@ -3702,6 +3866,8 @@ def main() -> int:
     for arch in TRAIN_FULL:
         train_runs[arch] = run_train_full(dev, card, arch)
     lap("train")
+    dry = run_dryrun(dev, card, train_runs)
+    lap("dryrun")
     # the script's seconds from its build on (the imports before it and
     # the summary after it take under a second)
     timing = dict(phases=phase_s, seconds=time.perf_counter() - start)
@@ -3735,6 +3901,7 @@ def main() -> int:
          "sliding_reference": sliding_ref, "layout_tokens": layout_tokens,
          "profile_swap": profile_swap, "audit": audit, "train": train_runs,
          "tp": tp, "split_rows": split_rows, "timing": timing,
+         "dryrun": dry,
          "serve_eager": {f"{arch}_{layout}": eager}},
         indent=1))
     print(card)

@@ -41,17 +41,30 @@ segment (`segments`: its z, x and dt columns and its x conv channels per
 rank, B and C whole) with the gated norm's sum of squares all-reduced,
 and RecurrentGemma's RG-LRU channels per rank, its gate products reading
 the whole post-conv x through one gather.
+
+The training half (the dry run's, `launch.dryrun`): the FSDP x TP specs of
+the JAX package's `param_shardings`, `batch_shardings`, `cache_shardings`
+and `decode_input_shardings` over a `{axis: size}` map (`param_specs`,
+`batch_specs`, `cache_specs`, `decode_input_specs`), a rank's shard of a
+leaf under a spec (`local_shape`, `local_bytes`), and the collectives of a
+training forward under a group with their backward (`TensorParallel`:
+the Megatron pair `reduce` / `copy`, `sum` for a total that each rank
+reads its own share of, and `gather`), so that a tensor-parallel training
+step gives each rank its slice of the one-device gradient.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.config.base import ArchFamily, ModelConfig
+from repro_torch.models.backbone import init_params
 from repro_torch.models.ssm import ssm_dims
+from repro_torch.params import named_leaves
 
 Spec = Tuple[Any, ...]
 
@@ -270,6 +283,115 @@ def shard_params(params: Dict[str, Any], cfg: ModelConfig, rank: int,
 
 
 # ---------------------------------------------------------------------------
+# the training layout: FSDP over the data axes x TP over "model"
+
+
+#: what the pod axis does (`fsdp_axes`): "fsdp" shards params over
+#: (pod, data); "dp" keeps FSDP within a pod and makes the pod axis pure
+#: data parallelism (the JAX package's REPRO_POD_MODE=dp)
+POD_MODES = ("fsdp", "dp")
+
+
+def fsdp_axes(sizes: Mapping[str, int], pod_mode: str = "fsdp"
+              ) -> Tuple[str, ...]:
+    """The axes that shard params and optimizer state."""
+    if pod_mode not in POD_MODES:
+        raise ValueError(f"pod_mode {pod_mode!r} not in {POD_MODES}")
+    if "pod" in sizes and pod_mode != "dp":
+        return ("pod", "data")
+    return ("data",)
+
+
+def data_axes(sizes: Mapping[str, int]) -> Tuple[str, ...]:
+    """The axes that shard the batch: always the pod axis too."""
+    return ("pod", "data") if "pod" in sizes else ("data",)
+
+
+def _entry(axes: Tuple[str, ...]):
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _specs(tree, one, prefix: str = ""):
+    return {k: _specs(v, one, f"{prefix}{k}/") if isinstance(v, dict)
+            else one(f"{prefix}{k}", v) for k, v in tree.items()}
+
+
+def param_specs(params, cfg: ModelConfig, sizes: Mapping[str, int],
+                pod_mode: str = "fsdp"):
+    """The spec of every param leaf (tensors or meta tensors), a tree of
+    the params' shape: the §5 rule over the FSDP axes, validated
+    (`param_shardings`)."""
+    f = fsdp_axes(sizes, pod_mode)
+    return _specs(params, lambda name, t: validate(
+        spec_for(name, t.dim(), cfg, f), tuple(t.shape), sizes))
+
+
+def batch_specs(batch, sizes: Mapping[str, int]):
+    """Every batch leaf's leading axis over the data axes
+    (`batch_shardings`)."""
+    bs = _entry(data_axes(sizes))
+    return _specs(batch, lambda name, t: validate(
+        (bs,) + (None,) * (t.dim() - 1), tuple(t.shape), sizes))
+
+
+def cache_specs(cache, sizes: Mapping[str, int], seq_shard: bool = False):
+    """A contiguous cache's specs (`cache_shardings`): rows over the data
+    axes, K/V on kv-heads or head_dim (`kv_head_axes`), the recurrent
+    state on its channels; with `seq_shard` (batch-1 long-context decode)
+    the K/V and `pos` slots over "data" instead."""
+    fs = _entry(data_axes(sizes))
+    rows = None if seq_shard else fs
+
+    def one(name, t):
+        shape = tuple(t.shape)
+        if name in ("k", "v", "cross_k", "cross_v"):
+            kv_ax, hd_ax = kv_head_axes(sizes["model"], shape[3], shape[4])
+            spec = (None, None, "data", kv_ax, hd_ax) \
+                if seq_shard and name in ("k", "v") \
+                else (None, fs, None, kv_ax, hd_ax)
+        elif name == "pos":
+            spec = (None, "data") if seq_shard else (fs, None)
+        elif name == "conv":                        # (L, B, W-1, ch)
+            spec = (None, rows, None, "model")
+        elif name == "rec":                         # (L, B, w)
+            spec = (None, rows, "model")
+        elif name == "ssm":                         # (L, B, H, P, N)
+            spec = (None, rows, None, None, None)
+        else:
+            spec = ()
+        return validate(spec, shape, sizes)
+
+    return _specs(cache, one)
+
+
+def decode_input_specs(sizes: Mapping[str, int], batch: int) -> Spec:
+    """The spec of a decode step's (B,) tokens and seq_lens: over the data
+    axes where they divide B, else replicated
+    (`decode_input_shardings`)."""
+    f = data_axes(sizes)
+    return (_entry(f),) if batch % math.prod(sizes[a] for a in f) == 0 \
+        else ()
+
+
+def local_shape(shape: Sequence[int], spec: Spec,
+                sizes: Mapping[str, int]) -> Tuple[int, ...]:
+    """One rank's shard of `shape` under a validated `spec`."""
+    out = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                       - len(spec))):
+        axes = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+        out.append(dim // math.prod(sizes[a] for a in axes))
+    return tuple(out)
+
+
+def local_bytes(t: torch.Tensor, spec: Spec,
+                sizes: Mapping[str, int]) -> int:
+    """The bytes of one rank's shard of `t` under `spec`."""
+    return math.prod(local_shape(tuple(t.shape), spec, sizes)) \
+        * t.element_size()
+
+
+# ---------------------------------------------------------------------------
 # groups and collectives
 
 
@@ -279,6 +401,7 @@ def shard_params(params: Dict[str, Any], cfg: ModelConfig, rank: int,
 #: dispatch c10d's `_allgather_base_`, the op the graph audit counts.
 _all_gather = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 @dataclasses.dataclass
@@ -303,9 +426,10 @@ class ServingGroup:
     def tp_rank(self) -> int:
         return self.rank % self.model_size
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum x over the tensor-parallel group, in place; returns x."""
-        dist.all_reduce(x, group=self.tp)
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum x (or its max, `op` "max") over the tensor-parallel group,
+        in place; returns x."""
+        dist.all_reduce(x, op=_OPS[op], group=self.tp)
         return x
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -330,10 +454,89 @@ class ServingGroup:
         return t.tolist()
 
 
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _summed(group, x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x summed over the group (x is left as it is:
+    autograd may hand the same gradient to another branch)."""
+    return group.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward, identity backward (Megatron's g): a partial sum
+    made whole for code every rank runs alike (the residual stream, the
+    loss), whose gradient is then the same whole value on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(group, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, all-reduce backward (Megatron's f): a replicated
+    tensor entering rank-local code (a column-cut projection, a rank's
+    experts or heads), whose gradient each rank holds a part of."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(ctx.group, g), None
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce forward and backward: a total of the ranks' shares that
+    each rank then reads for its own slice (the split gated norm's sum of
+    squares), so each rank holds a part of its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(group, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(ctx.group, g), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward; backward the rank's slice of the gradient summed
+    over the ranks (each rank's consumers read the whole tensor for their
+    own slice of the work)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[-1]
+        return group.gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.group.tp_rank
+        return _summed(ctx.group, g).narrow(-1, r * ctx.n, ctx.n), None
+
+
 @dataclasses.dataclass
 class TensorParallel:
-    """A model's view of its serving group: the config of its local heads
-    and which of its outputs are split over the model axis."""
+    """A model's view of its group: the config of its local heads and which
+    of its outputs are split over the model axis.
+
+    The collectives carry their backward under autograd (a training
+    forward; serving runs without grad and takes the in-place forms):
+    `reduce` and `copy` are Megatron's pair, `sum` a total each rank reads
+    its own share of, `gather` an all-gather whose backward is the rank's
+    slice of the summed gradient. With `copy` where the replicated
+    residual enters rank-local code and `reduce` where a partial sum
+    leaves it, each rank's gradient of a cut leaf is its slice of the
+    one-device gradient, and of a replicated leaf the whole of it."""
     group: ServingGroup
     cfg: ModelConfig            # the rank's local heads (`local_config`)
     mlp_split: bool             # w_gate / w_up / w_down cut on d_ff
@@ -341,6 +544,8 @@ class TensorParallel:
     expert_split: bool = False  # the MoE's expert stacks cut on E
     shared_split: bool = False  # the MoE's shared expert cut on its d_ff
     hd_split: bool = False      # K/V cut on head_dim (the fallback)
+    whole: Optional[ModelConfig] = None   # the model's config
+    cut_leaves: frozenset = frozenset()   # the leaves cut over the group
 
     def part(self, n: int) -> slice:
         """This rank's contiguous slice of n: its SSD heads or RG-LRU
@@ -374,11 +579,31 @@ class TensorParallel:
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         """A partial sum made whole on every rank."""
+        if _grad(x):
+            return _Reduce.apply(x, self.group)
         return self.group.all_reduce(x)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """x itself, whose gradient is summed over the group in a backward
+        pass (the identity without grad)."""
+        return _Copy.apply(x, self.group) if _grad(x) else x
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' shares summed, for rank-local readers: as `reduce`,
+        with the gradient summed over the group in a backward pass."""
+        if _grad(x):
+            return _Sum.apply(x, self.group)
+        return self.group.all_reduce(x)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the group (no gradient)."""
+        return self.group.all_reduce(x.detach().clone(), op="max")
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' slices of the last axis, whole on every rank
         (`ServingGroup.gather`)."""
+        if _grad(x):
+            return _Gather.apply(x, self.group)
         return self.group.gather(x)
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor):
@@ -405,6 +630,20 @@ class TensorParallel:
         out[..., self.rank * n:(self.rank + 1) * n] = logits
         return self.reduce(out)
 
+    def norm_parts(self, name: str, t: torch.Tensor):
+        """(part, cut) of the rank's leaf `name`: its slice of a leaf cut
+        over the group, or a leaf every rank holds whole; mamba2's
+        `in_proj` and `conv_*` by their segments (`segments`)."""
+        segs = segments(name, self.whole)
+        if segs is None:
+            return [(t, name in self.cut_leaves)]
+        parts, at = [], 0
+        for width, cut in segs:
+            n = width // self.m if cut else width
+            parts.append((t.narrow(-1, at, n), cut and self.m > 1))
+            at += n
+        return parts
+
 
 def tensor_parallel(cfg: ModelConfig, group: ServingGroup) -> TensorParallel:
     """`cfg`'s layout on `group`'s model axis (raises where the port
@@ -421,13 +660,17 @@ def tensor_parallel(cfg: ModelConfig, group: ServingGroup) -> TensorParallel:
         if cfg.moe.shared_ff_dim:
             shared = serve_spec("layers/moe/shared/w_down",
                                 (L_, cfg.moe.shared_ff_dim, d), cfg, m)
+    cut = frozenset(name for name, t in named_leaves(init_params(
+        cfg, device="meta")) if "model" in serve_spec(name, tuple(t.shape),
+                                                     cfg, m))
     return TensorParallel(group, lcfg, mlp_split=mlp[1] == "model",
                           vocab_split=vocab[0] == "model",
                           expert_split="model" in experts[1:2],
                           shared_split="model" in shared[1:2],
                           hd_split=kv_head_axes(
                               m, cfg.num_kv_heads,
-                              cfg.resolved_head_dim)[1] == "model")
+                              cfg.resolved_head_dim)[1] == "model",
+                          whole=cfg, cut_leaves=cut)
 
 
 # The process's ambient serving group (DESIGN §12), installed by

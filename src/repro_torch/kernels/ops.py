@@ -2,6 +2,8 @@
 
 A CPU tensor goes to the plain PyTorch version in `ref`; a CUDA tensor goes
 to the hand-written Hopper kernel, or the call raises. Nothing falls back.
+A meta tensor (the dry run) goes to the entry's meta form (`meta`): what
+the kernel's wrapper allocates, and its FLOPs from the shapes.
 `LAUNCHES` counts kernel launches per kernel (plain-version calls are not
 counted), so a run can show that its main path went through the kernels.
 
@@ -16,7 +18,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   paged_decode_attention_cuda)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -52,6 +54,8 @@ def _no_backward(name: str, *tensors) -> None:
 
 def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
     """q: (B, H, hd); k/v: (B, S, KV, hd); q_pos: (B,); k_pos: (B, S)."""
+    if q.is_meta:
+        return meta.decode_attention(q, k, v, q_pos, k_pos, window=window)
     if not q.is_cuda:
         return ref.decode_attention_ref(q, k, v, q_pos, k_pos, window=window)
     _no_backward("decode_attention", q, k, v)
@@ -63,6 +67,9 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
 def paged_decode_attention(q, k_pool, v_pool, q_pos, kpos_pool, tables, *,
                            window: int = 0):
     """Flash decode through the paged KV pools + block tables (DESIGN §9)."""
+    if q.is_meta:
+        return meta.paged_decode_attention(q, k_pool, v_pool, q_pos,
+                                           kpos_pool, tables, window=window)
     if not q.is_cuda:
         return ref.paged_decode_attention_ref(q, k_pool, v_pool, q_pos,
                                               kpos_pool, tables, window=window)
@@ -76,6 +83,9 @@ def paged_decode_attention(q, k_pool, v_pool, q_pos, kpos_pool, tables, *,
 def flash_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
                     causal: bool = True):
     """q: (B, Tq, H, hd); k/v: (B, Tk, KV, hd) -> (B, Tq, H, hd)."""
+    if q.is_meta:
+        return meta.flash_attention(q, k, v, q_pos, k_pos, window=window,
+                                    causal=causal)
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, window=window,
                                        causal=causal)
@@ -90,6 +100,10 @@ def paged_flash_attention(q, k_pool, v_pool, q_pos, kpos_pool, tables, *,
                           window: int = 0, causal: bool = True):
     """A chunk's flash attention through the paged KV pools + block tables
     (DESIGN §9): q (B, Tq, H, hd) -> (B, Tq, H, hd)."""
+    if q.is_meta:
+        return meta.paged_flash_attention(q, k_pool, v_pool, q_pos,
+                                          kpos_pool, tables, window=window,
+                                          causal=causal)
     if not q.is_cuda:
         return ref.paged_flash_attention_ref(q, k_pool, v_pool, q_pos,
                                              kpos_pool, tables, window=window,
@@ -102,6 +116,8 @@ def paged_flash_attention(q, k_pool, v_pool, q_pos, kpos_pool, tables, *,
 
 
 def rmsnorm(x, w, *, eps: float = 1e-6):
+    if x.is_meta:
+        return meta.rmsnorm(x, w, eps=eps)
     if not x.is_cuda:
         return ref.rmsnorm_ref(x, w, eps=eps)
     _no_backward("rmsnorm", x, w)
@@ -113,6 +129,8 @@ def rmsnorm(x, w, *, eps: float = 1e-6):
 def add_rmsnorm(x, y, w, *, eps: float = 1e-6):
     """(x + y, rmsnorm(x + y)): the residual add fused into the norm that
     reads it; the sum is x + y in x's dtype, bit for bit."""
+    if x.is_meta:
+        return meta.add_rmsnorm(x, y, w, eps=eps)
     if not x.is_cuda:
         return ref.add_rmsnorm_ref(x, y, w, eps=eps)
     _no_backward("add_rmsnorm", x, y, w)
@@ -126,6 +144,8 @@ def rmsnorm_split(x, w, *, d: int, eps: float = 1e-6, reduce=None):
     (..., d/m) the rank's slice, w its weight slice, `reduce` the
     all-reduce of the rows' fp32 sums of squares (a count is one call:
     its two launches around the reduce)."""
+    if x.is_meta:
+        return meta.rmsnorm_split(x, w, d=d, eps=eps, reduce=reduce)
     if not x.is_cuda:
         return ref.rmsnorm_split_ref(x, w, d=d, eps=eps, reduce=reduce)
     _no_backward("rmsnorm_split", x, w)
@@ -138,6 +158,8 @@ def ssd_intra(xdt, cum_a, Br, Cr):
     """Mamba2 SSD intra-chunk term and chunk states (fp32):
     xdt (B, nc, Q, H, P), cum_a (B, nc, Q, H), Br/Cr (B, nc, Q, N) ->
     y_intra (B, nc, Q, H, P), s_chunk (B, nc, H, P, N)."""
+    if xdt.is_meta:
+        return meta.ssd_intra(xdt, cum_a, Br, Cr)
     if not xdt.is_cuda:
         return ref.ssd_intra_ref(xdt, cum_a, Br, Cr)
     _no_backward("ssd_intra", xdt, cum_a, Br, Cr)
@@ -149,6 +171,8 @@ def ssd_intra(xdt, cum_a, Br, Cr):
 def rglru_scan(a, bx, h0):
     """h_t = a_t h_{t-1} + bx_t (fp32): a/bx (B, T, W), h0 (B, W) ->
     (h_all (B, T, W), h_T (B, W))."""
+    if a.is_meta:
+        return meta.rglru_scan(a, bx, h0)
     if not a.is_cuda:
         return ref.rglru_scan_ref(a, bx, h0)
     _no_backward("rglru_scan", a, bx, h0)
@@ -161,6 +185,8 @@ def rglru_gated_scan(ga, gi, x, lam, b_a, b_i, h0):
     """RecurrentGemma's gated recurrence, the gates and the scan in one
     launch: ga/gi/x (B, T, W) in the working dtype, lam/b_a/b_i (W,) and
     h0 (B, W) fp32 -> (y (B, T, W) in x's dtype, h_T (B, W) fp32)."""
+    if x.is_meta:
+        return meta.rglru_gated_scan(ga, gi, x, lam, b_a, b_i, h0)
     if not x.is_cuda:
         return ref.rglru_gated_scan_ref(ga, gi, x, lam, b_a, b_i, h0)
     _no_backward("rglru_gated_scan", ga, gi, x, lam, b_a, b_i, h0)

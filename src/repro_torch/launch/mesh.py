@@ -11,6 +11,12 @@ switches it: NCCL with more ranks than cards fails with NCCL's own error.
 The rendezvous is a file store in a temporary directory (no network);
 every collective has the group's timeout, so a mismatched collective
 fails instead of hanging.
+
+The dry run's meshes (`launch.dryrun`) are axis sizes only, `{axis:
+size}` maps with no process group: the JAX package's production meshes
+(`make_production_mesh`, a TPU pod of 16 x 16 and two of them) and the
+card layouts (`CARD_MESHES`: one H100, and one NVLink node of 8 as a
+model axis of 8).
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ import os
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -32,6 +38,24 @@ from repro_torch.distributed.sharding import ServingGroup, set_serving_group
 RENDEZVOUS_ENV = "REPRO_TORCH_RENDEZVOUS"
 #: seconds a collective may wait before it fails
 TIMEOUT_S = 300.0
+
+
+#: the card layouts of the dry run: one H100, and one NVLink node of 8
+CARD_MESHES = {"card": {"data": 1, "model": 1},
+               "node": {"data": 1, "model": 8}}
+
+
+def make_production_mesh(multi_pod: bool = False) -> Dict[str, int]:
+    """The JAX package's production mesh as axis sizes: (data 16, model
+    16), or (pod 2, data 16, model 16) with `multi_pod`."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def mesh_name(sizes: Dict[str, int]) -> str:
+    """"16x16", "2x16x16", "1x8": the sizes in axis order."""
+    return "x".join(str(n) for n in sizes.values())
 
 
 def make_serving_group(mesh_shape: Sequence[int], backend: str, rank: int,

@@ -571,38 +571,40 @@ def _norm(x, w, cfg: ModelConfig):
     return rmsnorm_ref(x, w, eps=cfg.rms_eps)
 
 
-def _mlp_res(lp, x, cfg: ModelConfig):
-    return x + L.mlp(lp["mlp"], _norm(x, lp["ln2"], cfg))
+def _mlp_res(lp, x, cfg: ModelConfig, tp=None):
+    return x + L.mlp(lp["mlp"], _norm(x, lp["ln2"], cfg), _mlp_tp(tp))
 
 
 def _attn_block_train(lp, x, positions, cfg: ModelConfig, window: int,
-                      no_drop: bool = False):
+                      no_drop: bool = False, tp=None):
     """A self-attention layer and its SwiGLU or MoE; returns (x, aux)."""
     h = _norm(x, lp["ln1"], cfg)
     x = x + L.self_attention_train(lp["attn"], h, positions, cfg,
-                                   window=window)
+                                   window=window, tp=tp)
     if "moe" in lp:
         y, aux = L.moe_apply(lp["moe"], _norm(x, lp["ln2"], cfg), cfg,
-                             no_drop=no_drop)
+                             no_drop=no_drop, tp=tp)
         return x + y, aux
-    return _mlp_res(lp, x, cfg), 0.0
+    return _mlp_res(lp, x, cfg, tp), 0.0
 
 
-def _cross_block(lp, x, cross_k, cross_v, cfg: ModelConfig, gated: bool):
+def _cross_block(lp, x, cross_k, cross_v, cfg: ModelConfig, gated: bool,
+                 tp=None):
     h = _norm(x, lp["ln1"], cfg)
     x = x + L.cross_attention_train(lp["attn"], h, cross_k, cross_v, cfg,
-                                    gated=gated)
-    return _mlp_res(lp, x, cfg)
+                                    gated=gated, tp=tp)
+    return _mlp_res(lp, x, cfg, tp)
 
 
-def _ssm_block(lp, x, cfg: ModelConfig):
+def _ssm_block(lp, x, cfg: ModelConfig, tp=None):
     return x + S.mamba2_block_train(lp["mixer"], _norm(x, lp["ln1"], cfg),
-                                    cfg)
+                                    cfg, tp)
 
 
-def _rec_block(lp, x, cfg: ModelConfig):
-    x = x + R.rglru_block_train(lp["rec"], _norm(x, lp["ln1"], cfg), cfg)
-    return _mlp_res(lp, x, cfg)
+def _rec_block(lp, x, cfg: ModelConfig, tp=None):
+    x = x + R.rglru_block_train(lp["rec"], _norm(x, lp["ln1"], cfg), cfg,
+                                tp)
+    return _mlp_res(lp, x, cfg, tp)
 
 
 def _run(body, remat: bool, *args):
@@ -615,53 +617,75 @@ def _run(body, remat: bool, *args):
 
 def forward_train(p: Params, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig, *, remat: bool = True,
-                  no_drop: bool = False, return_hidden: bool = False):
+                  no_drop: bool = False, return_hidden: bool = False,
+                  tp=None):
     """batch: {"tokens": (B, T)}, plus {"images": (B, P, d)} (VLM) or
     {"enc_frames": (B, S, d)} (enc-dec), cast to the working dtype.
 
     Returns (logits (B, T, V) fp32, aux loss), or with return_hidden the
     residual stream (B, T, d) before the final norm in place of the
     logits (the chunked loss never forms (B, T, V)). The MoE dispatches
-    with capacity drops unless `no_drop`, as in training."""
+    with capacity drops unless `no_drop`, as in training.
+
+    tp: one rank's view of a tensor-parallel group, as `forward_cached`'s
+    (`p` its shards, `cfg` its local heads): the residual stream is whole
+    on every rank, each branch enters the rank's heads, columns, experts
+    or channels through `TensorParallel.copy` and leaves through
+    `reduce`, so every rank's gradient of a cut leaf is its slice of the
+    one-device gradient and of a replicated leaf the whole of it; the
+    logits are gathered whole."""
     tokens = batch["tokens"].long()
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32,
                              device=tokens.device).expand(B, T)
-    x = p["embed"][tokens]
+    x = p["embed"][tokens] if tp is None else tp.embed(p["embed"], tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
     if fam in ATTENTION_ONLY:
         win = window_of(cfg)
         for lp in unstack(p["layers"]):
             x, a = _run(lambda h, lp: _attn_block_train(
-                lp, h, positions, cfg, win, no_drop), remat, x, lp)
+                lp, h, positions, cfg, win, no_drop, tp), remat, x, lp)
             aux = aux + a
     elif fam == ArchFamily.SSM:
         for lp in unstack(p["layers"]):
-            x = _run(lambda h, lp: _ssm_block(lp, h, cfg), remat, x, lp)
+            x = _run(lambda h, lp: _ssm_block(lp, h, cfg, tp), remat, x, lp)
     elif fam == ArchFamily.HYBRID:
-        x = _hybrid_train(p, x, positions, cfg, remat)
+        x = _hybrid_train(p, x, positions, cfg, remat, tp)
     elif fam == ArchFamily.VLM:
         x, aux = _vlm_train(p, x, positions,
-                            batch["images"].to(x.dtype), cfg, remat)
+                            batch["images"].to(x.dtype), cfg, remat, tp)
     elif fam == ArchFamily.ENCDEC:
         x, aux = _encdec_train(p, x, positions,
-                               batch["enc_frames"].to(x.dtype), cfg, remat)
+                               batch["enc_frames"].to(x.dtype), cfg, remat,
+                               tp)
     else:
         raise ValueError(fam)
     if return_hidden:
         return x, aux
-    return logits_head_train(p, x, cfg), aux
+    return logits_head_train(p, x, cfg, tp), aux
 
 
-def logits_head_train(p: Params, x, cfg: ModelConfig):
+def logits_head_train(p: Params, x, cfg: ModelConfig, tp=None):
     """fp32 logits of the residual stream x: the final norm (plain), then
-    the tied embedding or the head."""
+    the tied embedding or the head; under `tp` the rank's vocab columns
+    (`logits_shard`) gathered whole."""
+    lg = logits_shard(p, x, cfg, tp)
+    return lg if tp is None else tp.gather_vocab(lg)
+
+
+def logits_shard(p: Params, x, cfg: ModelConfig, tp=None):
+    """fp32 logits of x over the head's columns this rank holds: all of
+    them without `tp` or where the vocab is whole, else the rank's vocab
+    shard, the normed x entering it through `copy`."""
     wout = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    return (_norm(x, p["ln_f"], cfg) @ wout).float()
+    h = _norm(x, p["ln_f"], cfg)
+    if tp is not None and tp.vocab_split:
+        h = tp.copy(h)
+    return (h @ wout).float()
 
 
-def _hybrid_train(p, x, positions, cfg: ModelConfig, remat: bool):
+def _hybrid_train(p, x, positions, cfg: ModelConfig, remat: bool, tp=None):
     """Whole block-pattern groups, one checkpoint a group, then the
     pattern's remainder unrolled without one, as the JAX package runs
     them."""
@@ -673,8 +697,8 @@ def _hybrid_train(p, x, positions, cfg: ModelConfig, remat: bool):
 
     def layer(kind, lp, h):
         if kind == "recurrent":
-            return _rec_block(lp, h, cfg)
-        return _attn_block_train(lp, h, positions, cfg, win)[0]
+            return _rec_block(lp, h, cfg, tp)
+        return _attn_block_train(lp, h, positions, cfg, win, tp=tp)[0]
 
     def group(h, lps):
         for kind, lp in zip(pat, lps):
@@ -688,10 +712,12 @@ def _hybrid_train(p, x, positions, cfg: ModelConfig, remat: bool):
     return x
 
 
-def _vlm_train(p, x, positions, images, cfg: ModelConfig, remat: bool):
+def _vlm_train(p, x, positions, images, cfg: ModelConfig, remat: bool,
+               tp=None):
     """A gated cross-attention layer after every num_layers //
     num_cross_layers self layers, one checkpoint a group; the cross K/V
-    of the images are projected before the groups, outside them."""
+    of the images are projected before the groups, outside them (a
+    rank's kv-heads under `tp`)."""
     per = cfg.num_layers // cfg.num_cross_layers
     self_layers = unstack(p["layers"])
     cross = unstack(p["cross_layers"])
@@ -700,9 +726,9 @@ def _vlm_train(p, x, positions, images, cfg: ModelConfig, remat: bool):
 
     def group(h, aux, lps, cp, ck, cv):
         for lp in lps:
-            h, a = _attn_block_train(lp, h, positions, cfg, 0)
+            h, a = _attn_block_train(lp, h, positions, cfg, 0, tp=tp)
             aux = aux + a
-        return _cross_block(cp, h, ck, cv, cfg, gated=True), aux
+        return _cross_block(cp, h, ck, cv, cfg, gated=True, tp=tp), aux
 
     for g, cp in enumerate(cross):
         x, aux = _run(group, remat, x, aux,
@@ -710,18 +736,19 @@ def _vlm_train(p, x, positions, images, cfg: ModelConfig, remat: bool):
     return x, aux
 
 
-def encode_train(p: Params, frames, cfg: ModelConfig, remat: bool = False):
+def encode_train(p: Params, frames, cfg: ModelConfig, remat: bool = False,
+                 tp=None):
     """The enc-dec encoder over frame embeddings (B, S, d) in plain ops:
     bidirectional attention at positions 0..S-1 with RoPE, no final norm,
-    one checkpoint a layer under `remat`."""
+    one checkpoint a layer under `remat`; `tp` as `forward_train`'s."""
     B, S_, _ = frames.shape
     pos = torch.arange(S_, dtype=torch.int32,
                        device=frames.device).expand(B, S_)
 
     def body(h, lp):
         h = h + L.self_attention_train(lp["attn"], _norm(h, lp["ln1"], cfg),
-                                       pos, cfg, causal=False)
-        return _mlp_res(lp, h, cfg)
+                                       pos, cfg, causal=False, tp=tp)
+        return _mlp_res(lp, h, cfg, tp)
 
     x = frames
     for lp in unstack(p["enc_layers"]):
@@ -729,18 +756,21 @@ def encode_train(p: Params, frames, cfg: ModelConfig, remat: bool = False):
     return x
 
 
-def _encdec_train(p, x, positions, frames, cfg: ModelConfig, remat: bool):
+def _encdec_train(p, x, positions, frames, cfg: ModelConfig, remat: bool,
+                  tp=None):
     """The encoder, the cross K/V of its output (before the decoder
-    layers, outside their checkpoints), then each decoder layer followed by
-    its cross layer, one checkpoint the pair."""
-    enc_out = encode_train(p, frames, cfg, remat)
+    layers, outside their checkpoints; under `tp` a rank's kv-heads, the
+    output entering them through `copy`), then each decoder layer followed
+    by its cross layer, one checkpoint the pair."""
+    enc_out = encode_train(p, frames, cfg, remat, tp)
     cross = unstack(p["dec_cross"])
-    kv = [L.cross_kv(cp["attn"], enc_out, cfg) for cp in cross]
+    src = enc_out if tp is None else tp.copy(enc_out)
+    kv = [L.cross_kv(cp["attn"], src, cfg) for cp in cross]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def body(h, lp, cp, ck, cv):
-        h, a = _attn_block_train(lp, h, positions, cfg, 0)
-        return _cross_block(cp, h, ck, cv, cfg, gated=False), a
+        h, a = _attn_block_train(lp, h, positions, cfg, 0, tp=tp)
+        return _cross_block(cp, h, ck, cv, cfg, gated=False, tp=tp), a
 
     for lp, cp, (ck, cv) in zip(unstack(p["dec_layers"]), cross, kv):
         x, a = _run(body, remat, x, lp, cp, ck, cv)

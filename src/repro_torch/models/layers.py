@@ -173,18 +173,35 @@ def attention_qkv(p, x, cfg: ModelConfig):
 
 
 def self_attention_train(p, x, positions, cfg: ModelConfig, *,
-                         window: int = 0, causal: bool = True):
+                         window: int = 0, causal: bool = True, tp=None):
     """Self-attention over the whole sequence x (B, T, d) at `positions`
     (B, T), no cache: RoPE on q and k, then the plain masked attention
     (fp32 scores at 1/sqrt(hd), masked keys at -1e30). `causal` False is
-    the enc-dec encoder's bidirectional form."""
+    the enc-dec encoder's bidirectional form. `tp`: the rank's heads (x
+    enters them through `copy`, `wo`'s product is made whole); under the
+    head_dim fallback the new K/V columns are gathered whole, as
+    `rope_qkv` gathers them, and the rank's query heads read their
+    kv-head."""
     B, T, _ = x.shape
-    q, k, v = attention_qkv(p, x, cfg)
+    if tp is not None:
+        x = tp.copy(x)
+    if tp is None or not tp.hd_split:
+        q, k, v = attention_qkv(p, x, cfg)
+    else:
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        k, v = tp.gather(torch.stack([k, v])).reshape(2, B, T, KV,
+                                                        hd).unbind(0)
+        h = tp.kv_head
+        q = q.reshape(B, T, H, hd)
+        k, v = k[..., h:h + 1, :], v[..., h:h + 1, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = flash_attention_ref(q, k, v, positions, positions, window=window,
                               causal=causal)
-    return out.reshape(B, T, -1) @ p["wo"]
+    return down_proj(out.reshape(B, T, -1), p["wo"], tp)
 
 
 def down_proj(x, w, tp=None):
@@ -196,8 +213,10 @@ def down_proj(x, w, tp=None):
 
 
 def mlp(p, x, tp=None):
-    """SwiGLU; `tp`: the rank's d_ff columns, the down-projection summed
-    over the group."""
+    """SwiGLU; `tp`: the rank's d_ff columns (x enters them through
+    `copy`), the down-projection summed over the group."""
+    if tp is not None:
+        x = tp.copy(x)
     return down_proj(F.silu(x @ p["w_gate"]) * (x @ p["w_up"]),
                      p["w_down"], tp)
 
@@ -272,7 +291,10 @@ def moe_apply(p, x, cfg: ModelConfig, *, no_drop: bool = False,
     every rank) and applies its own slice of them (`tp.experts`: its
     stacks hold that slice; all E where the stacks replicate); the routed
     sum and the shared expert's down-projection are then partial sums,
-    made whole together by one all-reduce (`moe_sum`)."""
+    made whole together by one all-reduce (`moe_sum`). Each rank's
+    experts read x and the gates through `copy` (their gradients are the
+    sums of the ranks' parts); the router and the aux loss are every
+    rank's alike."""
     B, T, d = x.shape
     m = cfg.moe
     E, K = m.num_experts, m.num_experts_per_tok
@@ -296,6 +318,9 @@ def moe_apply(p, x, cfg: ModelConfig, *, no_drop: bool = False,
     dispatch = torch.zeros((nG, G, E, C), dtype=torch.bool, device=x.device)
     combine = torch.zeros((nG, G, E, C), dtype=torch.float32,
                           device=x.device)
+    split = tp is not None and tp.expert_split
+    if split:
+        gate = tp.copy(gate)
     for j in range(K):
         oh = (idx[:, :, j, None] == ar_e).long()                 # (nG, G, E)
         pos = oh.cumsum(1) - 1 + counts
@@ -305,16 +330,21 @@ def moe_apply(p, x, cfg: ModelConfig, *, no_drop: bool = False,
         combine = combine + pos_oh.float() * gate[:, :, j, None, None]
         counts = counts + oh.sum(1, keepdim=True)
 
-    if tp is not None and tp.expert_split:
+    xe = tp.copy(xg) if split else xg
+    if split:
         ex = tp.experts(E)
         dispatch, combine = dispatch[:, :, ex], combine[:, :, ex]
-    xin = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
+    xin = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xe)
     h = F.silu(torch.einsum("gecd,edf->gecf", xin, p["w_gate"])) \
         * torch.einsum("gecd,edf->gecf", xin, p["w_up"])
     out_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])       # (nG,E,C,d)
     y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), out_e)
     y = y.reshape(nG * G, d)[:S].reshape(B, T, d)
-    y = moe_sum(y, mlp(p["shared"], x) if "shared" in p else None, tp)
+    shared = None
+    if "shared" in p:      # its partial sum joins the routed one's reduce
+        shared = mlp(p["shared"], tp.copy(x) if tp is not None
+                     and tp.shared_split else x)
+    y = moe_sum(y, shared, tp)
 
     # the load-balance aux loss (Switch / GShard)
     frac_tokens = (idx[:, :, 0, None] == ar_e).float().mean((0, 1))
@@ -549,19 +579,21 @@ def cross_attention(p, x, cross_k, cross_v, cfg: ModelConfig, *,
 
 
 def cross_attention_train(p, x, cross_k, cross_v, cfg: ModelConfig, *,
-                          gated: bool = False):
+                          gated: bool = False, tp=None):
     """The training form of `cross_attention`: x (B, T, d) over the
     batch's own cross K/V (B, S, KV, hd) from `cross_kv`, every key
     visible, in plain ops (`ref.flash_attention_ref`, non-causal); `gated`
-    scales the output by tanh(gate) taken in fp32 (the VLM)."""
+    scales the output by tanh(gate) taken in fp32 (the VLM). `tp`: the
+    rank's heads, as `self_attention_train`'s."""
     B, T, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, T, H, hd)
+    q = ((x if tp is None else tp.copy(x)) @ p["wq"]).reshape(B, T, H, hd)
     zeros = torch.zeros((B, T), dtype=torch.int32, device=x.device)
     k_pos = torch.zeros(cross_k.shape[:2], dtype=torch.int32,
                         device=x.device)
-    out = flash_attention_ref(q, cross_k, cross_v, zeros, k_pos,
-                              causal=False).reshape(B, T, H * hd) @ p["wo"]
+    out = down_proj(flash_attention_ref(q, cross_k, cross_v, zeros, k_pos,
+                                        causal=False).reshape(B, T, H * hd),
+                    p["wo"], tp)
     if gated:
         out = torch.tanh(p["gate"].float()).to(out.dtype) * out
     return out

@@ -7,7 +7,8 @@ as in the JAX facade. The entry points run on the card unless the caller
 asks for the CPU: `device` defaults to "cuda", and a missing GPU raises.
 Serving (`forward` and the calls over it) runs without autograd; training
 (`forward_train`, `loss_fn`) takes params that are leaves requiring grad
-(`training.train_loop.trainable`).
+(`training.train_loop.trainable`), on one device or a rank's shards under
+a group.
 
 Under tensor-parallel serving (DESIGN §12, `group=`) the model is one
 rank's: it carries the group and its local shapes
@@ -15,7 +16,15 @@ rank's: it carries the group and its local shapes
 from the seed and keeps the rank's slices, cutting each tensor as soon as
 it is drawn (`init_shard`), and the caches hold its kv-heads (the cross
 K/V too). Weights made elsewhere (`params.from_jax_params`) are cut with
-`shard`.
+`shard`. A rank trains its shards too: the training forward takes the
+group's collectives with their backward (`backbone.forward_train`), and
+the loss reads the vocab-sharded logits where they lie (`vocab_nll`: the
+max and the sum of exps all-reduced, the target logit from the rank that
+owns it), the port's form of the JAX loss's `maybe_constrain` on the
+vocab axis.
+
+`input_specs` gives the dry run's inputs of an (arch x input-shape) as
+meta tensors (`launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.config.base import ArchFamily, ModelConfig
+from repro_torch.config.base import ArchFamily, InputShape, ModelConfig
 from repro_torch.distributed.sharding import (ServingGroup, shard_leaf,
                                               shard_params, tensor_parallel)
 from repro_torch.models import backbone as B
@@ -85,18 +94,12 @@ class Model(nn.Module):
         return shard_params(params, self.cfg, self.tp.rank, self.tp.m)
 
     # -- training ---------------------------------------------------------
-    def _no_tp(self) -> None:
-        if self.tp is not None:
-            raise NotImplementedError("training under a serving group: the "
-                                      "training-side shardings go with the "
-                                      "dry run")
-
     def forward_train(self, params, batch, remat: bool = True,
                       no_drop: bool = False):
-        """(logits (B, T, V) fp32, aux loss) of whole sequences."""
-        self._no_tp()
-        return B.forward_train(params, batch, self.cfg, remat=remat,
-                               no_drop=no_drop)
+        """(logits (B, T, V) fp32, aux loss) of whole sequences (a rank's
+        under a group: its shards, the logits gathered whole)."""
+        return B.forward_train(params, batch, self.local_cfg, remat=remat,
+                               no_drop=no_drop, tp=self.tp)
 
     def loss_fn(self, params, batch, remat: bool = True,
                 loss_chunk: int = 512
@@ -104,15 +107,16 @@ class Model(nn.Module):
         """Next-token cross-entropy plus the MoE aux loss, as the JAX
         facade's: the T-1 predicting positions in chunks of `loss_chunk`
         (the last padded with zero-weight rows); each chunk's logsumexp
-        minus the target logit in fp32, weighted by batch["loss_mask"] (all
-        ones without one) and divided by the weight, at least 1. The chunks
-        bound the forward's transient memory only: autograd keeps every
-        chunk's fp32 logits for the backward, so the whole (B, T-1, V) is
-        held until then, as the JAX `lax.map`'s residuals are. Returns
-        (ce + aux, {"ce", "aux"})."""
-        self._no_tp()
-        hidden, aux = B.forward_train(params, batch, self.cfg, remat=remat,
-                                      return_hidden=True)
+        minus the target logit in fp32 (`vocab_nll`), weighted by
+        batch["loss_mask"] (all ones without one) and divided by the
+        weight, at least 1. The chunks bound the forward's transient
+        memory only: autograd keeps every chunk's fp32 logits for the
+        backward, so the whole (B, T-1, V) is held until then, as the JAX
+        `lax.map`'s residuals are. Under a group each rank holds its vocab
+        shard's (B, C, V/m) only. Returns (ce + aux, {"ce", "aux"})."""
+        cfg, tp = self.local_cfg, self.tp
+        hidden, aux = B.forward_train(params, batch, cfg, remat=remat,
+                                      return_hidden=True, tp=tp)
         h = hidden[:, :-1]
         targets = batch["tokens"][:, 1:].long()
         mask = batch.get("loss_mask")
@@ -125,11 +129,11 @@ class Model(nn.Module):
             h = F.pad(h, (0, 0, 0, pad))
             targets = F.pad(targets, (0, pad))
             w = F.pad(w, (0, pad))
+        vtp = tp if tp is not None and tp.vocab_split else None
         sums = []
         for c in range(0, Tm + pad, C):
-            lg = B.logits_head_train(params, h[:, c:c + C], self.cfg)
-            nll = torch.logsumexp(lg, dim=-1) \
-                - lg.gather(-1, targets[:, c:c + C, None])[..., 0]
+            nll = vocab_nll(B.logits_shard(params, h[:, c:c + C], cfg, vtp),
+                            targets[:, c:c + C], vtp)
             sums.append((nll * w[:, c:c + C]).sum())
         ce = torch.stack(sums).sum() / w.sum().clamp_min(1.0)
         return ce + aux, {"ce": ce, "aux": aux}
@@ -246,6 +250,27 @@ def init_shard(cfg: ModelConfig, seed: int, dtype: torch.dtype, device,
         seed, dtype, device, cfg, rank, m, [names[id(t)] for t in rec.order]))
 
 
+def vocab_nll(lg, targets, tp=None):
+    """logsumexp(lg) - lg[target] along the last axis, in fp32, of logits
+    (..., n) that are the whole vocab, or under `tp` the rank's shard of
+    it (rows [r·n, (r+1)·n)): the max (without gradient) and the sum of
+    exps all-reduced, and the target logit taken on the rank that owns it
+    and all-reduced, so no rank forms the whole (..., V). The one-device
+    loss takes the same ops, so a one-rank group is it bit for bit."""
+    n = lg.shape[-1]
+    mx = lg.detach().amax(-1, keepdim=True)
+    local = targets - (0 if tp is None else tp.rank * n)
+    hit = (local >= 0) & (local < n)
+    if tp is not None:
+        mx = tp.max(mx)
+    s = torch.exp(lg - mx).sum(-1)
+    tgt = torch.where(hit, lg.gather(-1, local.clamp(0, n - 1)[..., None]
+                                     )[..., 0], 0.0)
+    if tp is not None:
+        s, tgt = tp.reduce(s), tp.reduce(tgt)
+    return torch.log(s) + mx[..., 0] - tgt
+
+
 def build_model(cfg: ModelConfig, dtype=None, device=None,
                 group: Optional[ServingGroup] = None) -> Model:
     return Model(cfg, dtype, device, group)
@@ -259,3 +284,37 @@ def default_enc_len(cfg: ModelConfig) -> int:
     if cfg.family == ArchFamily.VLM:
         return IMAGE_PATCHES
     return 0
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The inputs of (arch x input-shape) as meta tensors, the JAX
+    package's `input_specs` (DESIGN §4), at the global batch:
+
+    train   {tokens (B, T) int32, and (B, enc_len, d) enc_frames or images}
+    prefill {tokens, positions (B, T) int32, the cache of a T-token chunk,
+             extras {enc_frames | images}}
+    decode  {tokens, seq_lens (B,) int32, the cache at seq_len context}
+
+    `dtype`: the working dtype (the config's by default)."""
+    B_, T = shape.global_batch, shape.seq_len
+    dt = B.cfg_dtype(cfg, dtype)
+    enc_len = default_enc_len(cfg)
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    extras = {B.extras_key(cfg): meta(B_, enc_len, cfg.d_model, dtype=dt)} \
+        if enc_len else {}
+    if shape.kind == "train":
+        return {"tokens": meta(B_, T), **extras}
+    chunk = T if shape.kind == "prefill" else 1
+    cache = B.init_cache(cfg, B_, T, dt, "meta", chunk=chunk,
+                         enc_len=enc_len)
+    if shape.kind == "prefill":
+        specs = {"tokens": meta(B_, T), "positions": meta(B_, T),
+                 "cache": cache}
+        if extras:
+            specs["extras"] = extras
+        return specs
+    return {"tokens": meta(B_), "seq_lens": meta(B_), "cache": cache}

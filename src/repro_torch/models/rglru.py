@@ -85,10 +85,13 @@ def rglru_block(p, u, cfg: ModelConfig, *, conv_state=None, rec_state=None,
     return _block(ops.rglru_gated_scan, p, u, conv_state, rec_state, tp)
 
 
-def rglru_block_train(p, u, cfg: ModelConfig):
+def rglru_block_train(p, u, cfg: ModelConfig, tp=None):
     """The recurrent block over the whole sequence u (B, T, d) from zero
-    state, in plain differentiable ops. Returns out (B, T, d)."""
-    out, _ = _block(ref.rglru_gated_scan_ref, p, u, None, None)
+    state, in plain differentiable ops; `tp`: the rank's channels, u
+    entering them through `TensorParallel.copy`, x gathered with its
+    gradient summed back to the rank's slice. Returns out (B, T, d)."""
+    out, _ = _block(ref.rglru_gated_scan_ref, p,
+                    u if tp is None else tp.copy(u), None, None, tp)
     return out
 
 

@@ -20,6 +20,11 @@ Training runs the same chunked SSD over the whole sequence in plain
 differentiable ops (`ssd_chunked_train`, `mamba2_block_train`): the
 intra-chunk term by `ref.ssd_intra_ref` and the gated norm by
 `ref.rmsnorm_ref`, never `kernels.ops` (the kernels have no backward).
+Under a group it takes the same segment cut: z, x and dt read u through
+`TensorParallel.copy`, B and C (every rank's) read u itself and pass
+`copy` after the conv, the per-head leaves pass `copy` before the rank
+takes its heads, and the gated norm's sum of squares is `TensorParallel.
+sum`, so every gradient is the rank's slice of the one-device one.
 """
 from __future__ import annotations
 
@@ -172,22 +177,33 @@ def _split_proj(z, cfg: ModelConfig, m: int = 1):
 
 
 def _heads(v, tp):
-    """A replicated per-head leaf (dt_bias, A_log, D): the rank's heads."""
-    return v if tp is None else v[tp.part(v.shape[-1])]
+    """A replicated per-head leaf (dt_bias, A_log, D): the rank's heads
+    (its gradient, a part on each rank, summed by `copy`)."""
+    return v if tp is None else tp.copy(v)[tp.part(v.shape[-1])]
 
 
-def _mixer_in(p, u, cfg: ModelConfig, conv_state, tp=None):
+def _mixer_in(p, u, cfg: ModelConfig, conv_state, tp=None,
+              train: bool = False):
     """in_proj, the causal conv and the SSD's inputs of u (B, T, d):
     (gate, x (B, T, H, P), Bm, Cm, dt (fp32), A, conv_state), of the
-    rank's channels and heads under `tp`."""
+    rank's channels and heads under `tp` (`train`: with the gradients of
+    the module docstring's cut)."""
     m = 1 if tp is None else tp.m
     d_in, H, P, N = ssm_dims(cfg, m)
-    z = u @ p["in_proj"]
+    w = p["in_proj"]
+    if tp is None or not train:
+        z = u @ w
+    else:
+        uc, c = tp.copy(u), 2 * d_in
+        z = torch.cat([uc @ w[:, :c], u @ w[:, c:c + 2 * N],
+                       uc @ w[:, c + 2 * N:]], dim=-1)
     gate, xs, Bm, Cm, dt_raw = _split_proj(z, cfg, m)
     xbc = torch.cat([xs, Bm, Cm], dim=-1)
     xbc, conv_state = causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     xbc = F.silu(xbc)
     xs, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
+    if tp is not None:
+        Bm, Cm = tp.copy(Bm), tp.copy(Cm)
     Bsz, T, _ = xs.shape
     xh = xs.reshape(Bsz, T, H, P)
     dt = F.softplus(dt_raw.float() + _heads(p["dt_bias"], tp))
@@ -195,17 +211,20 @@ def _mixer_in(p, u, cfg: ModelConfig, conv_state, tp=None):
     return gate, xh, Bm, Cm, dt, A, conv_state
 
 
-def _mixer_out(p, y, xh, gate, cfg: ModelConfig, norm, tp=None):
-    """The skip term D x, the gated RMSNorm (`norm`; under `tp` the split
-    form over the whole d_inner) and out_proj (made whole under `tp`)."""
+def _mixer_out(p, y, xh, gate, cfg: ModelConfig, train: bool, tp=None):
+    """The skip term D x, the gated RMSNorm (the kernel, or its plain
+    version in training; under `tp` the split form over the whole
+    d_inner) and out_proj (made whole under `tp`)."""
     D = _heads(p["D"], tp)
     y = y + xh.float().to(y.dtype) * D.to(y.dtype)[None, None, :, None]
     y = y.reshape(y.shape[0], y.shape[1], -1) * F.silu(gate)
     if tp is None:
+        norm = ref.rmsnorm_ref if train else ops.rmsnorm
         y = norm(y, p["norm_w"], eps=cfg.rms_eps)
     else:
-        y = ops.rmsnorm_split(y, p["norm_w"], d=ssm_dims(cfg)[0],
-                              eps=cfg.rms_eps, reduce=tp.reduce)
+        split = ref.rmsnorm_split_ref if train else ops.rmsnorm_split
+        y = split(y, p["norm_w"], d=ssm_dims(cfg)[0], eps=cfg.rms_eps,
+                  reduce=tp.sum if train else tp.reduce)
     return down_proj(y, p["out_proj"], tp)
 
 
@@ -221,14 +240,15 @@ def mamba2_block(p, u, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
     else:
         chunk = min(cfg.ssm.chunk_size, xh.shape[1])
         y, ssm_state = ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0=ssm_state)
-    return _mixer_out(p, y, xh, gate, cfg, ops.rmsnorm, tp), (conv_state,
-                                                             ssm_state)
+    return _mixer_out(p, y, xh, gate, cfg, False, tp), (conv_state,
+                                                       ssm_state)
 
 
-def mamba2_block_train(p, u, cfg: ModelConfig):
+def mamba2_block_train(p, u, cfg: ModelConfig, tp=None):
     """The Mamba2 mixer over the whole sequence u (B, T, d) from zero
-    state, in plain differentiable ops. Returns out (B, T, d)."""
-    gate, xh, Bm, Cm, dt, A, _ = _mixer_in(p, u, cfg, None)
+    state, in plain differentiable ops; `tp`: the rank's share, as
+    `mamba2_block`'s. Returns out (B, T, d)."""
+    gate, xh, Bm, Cm, dt, A, _ = _mixer_in(p, u, cfg, None, tp, train=True)
     y, _ = ssd_chunked_train(xh, dt, A, Bm, Cm,
                              min(cfg.ssm.chunk_size, xh.shape[1]))
-    return _mixer_out(p, y, xh, gate, cfg, ref.rmsnorm_ref)
+    return _mixer_out(p, y, xh, gate, cfg, True, tp)

@@ -55,16 +55,33 @@ def _slices(x: torch.Tensor):
     return x.unbind(0) if x.dim() >= 3 else (x,)
 
 
-def global_norm(tree) -> torch.Tensor:
+def _sumsq(x: torch.Tensor) -> torch.Tensor:
+    return sum(torch.sum(torch.square(s.float())) for s in _slices(x))
+
+
+def global_norm(tree, tp=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32, the leaves
-    summed in the JAX package's order."""
-    return torch.sqrt(sum(torch.sum(torch.square(s.float()))
-                          for _, x in named_leaves(tree)
-                          for s in _slices(x)))
+    summed in the JAX package's order. Under a tensor-parallel group
+    (`tp`, a `distributed.sharding.TensorParallel`; `tree` a rank's
+    shards) the squares of the cut leaves (and cut segments) are summed
+    over the group and those of the leaves every rank holds whole are
+    counted once, so every rank clips by the one-device norm."""
+    if tp is None:
+        return torch.sqrt(sum(_sumsq(x) for _, x in named_leaves(tree)))
+    leaf = next(named_leaves(tree))[1]
+    cut = torch.zeros((), dtype=torch.float32, device=leaf.device)
+    whole = torch.zeros((), dtype=torch.float32, device=leaf.device)
+    for name, x in named_leaves(tree):
+        for part, is_cut in tp.norm_parts(name, x):
+            if is_cut:
+                cut = cut + _sumsq(part)
+            else:
+                whole = whole + _sumsq(part)
+    return torch.sqrt(tp.group.all_reduce(cut) + whole)
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state, cfg: TrainConfig):
+def adamw_update(params, grads, opt_state, cfg: TrainConfig, tp=None):
     """One AdamW step of every leaf, the reference's arithmetic op for op:
 
         g = g * min(1, clip / (|grads| + 1e-9))
@@ -72,10 +89,13 @@ def adamw_update(params, grads, opt_state, cfg: TrainConfig):
         p = p - lr (m / bc1 / (sqrt(v / bc2) + 1e-8) + wd p)
 
     with bc_i = 1 - b_i^step, a stacked leaf one layer at a time. Params
-    and moments are written in place. Returns (params, {"m", "v", "step"}, {"lr", "grad_norm"})."""
+    and moments are written in place; under a group (`tp`) they are the
+    rank's shards, clipped by the global norm over the group
+    (`global_norm`). Returns (params, {"m", "v", "step"}, {"lr",
+    "grad_norm"})."""
     step = opt_state["step"] + 1
     lr = lr_schedule(step, cfg)
-    gn = global_norm(grads)
+    gn = global_norm(grads, tp)
     clip = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0) \
         if cfg.grad_clip else 1.0
     b1, b2 = cfg.b1, cfg.b2

@@ -73,7 +73,8 @@ def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
         loss, metrics, grads = value_and_grad(model, params, batch,
                                               tcfg.remat)
         params, opt_state, opt_metrics = adamw_update(params, grads,
-                                                      opt_state, tcfg)
+                                                      opt_state, tcfg,
+                                                      model.tp)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
         return params, opt_state, metrics
