@@ -14,7 +14,7 @@ Phases, one JSON line each:
              without the paged instantiations or an SSD library whose SASS
              (cuobjdump) holds no TF32 tensor-core instruction
              (HMMA.1688.F32.TF32).
-3. kernels   each of the 10 kernel entries against its plain PyTorch version
+3. kernels   each of the 12 kernel entries against its plain PyTorch version
              on the card at the serving path's shapes (the attention
              kernels, RMSNorm and the gated RG-LRU recurrence in bf16
              against the fp32 plain version, the SSD term, the RG-LRU scan
@@ -63,7 +63,15 @@ Phases, one JSON line each:
              two simulated ranks, each half's sums made whole by adding
              the other's, equal to the rmsnorm kernel over the whole rows
              within 2e-2 (the reading with the sums not made whole
-             printed).
+             printed). The sequence-sharded decode's two entries
+             (`decode_attention_partial`, a data rank's slots stopped
+             before the normalization, fp32 (O, m, l); `attention_combine`,
+             R ranks' partials merged) at mistral-nemo-12b's shapes (32 on
+             8 heads of 128, 256 and 2048 slots a rank, R 16 and 2) and
+             recurrentgemma-9b's (16 on 1 of 256, 128 slots, R 16), in bf16
+             and fp32, with graph_ms; the partial's library call aten's
+             flash attention with its logsumexp (bf16, K/V expanded to H
+             heads before the timing); the combine has none.
              kernels_tp_slices (the tp phase's part (c)): decode, paged
              decode and the Tq 16 / 500 chunks at granite-3-8b's TP-2
              shapes (`repro_torch.bench.tp_slices`): each rank's launch
@@ -152,10 +160,11 @@ Phases, one JSON line each:
              graph count, capture seconds and the shared pool's bytes. The
              cache's copies stay in host memory where two do not fit
              beside the weights (qwen1.5-32b).
-7. serve_granite-3-8b_contiguous_eager
-             granite's contiguous run again with every step eager
-             (`cuda_graphs=False`): the graph run's tokens and structural
-             counters, and the host time the graphs took away.
+7. (none: granite's contiguous run served again eager was dropped for
+             the time of tp (d); an engine on graphs against one with
+             `cuda_graphs=False` token for token is a card test,
+             tests/test_torch_cuda.py, and phase 6 holds every replay
+             against its eager run bit for bit)
 8. serve_<arch>_<layout>_overlap2
              granite-3-8b in both layouts and recurrentgemma-9b paged
              served again on graphs with two intervals dispatched ahead
@@ -285,12 +294,35 @@ Phases, one JSON line each:
              pool at that many times the per-chip tokens; the counters and request sets of the port's
              simulator at mesh_shape (1, 2); the kernels of the layout
              launched and the norms a forward (a first chunk's encoder
-             taken off); weights a rank beside the whole model's; granite's
-             40-layer readings and its share of greedy tokens equal to the
-             single-device run's, printed; interval times beside the
+             taken off); weights a rank beside the whole model's; interval
+             times beside the
              card's name and power limit (a correctness path: gloo copies
              each all-reduce through the host). Every new line carries its
-             seconds.
+             seconds. (d) tp_layout / tp_seq: the layouts the port once
+             refused, each probe on the first ranks of one spawn of 16
+             gloo ranks on the one card, eager, at full width and a cut depth: starcoder2-7b's
+             36 query heads on a (1, 8) mesh (4 layers; the kv-heads on the
+             head_dim fallback, q gathered a layer) and
+             llama-3.2-vision-90b's cross K/V on the fallback on (1, 16)
+             (4 self + 1 cross layers, 16 cross keys, gates 0.5): the
+             prefill's last and the first decode step's logits within
+             TP_LOGIT_TOL of max|logit| of the single device's, the
+             planted fault beyond it (the q gather replaced by the rank's
+             own columns; the cross slab read without its gather), every
+             rank's tokens equal, the probe's all-reduces and gathers the
+             layout's; the sequence-sharded decode on a (2, 1) mesh:
+             mistral-nemo-12b `sliding` at 4 layers, batch 1, its ring
+             prefilled on one device until it wraps, cut into the two data
+             ranks' slots by `cache_specs(seq_shard=True)`, 16 decode steps
+             through `decode_attention_partial`, one all-gather over "data"
+             and `attention_combine` a layer, within TP_LOGIT_TOL of the
+             single device's steps on the whole ring (the window of 4096
+             on 4352 slots, 2176 a rank), its fault (each rank combines
+             its own partial only) beyond it; the ranks' tokens
+             equal, a step's collectives the layout's. Its launches are
+             the new kernels' on the path. tp (b) no longer serves
+             granite on the single device beside the two ranks (its
+             full-depth readings were printed, not held).
 16. train   (after the serve runs, their engines released) the training
              path (`repro_torch.training`), which runs no kernel (the JAX
              package's training forward reaches no Pallas kernel; the
@@ -330,7 +362,8 @@ Phases, one JSON line each:
              gradient bit for bit.
 18. timing  the seconds of each stretch of phases (build, kernels,
              references, serve, audit, sliding, eager_overlap,
-             twins_tiers, profiles, tp, train, dryrun) and their total,
+             twins_tiers, profiles, tp, tp_layouts, train, dryrun) and
+             their total,
              from the kernels' build to the end of the dry run.
 
 Then the card's name and power limit, the `{"kernels": [...]}` summary,
@@ -383,17 +416,9 @@ PROMPT_LO, PROMPT_HI = 32, 480
 SERVE_CUTS = {"qwen1.5-32b": ["--b-max", "2"]}
 
 
-def serve_args(arch: str, cut: bool = True):
-    """chip_smoke's serve flags for `arch`, its cut included if `cut`."""
-    return SERVE_ARGS + ["--arch", arch] + (SERVE_CUTS.get(arch, [])
-                                            if cut else [])
-
-
-#: serve runs of a cut arch in one layout without its cut, served beside
-#: the cut pair: the paged pool is --pool-tokens whatever b_max, so
-#: qwen1.5-32b's paged engine fits b_max 8 (the pair takes the cut in both
-#: layouts so that their structural counters compare)
-UNCUT = (("qwen1.5-32b", True),)
+def serve_args(arch: str):
+    """chip_smoke's serve flags for `arch`, its cut included."""
+    return SERVE_ARGS + ["--arch", arch] + SERVE_CUTS.get(arch, [])
 
 
 #: arch -> (requests served (fewer than granite's 12 where a family's runs
@@ -430,7 +455,7 @@ ATTENTION = {False: ("decode_attention", "flash_attention"),
              True: ("paged_decode_attention", "paged_flash_attention")}
 STRUCTURAL = ("decode_steps", "mean_batch", "admitted", "preemptions",
               "prefill_tokens", "finished")
-#: the serve run whose decode interval is traced, and served again eager
+#: the serve run whose decode interval is traced
 PROFILED = ("granite-3-8b", "contiguous")
 #: serve runs served again with two intervals dispatched ahead (DESIGN §14)
 OVERLAPPED = (("granite-3-8b", "contiguous"), ("granite-3-8b", "paged"),
@@ -556,14 +581,15 @@ def bound(n_bytes: float, n_ops: float, peak: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_err(got, want) -> float:
+def max_err(got, want, bf16: bool = False) -> float:
     """Max abs error over the outputs (a tensor or a tuple of them); raises
     when an element is outside the tolerance: atol + rtol|want| for a bf16
-    output, FP32_TOL * max|want| for an fp32 one."""
+    output (or any output of a call on bf16 inputs, `bf16`: the partial
+    flash decode's fp32 partials), FP32_TOL * max|want| for an fp32 one."""
     if isinstance(got, tuple):
-        return max(max_err(g, w) for g, w in zip(got, want))
+        return max(max_err(g, w, bf16) for g, w in zip(got, want))
     d = (got.float() - want.float()).abs()
-    if got.dtype == torch.float32:
+    if got.dtype == torch.float32 and not bf16:
         bad = d > FP32_TOL * want.abs().max()
     else:
         bad = d > ATOL + RTOL * want.float().abs()
@@ -905,6 +931,70 @@ def kernel_cases(dev):
     paged_cross(8, 1, 1601, 64, 8, 128, "cross B=8 Tq=1 bs=1601 G=8")
     paged_cross(1, 16, 1601, 64, 8, 128, "cross Tq=16 bs=1601 G=8")
 
+    # the sequence-sharded decode: a data rank's slots of a batch-1 cache,
+    # every slot inside the window: mistral-nemo-12b's 32 heads on 8 of
+    # 128 at 256 and 2048 slots a rank (its 4096 window over data 16 and
+    # 2) and recurrentgemma-9b's 16 on 1 of 256 at 128 (2048 over 16); the
+    # partial in bf16 and fp32, and the combine of that many ranks'
+    # partials. The partial's library call returns the logsumexp beside
+    # the normalized output (the same function), on K/V expanded to the H
+    # heads before the timing (it takes no GQA): aten's flash attention in
+    # bf16, its memory-efficient attention in fp32 (flash runs 16-bit
+    # only). No PyTorch call merges partials by their logsumexp: the
+    # combine has none.
+    for H, KV, hd, S, R_, win in SEQ_CASES:
+        for dt in (bf, torch.float32):
+            tag = "bf16" if dt == bf else "fp32"
+            q, k, v = rn(1, H, hd, dtype=dt), rn(1, S, KV, hd, dtype=dt), \
+                rn(1, S, KV, hd, dtype=dt)
+            qp = torch.full((1,), 9000, dtype=torch.int32, device=dev)
+            kp = (9000 - S + torch.arange(S, dtype=torch.int32,
+                                          device=dev))[None]
+            a = (q, k, v, qp, kp)
+            G = H // KV
+            kx = k.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+            vx = v.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+            if dt == bf:
+                lib = lambda q=q, kx=kx, vx=vx: \
+                    torch.ops.aten._scaled_dot_product_flash_attention(
+                        q[:, :, None], kx, vx)[:2]
+            else:
+                lib = lambda q=q, kx=kx, vx=vx: \
+                    torch.ops.aten._scaled_dot_product_efficient_attention(
+                        q[:, :, None], kx, vx, None, True)[:2]
+            cases.append((
+                "decode_attention_partial",
+                f"B=1 S={S} H={H} KV={KV} hd={hd} {tag}",
+                lambda a=a, w=win: ops.decode_attention_partial(*a, window=w),
+                lambda a=a, w=win: ref.decode_attention_partial_ref(
+                    *a, window=w),
+                lambda a=a, w=win: ref.decode_attention_partial_ref(
+                    *f32(*a), window=w),
+                lib, nbytes(q, k, v, qp, kp) + H * (hd + 2) * 4,
+                4 * H * hd * S, "bf16" if dt == bf else "fp32"))
+            # the combine's R partials are the plain partials of R ranks'
+            # slots of one cache, q drawn at 3x so that a few keys carry
+            # each row: the merged rows are O(1) (mean |out| ~0.2), well
+            # above the bf16 atol
+            n = R_ * S
+            qc = rn(1, H, hd, dtype=dt) * 3.0
+            kc, vc = rn(1, n, KV, hd, dtype=dt), rn(1, n, KV, hd, dtype=dt)
+            kpc = (9000 - n + torch.arange(n, dtype=torch.int32,
+                                           device=dev))[None]
+            o, ml = (torch.stack(t) for t in zip(*(
+                ref.decode_attention_partial_ref(
+                    qc, kc[:, r * S:(r + 1) * S], vc[:, r * S:(r + 1) * S],
+                    qp, kpc[:, r * S:(r + 1) * S]) for r in range(R_))))
+            cases.append((
+                "attention_combine", f"R={R_} B=1 H={H} hd={hd} {tag}",
+                lambda o=o, ml=ml, dt=dt: ops.attention_combine(o, ml,
+                                                                dtype=dt),
+                lambda o=o, ml=ml, dt=dt: ref.attention_combine_ref(
+                    o, ml, dtype=dt),
+                lambda o=o, ml=ml: ref.attention_combine_ref(o, ml),
+                None, nbytes(o, ml) + H * hd * (2 if dt == bf else 4),
+                2 * R_ * H * (hd + 1), "fp32"))
+
     # RMSNorm at d 4096: a decode step's rows and a long prefill's, and a
     # decode step's at starcoder2-7b's, qwen2-moe's, seamless-m4t's and
     # llama-3.2-vision's widths; the fused add's library call is the add
@@ -1021,8 +1111,23 @@ def eager_gated_scan(ga, gi, x, lam, b_a, b_i, h0, scan=None):
     return y.to(x.dtype), hT
 
 
+#: the sequence-sharded decode's kernel cases: (H, KV, hd, slots a rank,
+#: ranks, window) of mistral-nemo-12b at data 16 and 2 and
+#: recurrentgemma-9b at data 16
+SEQ_CASES = ((32, 8, 128, 256, 16, 4096), (32, 8, 128, 2048, 2, 4096),
+             (16, 1, 256, 128, 16, 2048))
+
 #: launch-floor cases also timed as 100 launches in one CUDA graph
 GRAPH_CASES = {("rmsnorm", "rows=8 d=4096"), ("add_rmsnorm", "rows=8 d=4096"),
+               ("decode_attention_partial",
+                "B=1 S=2048 H=32 KV=8 hd=128 bf16"),
+               ("decode_attention_partial",
+                "B=1 S=256 H=32 KV=8 hd=128 bf16"),
+               ("decode_attention_partial",
+                "B=1 S=128 H=16 KV=1 hd=256 bf16"),
+               ("attention_combine", "R=2 B=1 H=32 hd=128 bf16"),
+               ("attention_combine", "R=16 B=1 H=32 hd=128 bf16"),
+               ("attention_combine", "R=16 B=1 H=16 hd=256 bf16"),
                ("decode_attention", "B=8 S=1024"),
                ("paged_decode_attention", "B=8 blocks=241"),
                ("flash_attention", "Tq=16 Tk=1024"),
@@ -1042,6 +1147,14 @@ KERNELS = {
     "paged_decode_attention": (
         "cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:139", "B=8 blocks=241"),
+    "decode_attention_partial": (
+        "cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:83",
+        "B=1 S=2048 H=32 KV=8 hd=128 bf16"),
+    "attention_combine": (
+        "cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:83",
+        "R=2 B=1 H=32 hd=128 bf16"),
     "flash_attention": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:61", "Tq=16 Tk=1024"),
@@ -1078,12 +1191,13 @@ def run_kernels(dev):
         got = kern()
         torch.cuda.synchronize()
         want = plain32()
-        err = max_err(got, want)
+        bf16_in = name == "decode_attention_partial" and "bf16" in label
+        err = max_err(got, want, bf16_in)
         if name == "add_rmsnorm" and not torch.equal(got[0], plain()[0]):
             raise AssertionError(f"add_rmsnorm {label}: the sum is not "
                                  f"bit for bit x + y")
         fp32 = (got[0] if isinstance(got, tuple) else got).dtype \
-            == torch.float32
+            == torch.float32 and not bf16_in
         b_ms, b_by = bound(n_bytes, n_ops, peak)
         r = dict(name=name, case=label, max_abs_err=err,
                  tol=f"{FP32_TOL} * max|plain|" if fp32
@@ -1820,14 +1934,13 @@ def serve_prompts(arch: str):
                    PROMPT_LO, PROMPT_HI)
 
 
-def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
-              depth: int = 0, beside: Optional[dict] = None, cfg=None,
-              cut: bool = True, dtype=None, mesh=()):
+def run_serve(arch: str, paged: bool, depth: int = 0,
+              beside: Optional[dict] = None, cfg=None, dtype=None, mesh=()):
     """Serve the family's prompts through `launch.serve.build_engine` (its
     graphs captured by `warmup` first), `depth` intervals dispatched ahead
     (DESIGN §14), and check the run. `beside`: the depth-0 run's figures,
     printed on the line. `cfg`: a variant of the arch's full config (the
-    run is named after it). `cut`: take the arch's SERVE_CUTS. `dtype`:
+    run is named after it). `dtype`:
     the weights' type, if not bf16. `mesh`: serve on that mesh, on the
     ambient serving group this process joined. Returns (the emitted
     fields, the engine, the requests)."""
@@ -1845,7 +1958,7 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
         (fused, plain), more = MESH_NORMS[arch]
         path, per_forward = path + tuple(more), dict(per_forward, **more)
     args = serve.build_parser().parse_args(
-        serve_args(arch, cut) + (["--paged"] if paged else [])
+        serve_args(arch) + (["--paged"] if paged else [])
         + ["--overlap-depth", str(depth)]
         + (["--mesh", ",".join(map(str, mesh))] if mesh else []))
     if cfg is None and arch in DEPTH_CUTS:
@@ -1853,7 +1966,7 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
                                   **DEPTH_CUTS[arch])
     t0 = time.perf_counter()
     eng = serve.build_engine(
-        args, cuda_graphs=cuda_graphs, cfg=cfg, dtype=dtype,
+        args, cfg=cfg, dtype=dtype,
         enc_len=default_enc_len(cfg or get_config(arch, "full")))
     set_gates(eng.params)
     torch.cuda.synchronize()
@@ -1885,9 +1998,7 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
     allocator_full = eng.blocks.free_blocks == eng.blocks.num_blocks
     name = f"serve_{cfg.name if cfg else arch}_" \
         f"{'paged' if paged else 'contiguous'}" \
-        + ("" if cuda_graphs else "_eager") \
         + (f"_overlap{depth}" if depth else "") \
-        + ("" if cut or arch not in SERVE_CUTS else "_uncut") \
         + ("_fp32" if dtype == torch.float32 else "") \
         + ("_mesh" + "x".join(map(str, mesh)) if mesh else "")
     n_int = len(eng.step_host_trace)
@@ -1936,8 +2047,8 @@ def run_serve(arch: str, paged: bool, cuda_graphs: bool = True,
             raise AssertionError(f"{name}: {launches[k]} launches of {k} "
                                  f"in {forwards} forwards, not {n} a "
                                  f"forward")
-    if cuda_graphs and (not eng.graphs.enabled or any(
-            st.graph is None for st in eng.graphs.steps.values())):
+    if not eng.graphs.enabled or any(
+            st.graph is None for st in eng.graphs.steps.values()):
         raise AssertionError(f"{name}: a step ran without its graph")
     if eng.overlap_depth != depth or eng._inflight:
         raise AssertionError(f"{name}: depth {eng.overlap_depth}, "
@@ -2029,7 +2140,7 @@ TP_MORE = ("qwen2-moe-a2.7b", "seamless-m4t-medium", "llama-3.2-vision-90b",
 #: mamba2's gated norm over a rank's d_inner / m), checked after the tp
 #: runs; and the norm launches a forward where a mesh changes them:
 #: arch -> ((fused, plain), other kernels a forward)
-TP_PATH = ("rmsnorm_split",)
+TP_PATH = ("rmsnorm_split", "decode_attention_partial", "attention_combine")
 MESH_NORMS = {"mamba2-2.7b": ((64, 1), {"rmsnorm_split": 64})}
 TP_GLOO_MESH = (1, 2)
 #: tp (b)'s flags beside SERVE_ARGS, and its prompts (count, lengths): its
@@ -2063,6 +2174,7 @@ TP_LOGIT_TOL = 3e-2
 #: each arch's cut for the rule: TP_PROBE_LAYERS decoder layers (the
 #: enc-dec's encoder too; the VLM's one cross layer after them)
 TP_PROBE_CUTS = {TP_ARCH: dict(num_layers=TP_PROBE_LAYERS),
+                 "starcoder2-7b": dict(num_layers=TP_PROBE_LAYERS),
                  "qwen2-moe-a2.7b": dict(num_layers=TP_PROBE_LAYERS),
                  "seamless-m4t-medium": dict(num_layers=TP_PROBE_LAYERS,
                                              encoder_layers=TP_PROBE_LAYERS),
@@ -2218,7 +2330,7 @@ def step_allreduces(eng) -> dict:
         m, tp = eng.model.local_cfg, eng.model.tp
         out[str(key)] = dict(traced=n, layout=allreduces(
             m, tp, key[0] == "xchunk"), gathers=g, gathers_layout=gathers(
-            m, tp))
+            m, tp, key[0] == "xchunk"))
     return out
 
 
@@ -2466,8 +2578,7 @@ def _tp_gloo_arch(group, rank: int, world: int, arch: str) -> dict:
     """One rank's part of tp (b) for `arch` (`tp_gloo_rank`): rank 0's
     single-device cut probe first (a MoE's expert picks then go to every
     rank), the rank's served runs in TP_GLOO_LAYOUTS (the full-depth
-    probe on the first, its all-reduces traced), its cut probe; for
-    TP_ARCH rank 0 then serves the single-device runs too."""
+    probe on the first, its all-reduces traced), its cut probe."""
     import numpy as np
     import torch.distributed as dist
     from repro_torch.analysis.graph_audit import allreduces, gathers
@@ -2504,34 +2615,27 @@ def _tp_gloo_arch(group, rank: int, world: int, arch: str) -> dict:
         set_gates(eng.params)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        logits = counts = None
+        counts = None
         if probe:
             # the probe's all-reduces: a first chunk (with the extras)
             # and a decode step; a decode step alone
-            (n_probe, g_probe), logits = count_collectives(
+            (n_probe, g_probe), _ = count_collectives(
                 _tp_probe, eng.model, eng.params, prompts, lo - 1, full_ex)
-            if eng.group is not None:
-                (n_dec, g_dec), _ = count_collectives(
-                    eng.model.decode_step, eng.params,
-                    torch.zeros(1, dtype=torch.int64, device="cuda"),
-                    torch.zeros(1, dtype=torch.int32, device="cuda"),
-                    eng.model.init_cache(1, 8))
-                m, tp = eng.model.local_cfg, eng.model.tp
-                counts = {
-                    "probe": dict(traced=n_probe, layout=allreduces(
-                        m, tp, full_ex is not None) + allreduces(m, tp),
-                        gathers=g_probe, gathers_layout=2 * gathers(m, tp)),
-                    "decode": dict(traced=n_dec, layout=allreduces(m, tp),
-                                   gathers=g_dec,
-                                   gathers_layout=gathers(m, tp))}
-            if eng.group is None:
-                # the single device's own bf16 spread: each prompt alone,
-                # other GEMM and attention launch shapes than the batch's
-                rows = [_tp_probe(eng.model, eng.params, [p], lo - 1,
-                                  None if full_ex is None
-                                  else full_ex[i:i + 1])
-                        for i, p in enumerate(prompts)]
-                logits += tuple(np.concatenate(r) for r in zip(*rows))
+            (n_dec, g_dec), _ = count_collectives(
+                eng.model.decode_step, eng.params,
+                torch.zeros(1, dtype=torch.int64, device="cuda"),
+                torch.zeros(1, dtype=torch.int32, device="cuda"),
+                eng.model.init_cache(1, 8))
+            m, tp = eng.model.local_cfg, eng.model.tp
+            ex = full_ex is not None
+            counts = {
+                "probe": dict(traced=n_probe, layout=allreduces(m, tp, ex)
+                              + allreduces(m, tp), gathers=g_probe,
+                              gathers_layout=gathers(m, tp, ex)
+                              + gathers(m, tp)),
+                "decode": dict(traced=n_dec, layout=allreduces(m, tp),
+                               gathers=g_dec,
+                               gathers_layout=gathers(m, tp))}
         mk_extras = serve.extras_drawer(eng, np.random.RandomState(1))
         reqs = [(p, mk_extras()) for p in prompts]
         torch.cuda.reset_peak_memory_stats()
@@ -2564,37 +2668,25 @@ def _tp_gloo_arch(group, rank: int, world: int, arch: str) -> dict:
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-        return rec, logits
+        return rec
 
     layouts = TP_GLOO_LAYOUTS[arch]
     for paged in layouts:
         layout = "paged" if paged else "contiguous"
         argv = serve_args(arch) + TP_GLOO_ARGS + mesh \
             + (["--paged"] if paged else [])
-        rec, logits = served(argv, probe=paged == layouts[0])
+        rec = served(argv, probe=paged == layouts[0])
         reqs = rec.pop("requests")
         every = [None] * world
         dist.all_gather_object(every, rec["tokens"], group=group.control)
         rec["ranks_agree"] = all(t == rec["tokens"] for t in every)
         rec["sets"] = request_sets(reqs)
         out[layout] = rec
-        if logits is not None:
-            out["tp_logits"] = logits
     out["tp_cut"] = _tp_cut_probe(group, arch, prompts, lo - 1, picks)
     if cfg.ssm is not None:
         out["norm_layer"] = _tp_split_norm(group, cfg)
     if rank == 0:
         out["single_cut"] = single_cut
-    if rank == 0 and arch == TP_ARCH:
-        for paged in layouts:
-            layout = "paged" if paged else "contiguous"
-            rec, logits = served(serve_args(arch) + TP_GLOO_ARGS
-                                 + (["--paged"] if paged else []),
-                                 probe=paged == layouts[0])
-            rec.pop("requests")
-            out[f"single_{layout}"] = rec
-            if logits is not None:
-                out["single_logits"] = logits
     dist.barrier(group=group.control)
     return out
 
@@ -2695,14 +2787,6 @@ def _tp_gloo_check(arch: str, res: dict, launches) -> tuple:
         if cut["fault"][k] <= TP_LOGIT_TOL:
             bad.append(f"{arch}: the planted fault's {k} logits "
                        f"{cut['fault'][k]} pass the rule")
-    if arch == TP_ARCH:
-        tp_pre, tp_dec = res.pop("tp_logits")
-        one_pre, one_dec, row_pre, row_dec = res.pop("single_logits")
-        out["logits_rel_err"]["full_depth"] = dict(
-            tp=_rel((tp_pre, tp_dec), (one_pre, one_dec)),
-            single_rows=_rel((row_pre, row_dec), (one_pre, one_dec)))
-        out["argmax_agree"] = float((tp_dec.argmax(-1)
-                                     == one_dec.argmax(-1)).mean())
     n, lo, hi = TP_GLOO_PROMPTS
     prompts = make_prompts(cfg.vocab_size, n, lo, hi)
     _, fpath, attends, (fused, plain), per_forward = FAMILIES[arch]
@@ -2742,18 +2826,6 @@ def _tp_gloo_check(arch: str, res: dict, launches) -> tuple:
             intervals=rec["intervals"], build_s=rec["build_s"],
             serve_s=rec["serve_s"], peak_mem_gb=rec["peak_mem_gb"],
             launches=rec["launches"], allreduces=rec["allreduces"])
-        one = res.get(f"single_{layout}")
-        if one is not None:
-            pairs = [(x, y) for a, b in zip(rec["tokens"], one["tokens"])
-                     for x, y in zip(a, b)]
-            out[layout].update(
-                tokens_equal_single=sum(x == y for x, y in pairs)
-                / len(pairs),
-                requests_equal_single=sum(a == b for a, b in zip(
-                    rec["tokens"], one["tokens"])),
-                single_pool_tokens=one["summary"]["pool_tokens"],
-                single_weights_gb=one["weights_gb"],
-                single_interval_s_mean=one["interval_s_mean"])
         if not rec["ranks_agree"]:
             bad.append(f"{arch} {layout}: the ranks' tokens differ")
         if s["finished"] != n or s["model_shards"] != shards \
@@ -2793,9 +2865,8 @@ def run_tp_gloo(card: str, launches) -> dict:
     count; the counters equal to the port's simulator on the same flags
     with `mesh_shape` (1, 2) (`model_shards` 2, mamba2's 1); mamba2's
     gated norm held by a layer check of its own (`_tp_split_norm`);
-    weights a rank beside the whole model's; granite's 40-layer readings and the share of greedy
-    tokens equal to the single-device run's, printed, not held (chaos
-    swamps them); interval times beside the card's name and power limit.
+    weights a rank beside the whole model's; interval times beside the
+    card's name and power limit.
     A correctness path: gloo copies each all-reduce through the host, so
     no speed is claimed from it."""
     from repro_torch.launch.mesh import spawn_ranks
@@ -2811,6 +2882,337 @@ def run_tp_gloo(card: str, launches) -> dict:
     emit("tp_gloo_two_ranks", **out)
     if bad:
         raise AssertionError(f"tp (b): {bad}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tp (d): the layouts the port once refused, eager on gloo ranks
+
+#: name -> (arch, mesh) of the cut-depth probes: starcoder2-7b's 36 query
+#: heads cut over 8 ranks (its 4 kv-heads on the head_dim fallback, q
+#: gathered a layer), llama-3.2-vision-90b's cross K/V on the fallback
+#: over 16 (8 kv-heads), both at TP_PROBE_CUTS
+TP_LAYOUTS = {"split_heads": ("starcoder2-7b", (1, 8)),
+              "cross_fallback": ("llama-3.2-vision-90b", (1, 16))}
+#: the sequence-sharded decode's probe: mistral-nemo-12b `sliding(4096)`
+#: at TP_PROBE_LAYERS layers on a (2, 1) mesh, batch 1: (window, prefill
+#: chunk, prompt tokens): the ring (window + chunk - 1 slots, cut in two
+#: by `cache_specs(seq_shard=True)`: 2176 a rank) wrapped by the prompt,
+#: then SEQ_PROBE_STEPS decode steps
+SEQ_PROBE_MESH = (2, 1)
+SEQ_PROBE_RING = (4096, 257, 4600)
+SEQ_PROBE_STEPS = 16
+
+
+def layout_fault(name: str):
+    """tp (d)'s planted faults, on every rank alike (no collective is left
+    unmatched): `split_heads`, the q gather replaced by the rank's own
+    columns (the other ranks' columns of its head span read as zeros);
+    `cross_fallback`, each cross layer's slab read without its gather
+    (the rank's hd/m channels, the others zeros)."""
+    from repro_torch.distributed.sharding import TensorParallel
+    from repro_torch.models import layers as L
+
+    @contextlib.contextmanager
+    def own_columns(model):
+        keep = TensorParallel.q_heads
+
+        def q_heads(self, q):
+            hd = self.whole.resolved_head_dim
+            n = q.shape[-1]
+            whole = q.new_zeros(q.shape[:-1] + (n * self.m,))
+            whole[..., self.rank * n:(self.rank + 1) * n] = q
+            h0, h1 = self.heads
+            return whole[..., h0 * hd:h1 * hd].unflatten(-1, (-1, hd))
+
+        TensorParallel.q_heads = q_heads
+        try:
+            yield
+        finally:
+            TensorParallel.q_heads = keep
+
+    @contextlib.contextmanager
+    def ungathered_cross(model):
+        keep_cross, keep_read = L.cross_attention, L.kv_read
+
+        def read(k, v, tp=None):
+            def pad(t):
+                whole = t.new_zeros(t.shape[:-1] + (t.shape[-1] * tp.m,))
+                c = t.shape[-1]
+                whole[..., tp.rank * c:(tp.rank + 1) * c] = t
+                return tp.kv_span(whole)
+            return pad(k), pad(v)
+
+        def cross(*a, **kw):
+            L.kv_read = read
+            try:
+                return keep_cross(*a, **kw)
+            finally:
+                L.kv_read = keep_read
+
+        L.cross_attention = cross
+        try:
+            yield
+        finally:
+            L.cross_attention = keep_cross
+
+    return {"split_heads": own_columns,
+            "cross_fallback": ungathered_cross}[name]
+
+
+def _layout_probe(group, arch: str, prompts, T: int, fault=None) -> dict:
+    """`_tp_probe` at `arch`'s TP_PROBE_CUTS, full width, bf16, seed 0's
+    weights, gates 0.5, TP_PROBE_ENC_LEN cross keys: the single device's
+    without a group; on `group` the rank's, its all-reduces and gathers
+    traced beside the layout's (`graph_audit`), then under `fault`."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.analysis.graph_audit import allreduces, gathers
+    from repro_torch.config.registry import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config(arch, "full"), **TP_PROBE_CUTS[arch])
+    model = build_model(cfg, dtype=torch.bfloat16, device="cuda",
+                        group=group)
+    if group is None:
+        params = model.init(0)
+    else:
+        # one rank draws at a time: each holds a whole tensor while it
+        # cuts it (the VLM's embedding is 2.1 GB), which 16 ranks at once
+        # do not fit beside their contexts; the freed blocks go back to
+        # the device before the next rank draws
+        for turn in range(group.world):
+            if turn == group.rank:
+                params = model.init(0)
+                torch.cuda.empty_cache()
+            dist.barrier(group=group.control)
+    set_gates(params)
+    ex = probe_extras(cfg, len(prompts), TP_PROBE_ENC_LEN)
+    (n, g), logits = count_collectives(_tp_probe, model, params, prompts, T,
+                                       ex)
+    out = {"sound": logits}
+    if group is not None:
+        m, tp = model.local_cfg, model.tp
+        out["collectives"] = dict(
+            allreduces=n, gathers=g, q_gather=tp.q_gather,
+            layout_allreduces=allreduces(m, tp, ex is not None)
+            + allreduces(m, tp),
+            layout_gathers=gathers(m, tp, ex is not None) + gathers(m, tp))
+        with fault(model):
+            out["fault"] = _tp_probe(model, params, prompts, T, ex)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _layout_rank(group, name: str) -> dict:
+    """One rank of a TP_LAYOUTS probe: rank 0's single-device probe first
+    (the others wait), then every rank's own and its fault's; the ranks'
+    decode argmax gathered. Returns the rank's record (rank 0's holds the
+    single device's)."""
+    import torch.distributed as dist
+    from repro_torch.bench.kv_swap import prompts as make_prompts
+    from repro_torch.config.registry import get_config
+
+    arch, _ = TP_LAYOUTS[name]
+    rank, world = group.rank, group.world
+    n, lo, hi = TP_GLOO_PROMPTS
+    prompts = make_prompts(get_config(arch, "full").vocab_size, n, lo, hi)
+    t0 = time.perf_counter()
+    one = _layout_probe(None, arch, prompts, lo - 1) if rank == 0 else None
+    dist.barrier(group=group.control)
+    mine = _layout_probe(group, arch, prompts, lo - 1, layout_fault(name))
+    every = [None] * world
+    dist.all_gather_object(every, mine["sound"][1].argmax(-1).tolist(),
+                           group=group.control)
+    return dict(single=one, tp=mine, ranks_agree=all(
+        t == every[0] for t in every), seconds=time.perf_counter() - t0)
+
+
+def _seq_cut(cache, sizes, d: int):
+    """Data rank d's share of a contiguous cache by `cache_specs(seq_shard=
+    True)`: each leaf narrowed on its "data" axis, whole elsewhere."""
+    from repro_torch.distributed.sharding import cache_specs
+
+    specs = cache_specs(cache, sizes, seq_shard=True)
+    out = {}
+    for k, t in cache.items():
+        spec = specs[k]
+        if "data" in spec:
+            ax = spec.index("data")
+            n = t.shape[ax] // sizes["data"]
+            t = t.narrow(ax, d * n, n)
+        out[k] = t.clone()
+    return out
+
+
+def _seq_rank(group) -> dict:
+    """One data rank of the sequence-sharded probe (SEQ_PROBE_RING): the
+    whole cache prefilled on the rank's own device in chunks (the single
+    device's: a model axis of 1 holds the whole weights), its slots cut
+    by `cache_specs(seq_shard=True)`, then SEQ_PROBE_STEPS decode steps
+    through `Model.decode_step(seq_shard=True)` against the single
+    device's steps on the whole cache, a step's collectives traced, and
+    again with each rank combining its own partial only (the gather over
+    "data" skipped on every rank). Returns the rank's record: the
+    logits' gaps from the single device's, the collectives, its
+    launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.analysis.graph_audit import allreduces, gathers
+    from repro_torch.configs.mistral_nemo_12b import sliding
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    world = group.world
+    sizes = {"data": SEQ_PROBE_MESH[0], "model": SEQ_PROBE_MESH[1]}
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    window, chunk, P = SEQ_PROBE_RING
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(sliding(window), num_layers=TP_PROBE_LAYERS)
+    model = build_model(cfg, torch.bfloat16, "cuda", group=group)
+    one = build_model(cfg, torch.bfloat16, "cuda")
+    params = model.init(0)       # a model axis of 1: the whole weights
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (1, P + SEQ_PROBE_STEPS),
+                         generator=g).cuda()
+    whole = one.init_cache(1, P + SEQ_PROBE_STEPS, prefill_chunk=chunk)
+    for s0 in range(0, P, chunk):
+        s1 = min(s0 + chunk, P)
+        pos = torch.arange(s0, s1, dtype=torch.int32,
+                           device="cuda")[None]
+        one.prefill(params, toks[:, s0:s1], pos, whole, last_only=True)
+    mine = _seq_cut(whole, sizes, group.data_rank)
+    fault_cache = {k: t.clone() for k, t in mine.items()}
+
+    def steps(fn, cache):
+        rows = []
+        for t in range(P, P + SEQ_PROBE_STEPS):
+            lg, _ = fn(params, toks[:, t], torch.tensor(
+                [t], dtype=torch.int32, device="cuda"), cache)
+            rows.append(lg[0].float().cpu().numpy())
+        return np.stack(rows)
+
+    want = steps(one.decode_step, whole)
+    ops.reset_launches()
+    (n_ar, n_g), _ = count_collectives(
+        model.decode_step, params, toks[:, P], torch.tensor(
+            [P], dtype=torch.int32, device="cuda"),
+        {k: t.clone() for k, t in mine.items()}, True)
+    got = steps(lambda *a: model.decode_step(*a, seq_shard=True), mine)
+    for k, v in ops.LAUNCHES.items():
+        launches[k] += v
+    gather_data = group.gather_data
+    group.gather_data = lambda x: x[None]
+    try:
+        fault = steps(lambda *a: model.decode_step(*a, seq_shard=True),
+                      fault_cache)
+    finally:
+        group.gather_data = gather_data
+    every = [None] * world
+    dist.all_gather_object(every, got.argmax(-1).tolist(),
+                           group=group.control)
+    m, tp = model.local_cfg, model.tp
+    scale = float(np.abs(want).max())
+    out = dict(
+        window=window, ring_slots=int(whole["k"].shape[2]),
+        slots_a_rank=int(mine["k"].shape[2]), prompt=P,
+        steps=SEQ_PROBE_STEPS, tol=TP_LOGIT_TOL,
+        rel=float(np.abs(got - want).max()) / scale,
+        fault_rel=float(np.abs(fault - want).max()) / scale,
+        argmax_equal_single=float((got.argmax(-1)
+                                   == want.argmax(-1)).mean()),
+        ranks_agree=all(t == every[0] for t in every),
+        collectives=dict(allreduces=n_ar, gathers=n_g,
+                         layout_allreduces=allreduces(m, tp),
+                         layout_gathers=gathers(m, tp, seq=True)),
+        seconds=time.perf_counter() - t0)
+    out["launches"] = launches
+    return out
+
+
+def tp_layouts_rank(rank: int, world: int) -> dict:
+    """One rank of tp (d): every probe's mesh laid on the first ranks of
+    one spawn (`launch.mesh.mesh_group`), so the ranks start once: the
+    TP_LAYOUTS probes, then the sequence-sharded one (SEQ_PROBE_MESH); a
+    rank past a probe's mesh goes on to the next. Returns rank 0's
+    records, by probe."""
+    sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serving_group, mesh_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    meshes = [mesh for _, mesh in TP_LAYOUTS.values()] + [SEQ_PROBE_MESH]
+    make_serving_group((1, world), "gloo", rank, world)
+    groups = [mesh_group(mesh, "gloo", rank) for mesh in meshes]
+    out = {}
+    for name, group in zip(list(TP_LAYOUTS) + ["seq"], groups):
+        if group is not None:
+            out[name] = _seq_rank(group) if name == "seq" \
+                else _layout_rank(group, name)
+    dist.barrier()                 # every rank leaves with the last probe
+    return out
+
+
+def run_tp_layouts(card: str, launches) -> dict:
+    """tp (d): the layouts the port once refused, on the one card, eager,
+    on gloo ranks of one spawn (`tp_layouts_rank`): starcoder2-7b's split
+    query heads on (1, 8) and llama-3.2-vision-90b's cross K/V on the
+    head_dim fallback on (1, 16), at TP_PROBE_CUTS (the first decode
+    step's and the prefill's last logits within TP_LOGIT_TOL of max|logit|
+    of one device's, the planted fault beyond it, the ranks' tokens equal,
+    the all-reduces and gathers the layout's); and the sequence-sharded
+    decode on (2, 1) (`_seq_rank`; its partial and combine launches join
+    `launches`). A correctness path: no speed is claimed."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    world = max(math.prod(mesh) for _, mesh in TP_LAYOUTS.values())
+    t0 = time.perf_counter()
+    every = spawn_ranks(tp_layouts_rank, world, timeout_s=900)
+    out, bad = dict(card=card, seconds=time.perf_counter() - t0), []
+    for name, (arch, mesh) in TP_LAYOUTS.items():
+        res = every[name]
+        one, tp = res["single"]["sound"], res["tp"]
+        rec = dict(arch=arch, mesh=list(mesh), layers=TP_PROBE_CUTS[arch],
+                   tol=TP_LOGIT_TOL, tp=_rel(tp["sound"], one),
+                   fault=_rel(tp["fault"], one),
+                   ranks_agree=res["ranks_agree"],
+                   collectives=tp["collectives"], seconds=res["seconds"])
+        out[name] = rec
+        emit("tp_layout", name=name, card=card, **rec)
+        c = tp["collectives"]
+        for k in ("prefill", "decode"):
+            if rec["tp"][k] > TP_LOGIT_TOL:
+                bad.append(f"{name} {k} logits {rec['tp'][k]}")
+            if rec["fault"][k] <= TP_LOGIT_TOL:
+                bad.append(f"{name}: the planted fault's {k} logits "
+                           f"{rec['fault'][k]} pass the rule")
+        if not res["ranks_agree"] or (c["allreduces"], c["gathers"]) != (
+                c["layout_allreduces"], c["layout_gathers"]):
+            bad.append(f"{name}: ranks agree {res['ranks_agree']}, "
+                       f"collectives {c}")
+    rec = every["seq"]
+    for k, n in rec.pop("launches").items():
+        launches[k] = launches.get(k, 0) + n
+    emit("tp_seq", card=card, **rec)
+    c = rec["collectives"]
+    if (c["allreduces"], c["gathers"]) != (c["layout_allreduces"],
+                                           c["layout_gathers"]) \
+            or not rec["ranks_agree"]:
+        bad.append(f"seq: ranks agree {rec['ranks_agree']}, collectives {c}")
+    if rec["rel"] > TP_LOGIT_TOL:
+        bad.append(f"seq: logits {rec['rel']}")
+    if rec["fault_rel"] <= TP_LOGIT_TOL:
+        bad.append(f"seq: the planted fault's logits {rec['fault_rel']} "
+                   f"pass the rule")
+    out["seq"] = rec
+    if bad:
+        raise AssertionError(f"tp (d): {bad}")
     return out
 
 
@@ -3734,15 +4136,6 @@ def main() -> int:
             raise AssertionError(f"{arch}: structural counters differ "
                                  f"between cache layouts: {diff}")
         serves[arch] = layouts
-    for arch, paged in UNCUT:
-        layout = "paged" if paged else "contiguous"
-        fields, eng, _ = run_serve(arch, paged, cut=False)
-        runs[f"{arch}_{layout}_uncut"] = fields
-        for k, n in fields["launches"].items():
-            launches[k] = launches.get(k, 0) + n
-        del eng
-        gc.collect()
-        torch.cuda.empty_cache()
     lap("serve")
     audit = run_audit(dev, full_audit, full_audit_s, synced)
     lap("audit")
@@ -3797,19 +4190,6 @@ def main() -> int:
            if k not in TP_PATH):
         raise AssertionError(f"a path kernel never launched, or an "
                              f"off-path one did: {launches}")
-    # the same run with every step eager: the same tokens and counters,
-    # and the host time the graphs took away
-    arch, layout = PROFILED
-    eager, eng, reqs = run_serve(arch, layout == "paged", cuda_graphs=False)
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    diff = {k: (serves[arch][layout][k], eager["summary"][k])
-            for k in STRUCTURAL
-            if serves[arch][layout][k] != eager["summary"][k]}
-    if [r.output_tokens for r in reqs] != tokens((arch, layout)) or diff:
-        raise AssertionError(f"{arch} {layout}: the eager run's tokens or "
-                             f"counters differ from the graph run's: {diff}")
     # dispatch-ahead (DESIGN §14): the depth-0 runs' tokens and counters
     overlap = {}
     for arch, layout in OVERLAPPED:
@@ -3857,10 +4237,14 @@ def main() -> int:
     # two gloo ranks on the one card, eager
     tp = dict(nccl=run_tp_nccl(served, graphs, launches),
               gloo=run_tp_gloo(card, launches), slices=tp_slices)
+    lap("tp")
+    # the layouts the port once refused: split query heads, the cross
+    # fallback, the sequence-sharded decode (its kernels' launches)
+    tp["layouts"] = run_tp_layouts(card, launches)
     if not all(launches.get(k) for k in TP_PATH):
         raise AssertionError(f"a kernel of the mesh path never launched in "
                              f"the tp runs: {launches}")
-    lap("tp")
+    lap("tp_layouts")
     # training, once every serving engine is released
     train_runs = {"reduced": run_train_reduced(dev)}
     for arch in TRAIN_FULL:
@@ -3888,7 +4272,8 @@ def main() -> int:
                                         "plain_host_us", "chain_ms",
                                         "chain_host_us") if k in main_row},
             **next(({"graph_ms": r["graph_ms"], "stream_ms": r["stream_ms"],
-                     "graph_case": r["case"]} for r in rows
+                     "graph_case": r["case"]} for r in sorted(
+                         rows, key=lambda r: r["case"] != case)
                     if "graph_ms" in r), {})))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
@@ -3901,8 +4286,7 @@ def main() -> int:
          "sliding_reference": sliding_ref, "layout_tokens": layout_tokens,
          "profile_swap": profile_swap, "audit": audit, "train": train_runs,
          "tp": tp, "split_rows": split_rows, "timing": timing,
-         "dryrun": dry,
-         "serve_eager": {f"{arch}_{layout}": eager}},
+         "dryrun": dry},
         indent=1))
     print(card)
     print(json.dumps({"kernels": summary}))

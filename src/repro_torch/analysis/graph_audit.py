@@ -121,16 +121,33 @@ def allreduces(cfg: ModelConfig, tp, extras: bool = False) -> int:
     return n
 
 
-def gathers(cfg: ModelConfig, tp) -> int:
+def gathers(cfg: ModelConfig, tp, extras: bool = False,
+            seq: bool = False) -> int:
     """All-gathers one forward of `cfg` makes on `tp`'s group: a recurrent
-    layer's post-conv x (for the gate products, `rglru._core`), and under
-    the head_dim fallback two an attention layer (the chunk's new K and V
+    layer's post-conv x (for the gate products, `rglru._core`); under the
+    head_dim fallback two a self-attention layer (the chunk's new K and V
     rows before RoPE, the layer's cache or pool slab before the kernel:
-    `layers.rope_qkv`, `layers.kv_read`)."""
-    if cfg.family != ArchFamily.HYBRID:
-        return 0
-    n_att = sum(1 for k in cfg.layer_kinds() if k == "attention")
-    return cfg.num_layers - n_att + 2 * n_att * int(tp.hd_split)
+    `layers.rope_qkv`, `layers.kv_read`), one a cross layer (its cross
+    slab, `kv_read`), and with `extras` (a first chunk) one a cross
+    layer's new cross K/V (`layers.cross_kv`) and one an encoder layer's
+    new K/V; where the layout gathers q (`tp.q_gather`) one more a self,
+    cross or encoder layer. `seq`: a sequence-sharded decode, one gather
+    of the partial results over the data axis a self-attention layer
+    (`layers.decode_seq`)."""
+    kinds = cfg.layer_kinds()
+    n_att = sum(1 for k in kinds if k == "attention") if cfg.num_heads \
+        else 0
+    n = cfg.num_layers - n_att if cfg.family == ArchFamily.HYBRID else 0
+    n_cross = cfg.num_cross_layers if cfg.family == ArchFamily.VLM else \
+        cfg.num_layers if cfg.family == ArchFamily.ENCDEC else 0
+    n_enc = cfg.encoder_layers if cfg.family == ArchFamily.ENCDEC \
+        and extras else 0
+    if tp.hd_split:
+        q = int(tp.q_gather)
+        n += n_att * (2 + q) + n_cross * (1 + q) + n_enc * (1 + q)
+        if extras:
+            n += n_cross
+    return n + (n_att if seq else 0)
 
 
 def _bind(func, args, kwargs) -> Dict[str, object]:
@@ -410,7 +427,7 @@ class GraphAudit:
                     f"{step}: {n} all-reduces where the model's layout "
                     f"gives {want} — a partial sum dropped or summed twice"))
             g, want = self.step_gathers[step], gathers(model.local_cfg,
-                                                       model.tp)
+                                                       model.tp, extras)
             if g != want:
                 self.findings.append(Finding(
                     RULE, path, 1,

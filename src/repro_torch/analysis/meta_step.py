@@ -2,7 +2,8 @@
 reads in place of the JAX package's compile.
 
 * `RecordingGroup`: a `ServingGroup` of one rank of a mesh that records
-  each all-reduce and all-gather and its bytes (under the JAX dry run's
+  each all-reduce and all-gather (over the model axis, or the data axis of
+  a sequence-sharded decode) and its bytes (under the JAX dry run's
   keys, the output's bytes as its HLO parse counts them) and returns a
   tensor of the right shape; a rank's model takes it as its group.
 * `PeakMemory`: a dispatch mode that tracks the bytes of every storage
@@ -66,6 +67,11 @@ class RecordingGroup(ServingGroup):
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         out = x.new_empty(tuple(x.shape[:-1])
                           + (self.model_size * x.shape[-1],))
+        self._record("all-gather", out)
+        return out
+
+    def gather_data(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.new_empty((self.data_size,) + tuple(x.shape))
         self._record("all-gather", out)
         return out
 

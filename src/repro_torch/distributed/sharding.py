@@ -29,18 +29,28 @@ JAX package's `distributed/sharding.py`, on `torch.distributed`.
   broadcast (`agree`). `launch.mesh.make_serving_group` installs it as
   the ambient serving group, the twin of `set_serving_mesh`.
 
-The port splits no query head: it serves a mesh where the query heads
-divide the model axis and either the kv-heads divide it too (a rank holds
-KV/m of them) or the head_dim fallback applies (`kv_head_axes`: a rank's
+Every layout the JAX package serves is served. Where the kv-heads divide
+the model axis a rank holds KV/m of them and the H/m query heads that read
+them. Elsewhere the head_dim fallback applies (`kv_head_axes`: a rank's
 cache holds hd/m channels of every kv-head, gathered to the whole hd
-before each attention read). Every family is served: the dense, MoE, VLM
-and enc-dec families on their heads (the cross K/V of the VLM and enc-dec
-families hold a rank's kv-heads, as `serve_cache_shardings` shards them;
-under the fallback they raise, a later slice), mamba2's mixer cut by
-segment (`segments`: its z, x and dt columns and its x conv channels per
-rank, B and C whole) with the gated norm's sum of squares all-reduced,
-and RecurrentGemma's RG-LRU channels per rank, its gate products reading
-the whole post-conv x through one gather.
+before each attention read), and the rank's `wq` columns and `wo` rows
+stay the §5 rule's flat cut of H·hd, which may cross a head boundary
+(starcoder2-7b's 36 heads at m = 8). The rank's attention then runs on a
+span of whole query heads (`head_span`): its own heads where they are
+whole and read one kv-head, else the heads its columns touch widened to
+whole kv groups, their q gathered over the group once a layer; the rank
+keeps its flat columns of the output for `wo`. The cross K/V of the VLM
+and enc-dec families take the same rule (`serve_cache_shardings`). mamba2's
+mixer is cut by segment (`segments`: its z, x and dt columns and its x
+conv channels per rank, B and C whole) with the gated norm's sum of
+squares all-reduced, and RecurrentGemma's RG-LRU channels per rank, its
+gate products reading the whole post-conv x through one gather.
+
+A batch-1 decode may also cut its contiguous cache's slots over the data
+axis (`cache_specs(seq_shard=True)`, the JAX dry run's long-context
+layout): each data rank attends over its slots (a partial flash decode),
+the ranks' partial (O, m, l) are gathered over the data axis
+(`ServingGroup.gather_data`) and combined.
 
 The training half (the dry run's, `launch.dryrun`): the FSDP x TP specs of
 the JAX package's `param_shardings`, `batch_shardings`, `cache_shardings`
@@ -67,11 +77,6 @@ from repro_torch.models.ssm import ssm_dims
 from repro_torch.params import named_leaves
 
 Spec = Tuple[Any, ...]
-
-#: families with cross-attention K/V, which the head_dim fallback does not
-#: serve yet
-CROSS_FAMILIES = (ArchFamily.VLM, ArchFamily.ENCDEC)
-
 
 def spec_for(name: str, ndim: int, cfg: ModelConfig,
              fsdp: Sequence[str] = ("data",)) -> Spec:
@@ -171,10 +176,8 @@ def kv_head_axes(m: int, kv: int, hd: int) -> Tuple[Optional[str],
 
 def check_tp(cfg: ModelConfig, m: int) -> None:
     """Raise unless the port serves `cfg` on a model axis of m: mamba2's
-    SSD heads, the RG-LRU channels and the query heads must divide the
-    axis (the port splits no head), and the kv-heads too unless the
-    head_dim fallback takes them (then every rank's query heads must read
-    one kv-head, and no cross K/V may be cut on head_dim)."""
+    SSD heads and the RG-LRU channels must divide the axis, and the
+    kv-heads or, as the fallback, head_dim (DESIGN §5)."""
     def refuse(why: str):
         raise NotImplementedError(f"{cfg.name} on a model axis of {m}: "
                                   f"{why}")
@@ -186,39 +189,58 @@ def check_tp(cfg: ModelConfig, m: int) -> None:
     if cfg.family == ArchFamily.HYBRID \
             and (cfg.rglru.lru_width or cfg.d_model) % m:
         refuse("its RG-LRU channels do not divide the axis")
-    H, KV = cfg.num_heads, cfg.num_kv_heads
-    if not H:
-        return
-    kv_ax, hd_ax = kv_head_axes(m, KV, cfg.resolved_head_dim)
-    if kv_ax is None and hd_ax is None:
+    KV = cfg.num_kv_heads
+    if cfg.num_heads and kv_head_axes(m, KV, cfg.resolved_head_dim) \
+            == (None, None):
         refuse(f"neither its {KV} kv-heads nor head_dim "
                f"{cfg.resolved_head_dim} divide the axis")
-    if H % m:
-        refuse(f"its {H} query heads do not divide the axis (the port "
-               f"splits no query head)")
-    if hd_ax is None:
-        return
-    if m % KV:
-        refuse(f"under the head_dim fallback a rank's {H // m} query heads "
-               f"would read parts of two of the {KV} kv-heads")
-    if cfg.family in CROSS_FAMILIES:
-        refuse("its cross-attention K/V under the head_dim fallback (K/V "
-               "stored sharded on head_dim) is not ported; it is a later "
-               "slice")
 
 
-def local_config(cfg: ModelConfig, m: int) -> ModelConfig:
-    """The config of one rank's heads: H/m query heads at the same
-    head_dim, on KV/m kv-heads (heads are kv-major, so query heads
-    [r·H/m, (r+1)·H/m) read exactly kv-heads [r·KV/m, (r+1)·KV/m)), or
-    under the head_dim fallback on all KV, of which they read one
-    (`TensorParallel.kv_head`). The widths of mamba2's mixer and of the
-    RG-LRU stay whole here: a rank's share of them comes from
-    `TensorParallel.m`."""
+def head_span(cfg: ModelConfig, m: int, rank: int) -> Tuple[int, int]:
+    """The query heads [h0, h1) rank `rank`'s attention runs on under the
+    head_dim fallback. Its `wq` columns are the flat [r·H·hd/m, (r+1)·H·hd/m)
+    of H·hd, which touch heads [⌊r·H/m⌋, ⌈(r+1)·H/m⌉). Where those read
+    one kv-head (heads are kv-major: head h reads kv-head h // G) the span
+    is theirs; else it is widened to whole kv groups, [G·⌊h0/G⌋,
+    G·⌈h1/G⌉), so that the kernels read the span's kv-heads as they lie."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    G = H // KV
+    h0, h1 = rank * H // m, -(-(rank + 1) * H // m)
+    if h0 // G == (h1 - 1) // G:
+        return h0, h1
+    return G * (h0 // G), G * -(-h1 // G)
+
+
+def q_gathered(cfg: ModelConfig, m: int) -> bool:
+    """Whether a layout's ranks gather q over the group: under the head_dim
+    fallback, where some rank's span (`head_span`) is not its own whole
+    heads. Every rank of the group then gathers, so the collectives
+    match."""
+    H = cfg.num_heads
+    if not H or kv_head_axes(m, cfg.num_kv_heads,
+                             cfg.resolved_head_dim)[1] is None:
+        return False
+    return any(head_span(cfg, m, r) != (r * H // m, (r + 1) * H // m)
+               for r in range(m))
+
+
+def local_config(cfg: ModelConfig, m: int, rank: int = 0) -> ModelConfig:
+    """The config of rank `rank`'s attention heads: H/m query heads at the
+    same head_dim on KV/m kv-heads where the kv-heads divide the axis
+    (heads are kv-major, so query heads [r·H/m, (r+1)·H/m) read exactly
+    kv-heads [r·KV/m, (r+1)·KV/m)); under the head_dim fallback the
+    `head_span` of query heads on all KV kv-heads, which the cache holds
+    hd/m of (the span reads `TensorParallel.kv_heads` of them). The
+    widths of mamba2's mixer and of the RG-LRU stay whole here: a rank's
+    share of them comes from `TensorParallel.m`."""
     check_tp(cfg, m)
-    kv = cfg.num_kv_heads
-    return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
-                               num_kv_heads=kv // m if kv % m == 0 else kv,
+    H, kv = cfg.num_heads, cfg.num_kv_heads
+    if not H or kv % m == 0:
+        return dataclasses.replace(cfg, num_heads=H // m,
+                                   num_kv_heads=kv // m,
+                                   head_dim=cfg.resolved_head_dim)
+    h0, h1 = head_span(cfg, m, rank)
+    return dataclasses.replace(cfg, num_heads=h1 - h0, num_kv_heads=kv,
                                head_dim=cfg.resolved_head_dim)
 
 
@@ -417,6 +439,9 @@ class ServingGroup:
     backend: str
     tp: Any
     control: Any
+    #: the ranks of this rank's pod and model index along the "data" axis
+    #: (None: not built, a one-rank data axis)
+    dp: Any = None
 
     @property
     def model_size(self) -> int:
@@ -425,6 +450,15 @@ class ServingGroup:
     @property
     def tp_rank(self) -> int:
         return self.rank % self.model_size
+
+    @property
+    def data_size(self) -> int:
+        """The "data" axis (the second last; 1 on a one-axis mesh)."""
+        return self.mesh_shape[-2] if len(self.mesh_shape) > 1 else 1
+
+    @property
+    def data_rank(self) -> int:
+        return (self.rank // self.model_size) % self.data_size
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Sum x (or its max, `op` "max") over the tensor-parallel group,
@@ -442,6 +476,17 @@ class ServingGroup:
         _all_gather(out, x.contiguous(), group=self.tp)
         return out.view((m,) + tuple(x.shape)).movedim(0, -2).reshape(
             tuple(x.shape[:-1]) + (m * x.shape[-1],))
+
+    def gather_data(self, x: torch.Tensor) -> torch.Tensor:
+        """x of each rank of the data group -> (data, *x.shape) on every
+        one of them, in data-rank order: one all-gather of a fixed shape
+        (a sequence-sharded decode's partial (O, m, l), once a layer)."""
+        n = self.data_size
+        if n == 1:
+            return x[None]
+        out = x.new_empty((n * x.numel(),))
+        _all_gather(out, x.contiguous().view(-1), group=self.dp)
+        return out.view((n,) + tuple(x.shape))
 
     def agree(self, values: Sequence[float]) -> List[float]:
         """Rank 0's `values` on every rank: one broadcast of a small
@@ -546,6 +591,10 @@ class TensorParallel:
     hd_split: bool = False      # K/V cut on head_dim (the fallback)
     whole: Optional[ModelConfig] = None   # the model's config
     cut_leaves: frozenset = frozenset()   # the leaves cut over the group
+    #: under the fallback: the query heads the rank's attention runs on
+    #: (`head_span`), and whether the layout gathers q (`q_gathered`)
+    heads: Tuple[int, int] = (0, 0)
+    q_gather: bool = False
 
     def part(self, n: int) -> slice:
         """This rank's contiguous slice of n: its SSD heads or RG-LRU
@@ -564,10 +613,40 @@ class TensorParallel:
         return hd // self.m if self.hd_split else hd
 
     @property
-    def kv_head(self) -> int:
-        """Under the head_dim fallback, the kv-head this rank's query
-        heads read (heads are kv-major and m is a multiple of KV)."""
-        return self.rank * self.cfg.num_kv_heads // self.m
+    def kv_heads(self) -> Tuple[int, int]:
+        """Under the head_dim fallback, the kv-heads [k0, k1) the rank's
+        query heads (`heads`) read: head h reads kv-head h // G."""
+        G = self.whole.num_heads // self.whole.num_kv_heads
+        return self.heads[0] // G, -(-self.heads[1] // G)
+
+    def q_heads(self, q: torch.Tensor) -> torch.Tensor:
+        """q (..., c) of the rank's `wq` columns -> (..., n, hd) of the
+        heads its attention runs on: under the fallback, where the layout
+        gathers q, the whole H·hd gathered over the group (one all-gather)
+        and the rank's `heads` taken; else its columns are those heads."""
+        hd = self.whole.resolved_head_dim
+        if self.q_gather:
+            h0, h1 = self.heads
+            q = self.gather(q)[..., h0 * hd:h1 * hd]
+        return q.unflatten(-1, (-1, hd))
+
+    def out_cols(self, out: torch.Tensor) -> torch.Tensor:
+        """The attention output (..., n·hd) of the rank's `heads` -> its
+        flat columns of H·hd, the rows of `wo` it holds (the output itself
+        where the layout does not gather q)."""
+        if not self.q_gather:
+            return out
+        w = self.whole
+        n = w.num_heads * w.resolved_head_dim // self.m
+        at = self.rank * n - self.heads[0] * w.resolved_head_dim
+        return out[..., at:at + n]
+
+    def kv_span(self, k: torch.Tensor) -> torch.Tensor:
+        """(..., KV, hd) K or V with every kv-head -> (..., k1 - k0, hd),
+        the kv-heads the rank's query heads read (`kv_heads`), contiguous
+        for the kernels."""
+        k0, k1 = self.kv_heads
+        return k[..., k0:k1, :].contiguous()
 
     @property
     def m(self) -> int:
@@ -649,7 +728,7 @@ def tensor_parallel(cfg: ModelConfig, group: ServingGroup) -> TensorParallel:
     """`cfg`'s layout on `group`'s model axis (raises where the port
     serves no mesh: `check_tp`)."""
     m = group.model_size
-    lcfg = local_config(cfg, m)
+    lcfg = local_config(cfg, m, group.tp_rank)
     L_, d = cfg.num_layers, cfg.d_model
     mlp = serve_spec("layers/mlp/w_down", (L_, cfg.d_ff, d), cfg, m)
     vocab = serve_spec("embed", (cfg.vocab_size, d), cfg, m)
@@ -663,14 +742,16 @@ def tensor_parallel(cfg: ModelConfig, group: ServingGroup) -> TensorParallel:
     cut = frozenset(name for name, t in named_leaves(init_params(
         cfg, device="meta")) if "model" in serve_spec(name, tuple(t.shape),
                                                      cfg, m))
+    hd_split = bool(cfg.num_heads) and kv_head_axes(
+        m, cfg.num_kv_heads, cfg.resolved_head_dim)[1] == "model"
     return TensorParallel(group, lcfg, mlp_split=mlp[1] == "model",
                           vocab_split=vocab[0] == "model",
                           expert_split="model" in experts[1:2],
                           shared_split="model" in shared[1:2],
-                          hd_split=kv_head_axes(
-                              m, cfg.num_kv_heads,
-                              cfg.resolved_head_dim)[1] == "model",
-                          whole=cfg, cut_leaves=cut)
+                          hd_split=hd_split, whole=cfg, cut_leaves=cut,
+                          heads=head_span(cfg, m, group.tp_rank)
+                          if hd_split else (0, 0),
+                          q_gather=q_gathered(cfg, m))
 
 
 # The process's ambient serving group (DESIGN §12), installed by

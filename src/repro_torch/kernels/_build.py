@@ -34,6 +34,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # dtype, q, k_pool, v_pool, q_pos, kpos_pool, tables, out, part_o,
         # part_ml, B, H, KV, hd, block_size, MB, window, n_splits, stream
         "paged_decode_attention": [_I] + [_P] * 9 + [_I] * 8 + [_P],
+        # dtype, q, k, v, q_pos, k_pos, o, ml, part_o, part_ml,
+        # B, H, KV, hd, S, window, n_splits, stream
+        "decode_attention_partial": [_I] + [_P] * 9 + [_I] * 7 + [_P],
+        # dtype, o, ml, out, R, rows, hd, stream
+        "attention_combine": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     },
     "flash_attention": {
         # dtype, q, k, v, q_pos, k_pos, out, part_o, part_ml,

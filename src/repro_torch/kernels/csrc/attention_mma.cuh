@@ -46,6 +46,12 @@
 // exp2(m_i - max_i m_i) and divides by the weighted sum of l. A row that no
 // split saw a key of (m = -1e30 and l = 0 everywhere) comes out exactly 0.
 //
+// Partial (decode_attention_partial, one data rank's slots of a sequence-
+// sharded decode). The splits always write their fp32 partials, even one
+// split, and the same combine kernel, told not to normalize, folds them
+// into one unnormalized (O, m, l) a row, m in natural-log units (the
+// scores' max), for the ranks' combine (which runs it once more).
+//
 // Paged (PAGED = true). k/v are the pools (NB, bs, KV, HD), k_pos the
 // pool-wide (NB, bs) position map, and tables (B, MB) the block tables;
 // Tk = MB * bs logical slots, and logical slot s of row b is physical slot
@@ -184,12 +190,15 @@ mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
                      const int* __restrict__ tables, int bs,
                      __nv_bfloat16* __restrict__ out,
                      float* __restrict__ part_o, float2* __restrict__ part_ml,
-                     int Tq, int Tk, int H, int KV, int window, int causal) {
+                     int Tq, int Tk, int H, int KV, int window, int causal,
+                     int partial) {
   using T = MmaTile<HD, WK>;
   constexpr int BN = T::BN, KW = T::KW, BM = T::BM, CH = T::CH;
   constexpr int KPT = kMmaKposChunk / kMmaThreads;  // k_pos loads a thread
   constexpr int CT = kMmaKposChunk / BN;            // tiles a chunk
   const int split = blockIdx.x, n_splits = gridDim.x;
+  // write the unnormalized fp32 partials (else the normalized bf16 output)
+  const bool parts = n_splits > 1 || partial;
   const int b = blockIdx.z / KV, kvh = blockIdx.z % KV;
   const int G = H / KV, M = Tq * G;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -485,7 +494,7 @@ mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
       const int r = h ? rb : ra;
       if (r >= M) continue;
       const size_t orow = out_row(r);
-      if (n_splits == 1) {
+      if (!parts) {
         const float inv = 1.f / fmaxf(l[h], 1e-30f);
         __nv_bfloat16* dst = out + orow * HD + 2 * tq;
 #pragma unroll
@@ -535,7 +544,7 @@ mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
       wts[w * 16 + tid] = wt;
       lr += wt * mls[w * 16 + tid].y;
     }
-    rml[tid] = make_float2(mr, n_splits == 1 ? 1.f / fmaxf(lr, 1e-30f) : lr);
+    rml[tid] = make_float2(mr, parts ? lr : 1.f / fmaxf(lr, 1e-30f));
   }
   __syncthreads();
   for (int e = tid; e < 16 * HD; e += kMmaThreads) {
@@ -546,7 +555,7 @@ mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int w = 0; w < WK; ++w)
       acc += wts[w * 16 + r] * mo[((size_t)w * 16 + r) * HD + c];
     const size_t orow = out_row(row0 + r);
-    if (n_splits == 1) {
+    if (!parts) {
       out[orow * HD + c] = __float2bfloat16(acc * rml[r].y);
     } else {
       part_o[((size_t)split * rows + orow) * HD + c] = acc;
@@ -555,13 +564,32 @@ mma_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// out[row, :] = sum_i w_i part_o[i, row, :] / max(sum_i w_i l_i, 1e-30),
-// w_i = exp2(m_i - max_i m_i); one thread per 4 outputs.
+__device__ __forceinline__ void store4(float* p, float4 a) {
+  *reinterpret_cast<float4*>(p) = a;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 a) {
+  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(p);
+  d[0] = __floats2bfloat162_rn(a.x, a.y);
+  d[1] = __floats2bfloat162_rn(a.z, a.w);
+}
+
+// The one merge of (O, m, l) partials, n of them a row at part_o
+// (n, rows, hd) and part_ml (n, rows): part i weighs
+// w_i = exp2((m_i - max_i m_i) * m_log2), m_log2 = 1 where m is in log2
+// units (the splits' own) and log2(e) where it is in natural-log units (a
+// rank's partial). NORM: out (rows, hd) in T = sum_i w_i O_i /
+// max(sum_i w_i l_i, 1e-30), so a part with no visible key adds nothing
+// and a row with none anywhere is exactly 0 (the split combine and
+// `attention_combine`). Else out (float) takes the unnormalized
+// sum_i w_i O_i and out_ml (m, l) = (max_i m_i in natural-log units,
+// -1e30 where no part saw a key; sum_i w_i l_i) (the bf16 partial's merge
+// of its splits). One thread per 4 outputs (hd % 4 == 0).
+template <typename T, bool NORM>
 __global__ void __launch_bounds__(128)
 mma_combine_kernel(const float* __restrict__ part_o,
-                   const float2* __restrict__ part_ml,
-                   __nv_bfloat16* __restrict__ out, int rows, int hd,
-                   int n_splits) {
+                   const float2* __restrict__ part_ml, T* __restrict__ out,
+                   float2* __restrict__ out_ml, int rows, int hd, int n,
+                   float m_log2) {
   const int per_row = hd / 4;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)rows * per_row) return;
@@ -569,26 +597,43 @@ mma_combine_kernel(const float* __restrict__ part_o,
   const int c = (int)(i - (long long)row * per_row) * 4;
   float mx = kNegInf;
 #pragma unroll 8
-  for (int s = 0; s < n_splits; ++s)
+  for (int s = 0; s < n; ++s)
     mx = fmaxf(mx, part_ml[(size_t)s * rows + row].x);
-  float L = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  float L = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 8
-  for (int s = 0; s < n_splits; ++s) {
+  for (int s = 0; s < n; ++s) {
     const float2 ml = part_ml[(size_t)s * rows + row];
-    const float w = exp2f(ml.x - mx);
+    const float w = exp2f((ml.x - mx) * m_log2);
     const float4 p = *reinterpret_cast<const float4*>(
         part_o + ((size_t)s * rows + row) * hd + c);
     L += w * ml.y;
-    a0 += w * p.x;
-    a1 += w * p.y;
-    a2 += w * p.z;
-    a3 += w * p.w;
+    a.x += w * p.x;
+    a.y += w * p.y;
+    a.z += w * p.z;
+    a.w += w * p.w;
   }
-  const float inv = 1.f / fmaxf(L, 1e-30f);
-  __nv_bfloat162* dst =
-      reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * hd + c);
-  dst[0] = __floats2bfloat162_rn(a0 * inv, a1 * inv);
-  dst[1] = __floats2bfloat162_rn(a2 * inv, a3 * inv);
+  if (NORM) {
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    a = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+  } else if (c == 0) {
+    out_ml[row] =
+        make_float2(mx == kNegInf ? kNegInf : mx * (m_log2 / kLog2e), L);
+  }
+  store4(out + (size_t)row * hd + c, a);
+}
+
+// Launches mma_combine_kernel over rows x hd.
+template <typename T, bool NORM>
+int mma_combine(const void* part_o, const void* part_ml, void* out,
+                void* out_ml, int rows, int hd, int n, float m_log2,
+                cudaStream_t stream) {
+  const long long threads = (long long)rows * (hd / 4);
+  mma_combine_kernel<T, NORM><<<(unsigned)((threads + 127) / 128), 128, 0,
+                                stream>>>(
+      (const float*)part_o, (const float2*)part_ml, (T*)out, (float2*)out_ml,
+      rows, hd, n, m_log2);
+  return (int)cudaGetLastError();
 }
 
 template <int HD, int WK, bool PAGED>
@@ -596,7 +641,7 @@ int mma_launch(const void* q, const void* k, const void* v, const void* q_pos,
                const void* k_pos, const void* tables, int bs, void* out,
                void* part_o, void* part_ml, int B, int Tq, int Tk, int H,
                int KV, int window, int causal, int n_splits,
-               cudaStream_t stream) {
+               cudaStream_t stream, void* out_ml) {
   using T = MmaTile<HD, WK>;
   constexpr size_t smem = PAGED ? T::SMEM_PAGED : T::SMEM;
   static bool smem_set = false;
@@ -613,28 +658,34 @@ int mma_launch(const void* q, const void* k, const void* v, const void* q_pos,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const int*)q_pos, (const int*)k_pos,
       (const int*)tables, bs, (__nv_bfloat16*)out, (float*)part_o,
-      (float2*)part_ml, Tq, Tk, H, KV, window, causal);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_splits == 1) return (int)err;
+      (float2*)part_ml, Tq, Tk, H, KV, window, causal, out_ml != nullptr);
+  const cudaError_t err = cudaGetLastError();
   const int rows = B * Tq * H;
-  const long long n = (long long)rows * (HD / 4);
-  mma_combine_kernel<<<(unsigned)((n + 127) / 128), 128, 0, stream>>>(
-      (const float*)part_o, (const float2*)part_ml, (__nv_bfloat16*)out, rows,
-      HD, n_splits);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (out_ml != nullptr)
+    return mma_combine<float, false>(part_o, part_ml, out, out_ml, rows, HD,
+                                     n_splits, 1.f, stream);
+  if (n_splits == 1) return (int)err;
+  return mma_combine<__nv_bfloat16, true>(part_o, part_ml, out, nullptr, rows,
+                                          HD, n_splits, 1.f, stream);
 }
 
 // The bf16 path of every attention entry: head_dim in {16, ..., 256}.
 // With `tables` (B, Tk / bs) the keys are read through the block table
 // (k/v/k_pos are the pools); with nullptr, k/v/k_pos are contiguous rows
-// and bs is unused. Returns cudaGetLastError() after the last launch.
+// and bs is unused. With `out_ml` (B*Tq*H float2) the call is partial: the
+// splits' partials are merged into the fp32 O at `out` (B*Tq*H, hd) and
+// (m, l) at `out_ml`, not normalized (part_o / part_ml are then needed at
+// any n_splits). Returns cudaGetLastError() after the last launch.
 inline int mma_attention(int hd, const void* q, const void* k, const void* v,
                          const void* q_pos, const void* k_pos,
                          const void* tables, int bs, void* out, void* part_o,
                          void* part_ml, int B, int Tq, int Tk, int H, int KV,
-                         int window, int causal, int n_splits, void* stream) {
+                         int window, int causal, int n_splits, void* stream,
+                         void* out_ml = nullptr) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || KV <= 0 || H % KV || n_splits < 1 ||
-      (n_splits > 1 && (part_o == nullptr || part_ml == nullptr)) ||
+      ((n_splits > 1 || out_ml != nullptr) &&
+       (part_o == nullptr || part_ml == nullptr)) ||
       (tables != nullptr && (bs <= 0 || Tk % bs)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -644,10 +695,12 @@ inline int mma_attention(int hd, const void* q, const void* k, const void* v,
 #define REPRO_MMA_LAUNCH(HD_, WK_)                                           \
   (paged ? mma_launch<HD_, WK_, true>(q, k, v, q_pos, k_pos, tables, bs,     \
                                       out, part_o, part_ml, B, Tq, Tk, H,    \
-                                      KV, window, causal, n_splits, s)       \
+                                      KV, window, causal, n_splits, s,       \
+                                      out_ml)                                \
          : mma_launch<HD_, WK_, false>(q, k, v, q_pos, k_pos, tables, bs,    \
                                        out, part_o, part_ml, B, Tq, Tk, H,   \
-                                       KV, window, causal, n_splits, s))
+                                       KV, window, causal, n_splits, s,      \
+                                       out_ml))
 #define REPRO_MMA_CASE(HD_) \
   case HD_:                 \
     return one_warp ? REPRO_MMA_LAUNCH(HD_, 4) : REPRO_MMA_LAUNCH(HD_, 1);

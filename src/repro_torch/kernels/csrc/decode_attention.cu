@@ -37,6 +37,23 @@
 // 0, and the denominator is clamped at 1e-30, so a row with no visible key
 // (a padding row of a decode bucket) returns 0. On every row with a
 // visible key this is the JAX package's semantics in exact arithmetic.
+//
+// The sequence-sharded decode (the cache's slots cut over a data axis, one
+// rank's contiguous share each) takes two more entries:
+// * `decode_attention_partial`: the contiguous decode over the rank's
+//   slots, stopped before its normalization. It writes one unnormalized
+//   fp32 O (B*H, hd) and (m, l) (B*H, 2) a row: m the largest visible
+//   score in natural-log units (-1e30 where none), l the sum of
+//   exp(s - m). bf16 runs the tensor-core kernel with its key-axis split,
+//   every split writing its partials and the combine kernel of
+//   attention_mma.cuh folding them unnormalized; fp32 runs `decode_kernel`
+//   with PARTIAL set.
+// * `attention_combine`: the ranks' R partials (R, B*H, hd) and
+//   (R, B*H, 2), gathered, merged into the output in bf16 or fp32 by the
+//   same combine kernel as the key-axis split's: part i weighs
+//   exp(m_i - max m), the weighted O over the weighted l clamped at
+//   1e-30, so a rank with no visible key adds nothing and a row with none
+//   anywhere is 0. One thread per 4 outputs; bound by the partials' bytes.
 #include "attention_mma.cuh"
 
 namespace {
@@ -60,13 +77,14 @@ size_t smem_bytes(int G, int hd) {
 // Contiguous: k/v are (B, S, KV, HD), k_pos is (B, S), `span` = S.
 // Paged: k/v are (NB, bs, KV, HD), k_pos is (NB, bs), tables is
 // (B, n_tiles), `span` = bs. q and out are (B, H, HD); q_pos is (B,).
-template <bool PAGED, int HD>
+// PARTIAL: out takes the unnormalized O and ml (B, H) the (m, l) pairs.
+template <bool PAGED, int HD, bool PARTIAL>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ q_pos,
               const int* __restrict__ k_pos, const int* __restrict__ tables,
-              float* __restrict__ out, int H, int KV, int span, int n_tiles,
-              int window) {
+              float* __restrict__ out, float2* __restrict__ ml, int H, int KV,
+              int span, int n_tiles, int window) {
   constexpr int ld = HD + 1;  // padded key rows: conflict-free column reads
   const int b = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -85,6 +103,9 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* o = out + ((size_t)b * H + (size_t)kvh * G) * HD;
   if (qp < 0) {  // padding row: no key can be visible
     for (int i = tid; i < GD; i += kThreads) o[i] = 0.f;
+    if (PARTIAL)
+      for (int g = tid; g < G; g += kThreads)
+        ml[(size_t)b * H + (size_t)kvh * G + g] = make_float2(kNegInf, 0.f);
     return;
   }
   const float* qb = q + ((size_t)b * H + (size_t)kvh * G) * HD;
@@ -171,39 +192,43 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kMaxAcc; ++r) {
     const int i = tid + r * kThreads;
-    if (i < GD) o[i] = acc[r] / fmaxf(Ls[i / HD], 1e-30f);
+    if (i < GD) o[i] = PARTIAL ? acc[r] : acc[r] / fmaxf(Ls[i / HD], 1e-30f);
   }
+  if (PARTIAL)
+    for (int g = tid; g < G; g += kThreads)
+      ml[(size_t)b * H + (size_t)kvh * G + g] = make_float2(Ms[g], Ls[g]);
 }
 
-template <bool PAGED, int HD>
+template <bool PAGED, int HD, bool PARTIAL>
 int launch(const void* q, const void* k, const void* v, const void* q_pos,
-           const void* k_pos, const void* tables, void* out, int B, int H,
-           int KV, int span, int n_tiles, int window, void* stream) {
-  auto kern = decode_kernel<PAGED, HD>;
+           const void* k_pos, const void* tables, void* out, void* ml, int B,
+           int H, int KV, int span, int n_tiles, int window, void* stream) {
+  auto kern = decode_kernel<PAGED, HD, PARTIAL>;
   const size_t smem = smem_bytes(H / KV, HD);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(B, KV), kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const int*)q_pos,
-      (const int*)k_pos, (const int*)tables, (float*)out, H, KV, span,
-      n_tiles, window);
+      (const int*)k_pos, (const int*)tables, (float*)out, (float2*)ml, H, KV,
+      span, n_tiles, window);
   return (int)cudaGetLastError();
 }
 
-template <bool PAGED>
+template <bool PAGED, bool PARTIAL = false>
 int dispatch(int hd, const void* q, const void* k, const void* v,
              const void* q_pos, const void* k_pos, const void* tables,
              void* out, int B, int H, int KV, int span, int n_tiles,
-             int window, void* stream) {
+             int window, void* stream, void* ml = nullptr) {
   if (KV <= 0 || H % KV || (H / KV) * hd > max_acc(hd) * kThreads ||
       span <= 0 || (PAGED && span > kTile))
     return (int)cudaErrorInvalidValue;
   switch (hd) {
 #define REPRO_DECODE_CASE(HD_)                                              \
   case HD_:                                                                 \
-    return launch<PAGED, HD_>(q, k, v, q_pos, k_pos, tables, out, B, H, KV, \
-                              span, n_tiles, window, stream);
+    return launch<PAGED, HD_, PARTIAL>(q, k, v, q_pos, k_pos, tables, out, \
+                                       ml, B, H, KV, span, n_tiles, window, \
+                                       stream);
     REPRO_DECODE_CASE(16)
     REPRO_DECODE_CASE(32)
     REPRO_DECODE_CASE(64)
@@ -259,5 +284,46 @@ extern "C" int paged_decode_attention(int dtype, const void* q,
     return dispatch<true>(hd, q, k_pool, v_pool, q_pos, kpos_pool,
                                  tables, out, B, H, KV, block_size, MB, window,
                                  stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One data rank's share of a sequence-sharded decode: q (B, H, hd), k/v
+// (B, S, KV, hd) its slots, k_pos (B, S) -> o (B*H, hd) fp32 unnormalized
+// and ml (B*H, 2) fp32 (m, l). bf16: the tensor-core kernel over n_splits
+// key ranges into part_o (n_splits, B*H, hd) / part_ml (n_splits, B*H, 2),
+// then its unnormalized combine (both scratch needed at any n_splits); fp32:
+// `decode_kernel` with PARTIAL, no scratch.
+extern "C" int decode_attention_partial(int dtype, const void* q,
+                                        const void* k, const void* v,
+                                        const void* q_pos, const void* k_pos,
+                                        void* o, void* ml, void* part_o,
+                                        void* part_ml, int B, int H, int KV,
+                                        int hd, int S, int window,
+                                        int n_splits, void* stream) {
+  if (o == nullptr || ml == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return repro::mma_attention(hd, q, k, v, q_pos, k_pos, nullptr, 0, o,
+                                part_o, part_ml, B, 1, S, H, KV, window, 1,
+                                n_splits, stream, ml);
+  if (dtype == 0)
+    return dispatch<false, true>(hd, q, k, v, q_pos, k_pos, nullptr, o, B, H,
+                                 KV, S, (S + kTile - 1) / kTile, window,
+                                 stream, ml);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The R data ranks' partials merged: o (R, rows, hd) and ml (R, rows, 2)
+// fp32 -> out (rows, hd) in dtype (0 = float32, 1 = bfloat16).
+extern "C" int attention_combine(int dtype, const void* o, const void* ml,
+                                 void* out, int R, int rows, int hd,
+                                 void* stream) {
+  if (R < 1 || rows < 1 || hd < 4 || hd % 4) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    return repro::mma_combine<__nv_bfloat16, true>(o, ml, out, nullptr, rows,
+                                                   hd, R, repro::kLog2e, s);
+  if (dtype == 0)
+    return repro::mma_combine<float, true>(o, ml, out, nullptr, rows, hd, R,
+                                           repro::kLog2e, s);
   return (int)cudaErrorInvalidValue;
 }

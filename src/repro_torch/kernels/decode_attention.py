@@ -19,6 +19,14 @@ block table (`split.paged_slots` is its walk, written out): each key row
 of a tile is read from its own physical slot, so any block size works.
 fp32 runs the CUDA-core fp32 kernel, one block per (B, KV), whose paged
 walk takes one block of at most TILE slots a tile.
+
+A sequence-sharded decode (the cache's slots cut over a data axis) takes
+two more launchers: `decode_attention_partial_cuda`, the contiguous decode
+over one rank's slots stopped before its normalization (fp32 O and (m, l)
+a row; in bf16 every key-axis split writes its partials and the combine
+pass folds them without normalizing), and `attention_combine_cuda`, which
+merges the ranks' gathered partials through the same combine pass. `ref.decode_attention_partial_ref` and
+`ref.attention_combine_ref` are their plain versions.
 """
 from __future__ import annotations
 
@@ -61,6 +69,47 @@ def decode_attention_cuda(q, k, v, q_pos, k_pos, *, window: int = 0):
     _build.check(lib.decode_attention(
         _build.DTYPE_CODE[q.dtype], *ptrs, *split.pointers(scratch), B, H,
         KV, hd, S, window, n_splits, _build.stream()), "decode_attention")
+    return out
+
+
+def decode_attention_partial_cuda(q, k, v, q_pos, k_pos, *, window: int = 0):
+    """q: (B, H, hd); k/v: (B, S, KV, hd) a rank's slots; q_pos: (B,);
+    k_pos: (B, S) -> fp32 (o (B, H, hd), ml (B, H, 2))."""
+    _, S, KV, hd = k.shape
+    B, H = _check_q(q, KV, hd)
+    _build.require(k.shape == v.shape and k.shape[0] == B
+                   and tuple(k_pos.shape) == (B, S) and q_pos.shape == (B,),
+                   "decode_attention_partial: inconsistent shapes")
+    q_pos = q_pos.to(torch.int32).contiguous()
+    k_pos = k_pos.to(torch.int32).contiguous()
+    o = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    ml = torch.empty((B, H, 2), dtype=torch.float32, device=q.device)
+    ptrs = _build.cuda_args(q, k, v, dtype=q.dtype) \
+        + _build.cuda_args(q_pos, k_pos, o, ml)
+    n_splits, scratch = split.plan(q, B, KV, H // KV, S, hd, B * H,
+                                   partial=True)
+    lib = _build.library("decode_attention")
+    _build.check(lib.decode_attention_partial(
+        _build.DTYPE_CODE[q.dtype], *ptrs, *split.pointers(scratch), B, H,
+        KV, hd, S, window, n_splits, _build.stream()),
+        "decode_attention_partial")
+    return o, ml
+
+
+def attention_combine_cuda(o, ml, *, dtype=torch.float32):
+    """o: (R, B, H, hd), ml: (R, B, H, 2), fp32 -> (B, H, hd) in
+    `dtype`."""
+    R, B, H, hd = o.shape
+    _build.require(o.dtype == ml.dtype == torch.float32
+                   and tuple(ml.shape) == (R, B, H, 2)
+                   and dtype in _build.DTYPE_CODE and hd % 4 == 0,
+                   "attention_combine: inconsistent shapes or dtypes")
+    o, ml = o.contiguous(), ml.contiguous()
+    out = torch.empty((B, H, hd), dtype=dtype, device=o.device)
+    lib = _build.library("decode_attention")
+    _build.check(lib.attention_combine(
+        _build.DTYPE_CODE[dtype], *_build.cuda_args(o, ml, out), R, B * H,
+        hd, _build.stream()), "attention_combine")
     return out
 
 

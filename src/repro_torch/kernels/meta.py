@@ -38,14 +38,15 @@ def _count(name: str, n: int) -> None:
     FLOPS[name] = FLOPS.get(name, 0) + int(n)
 
 
-def _split_partials(q, B, KV, rows, Tk, hd, out_rows):
+def _split_partials(q, B, KV, rows, Tk, hd, out_rows, partial=False):
     """The fp32 (m, l, O) partials `split.plan` allocates for a bf16 call
-    whose grid would be under half a wave (none otherwise)."""
+    whose grid would be under half a wave, or any bf16 `partial` call
+    (none otherwise)."""
     if q.dtype != torch.bfloat16:
         return []
     ns = split.num_splits(B, KV, split.row_tiles(rows),
                           -(-Tk // split.key_tile(hd, rows)), SMS)
-    if ns == 1:
+    if ns == 1 and not partial:
         return []
     return [q.new_empty((ns, out_rows, hd), dtype=torch.float32),
             q.new_empty((ns, out_rows, 2), dtype=torch.float32)]
@@ -99,6 +100,27 @@ def paged_flash_attention(q, k_pool, v_pool, q_pos, kpos_pool, tables, *,
     return _attention("paged_flash_attention", q,
                       tables.shape[1] * k_pool.shape[1], k_pool.shape[2],
                       window, causal, q.shape[1])
+
+
+def decode_attention_partial(q, k, v, q_pos, k_pos, *, window: int = 0):
+    """The fp32 (o, ml) of the rank's slots, and the splits' partials its
+    bf16 launch makes (`decode_attention_partial_cuda`)."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    partials = _split_partials(q, B, KV, H // KV, S, hd, B * H, partial=True)
+    _count("decode_attention_partial",
+           4 * B * H * hd * visible_pairs(1, S, window, False))
+    del partials
+    return (q.new_empty((B, H, hd), dtype=torch.float32),
+            q.new_empty((B, H, 2), dtype=torch.float32))
+
+
+def attention_combine(o, ml, *, dtype=torch.float32):
+    """(B, H, hd) in `dtype`; 2 FLOPs a part's weighted element and
+    l."""
+    R, B, H, hd = o.shape
+    _count("attention_combine", 2 * R * B * H * (hd + 1))
+    return o.new_empty((B, H, hd), dtype=dtype)
 
 
 def rmsnorm(x, w, *, eps: float = 1e-6):

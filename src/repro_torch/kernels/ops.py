@@ -19,8 +19,9 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import meta, ref
-from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                  paged_decode_attention_cuda)
+from repro_torch.kernels.decode_attention import (
+    attention_combine_cuda, decode_attention_cuda,
+    decode_attention_partial_cuda, paged_decode_attention_cuda)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  paged_flash_attention_cuda)
 from repro_torch.kernels.rglru_scan import (rglru_gated_scan_cuda,
@@ -31,6 +32,8 @@ from repro_torch.kernels.ssd_scan import ssd_intra_cuda
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0,
+                            "decode_attention_partial": 0,
+                            "attention_combine": 0,
                             "flash_attention": 0,
                             "paged_flash_attention": 0, "rmsnorm": 0,
                             "add_rmsnorm": 0, "rmsnorm_split": 0,
@@ -61,6 +64,36 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
     _no_backward("decode_attention", q, k, v)
     out = decode_attention_cuda(q, k, v, q_pos, k_pos, window=window)
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def decode_attention_partial(q, k, v, q_pos, k_pos, *, window: int = 0):
+    """One data rank's share of a sequence-sharded flash decode: q (B, H,
+    hd), k/v (B, S, KV, hd) its slots, k_pos (B, S) -> fp32 (o (B, H, hd)
+    unnormalised, ml (B, H, 2) the max score and the sum of exps), merged
+    across the ranks by `attention_combine`."""
+    if q.is_meta:
+        return meta.decode_attention_partial(q, k, v, q_pos, k_pos,
+                                             window=window)
+    if not q.is_cuda:
+        return ref.decode_attention_partial_ref(q, k, v, q_pos, k_pos,
+                                                window=window)
+    _no_backward("decode_attention_partial", q, k, v)
+    out = decode_attention_partial_cuda(q, k, v, q_pos, k_pos, window=window)
+    LAUNCHES["decode_attention_partial"] += 1
+    return out
+
+
+def attention_combine(o, ml, *, dtype=torch.float32):
+    """R partial results (o (R, B, H, hd), ml (R, B, H, 2) fp32) merged
+    into the attention output (B, H, hd) in `dtype`."""
+    if o.is_meta:
+        return meta.attention_combine(o, ml, dtype=dtype)
+    if not o.is_cuda:
+        return ref.attention_combine_ref(o, ml, dtype=dtype)
+    _no_backward("attention_combine", o, ml)
+    out = attention_combine_cuda(o, ml, dtype=dtype)
+    LAUNCHES["attention_combine"] += 1
     return out
 
 

@@ -48,6 +48,43 @@ def decode_attention_ref(q, k, v, q_pos, k_pos, *, window: int = 0):
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def decode_attention_partial_ref(q, k, v, q_pos, k_pos, *, window: int = 0):
+    """`decode_attention_ref` over these slots only, stopped before its
+    normalisation: one data rank's share of a sequence-sharded decode.
+    q: (B, H, hd); k/v: (B, S, KV, hd); q_pos: (B,); k_pos: (B, S).
+    Returns fp32 (o (B, H, hd), the sum of p·v, and ml (B, H, 2)): m the
+    largest score s = q·k / sqrt(hd) of a visible slot (-1e30 where none
+    is), l the sum of exp(s - m) over the visible slots (0 where none
+    is), p = exp(s - m) on a visible slot and exactly 0 elsewhere."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qh = q.reshape(B, KV, G, hd).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qh, k.float()) / math.sqrt(hd)
+    mask = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    if window:
+        mask = mask & (k_pos > q_pos[:, None] - window)
+    mask = mask[:, None, None, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(scores - m), 0.0)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    ml = torch.cat([m, p.sum(dim=-1, keepdim=True)], -1)
+    return o.reshape(B, H, hd), ml.reshape(B, H, 2)
+
+
+def attention_combine_ref(o, ml, *, dtype=torch.float32):
+    """The R partial results of `decode_attention_partial_ref` merged:
+    o (R, B, H, hd) and ml (R, B, H, 2) fp32 -> (B, H, hd) in `dtype`.
+    Part i weighs exp(m_i - max_j m_j); the sum of the weighted o is
+    divided by the weighted sum of l, clamped at 1e-30, so a part with
+    no visible slot adds nothing and a row with none anywhere is 0."""
+    m, l = ml[..., 0].float(), ml[..., 1].float()
+    w = torch.exp(m - m.amax(dim=0, keepdim=True))
+    den = (w * l).sum(0).clamp_min(1e-30)
+    return ((w[..., None] * o.float()).sum(0) / den[..., None]).to(dtype)
+
+
 def paged_view(pool_k, pool_v, pool_pos, tables):
     """Gather a per-request contiguous (B, MB*bs) view of the paged pools
     (DESIGN §9). Logical block j of request b sits at view indices

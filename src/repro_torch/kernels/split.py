@@ -67,17 +67,20 @@ def sm_count(device_index: int) -> int:
 
 
 def plan(q: torch.Tensor, B: int, KV: int, rows: int, Tk: int, hd: int,
-         out_rows: int) -> Tuple[int, List[Optional[torch.Tensor]]]:
+         out_rows: int, partial: bool = False
+         ) -> Tuple[int, List[Optional[torch.Tensor]]]:
     """(n_splits, [part_o, part_ml]) for one call: `rows` = Tq * G packed
     rows per (batch row, kv head), `out_rows` = B * Tq * H. The fp32
     scratch of the combine pass exists only for a bf16 call with
-    n_splits > 1 (else [None, None]: fp32 takes the CUDA-core kernel,
-    which does not split); the caller keeps it alive across the launch."""
+    n_splits > 1, or any bf16 `partial` call (its splits always write
+    partials for the unnormalized combine); else [None, None] (fp32 takes the
+    CUDA-core kernel, which does not split). The caller keeps it alive
+    across the launch."""
     if q.dtype != torch.bfloat16:
         return 1, [None, None]
     ns = num_splits(B, KV, row_tiles(rows), -(-Tk // key_tile(hd, rows)),
                     sm_count(q.device.index))
-    if ns == 1:
+    if ns == 1 and not partial:
         return 1, [None, None]
     return ns, [torch.empty((ns, out_rows, hd), dtype=torch.float32,
                             device=q.device),

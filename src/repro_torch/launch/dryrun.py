@@ -14,8 +14,11 @@ rows already written) holds:
 
 * status: ok, skipped (long_500k of an arch with quadratic attention, the
   JAX reason), refused (a layout the port does not run: `check_tp`'s
-  words, or long_500k on a data axis, whose sequence-sharded decode is
-  not ported) or error;
+  words) or error. A batch-1 decode on a data axis (long_500k) runs the
+  sequence-sharded decode (`Model.decode_step(seq_shard=True)` over the
+  rank's S/data slots, its partial results gathered over the data axis),
+  as the JAX dry run shards the cache (`cache_specs(seq_shard=True)`);
+  mamba2, which has no K/V, steps its whole state on every data rank;
 * argument_size_in_bytes: a rank's arguments by the JAX dry run's layout
   (`param_specs` FSDP x TP for every shape, the AdamW moments and step
   of a train step, `batch_specs`, explicit `cache_specs`,
@@ -81,9 +84,6 @@ LONG_OK = {
     "mistral-nemo-12b": "sliding-window variant (window 4096)",
 }
 SKIPPED = "long_500k requires sub-quadratic attention (DESIGN §4)"
-SEQ_SHARD = ("batch-1 decode on a data axis of {}: the JAX dry run shards "
-             "the cache's sequence over data (cache_specs seq_shard); the "
-             "port's sequence-sharded decode is not ported, a later slice")
 
 #: the device memory a rank's peak is held against
 CAPACITY_BYTES = 80 * 10 ** 9
@@ -191,14 +191,23 @@ def fsdp_collectives(cfg: ModelConfig, sizes: Mapping[str, int],
     return out
 
 
+def seq_sharded(cfg: ModelConfig, shape: InputShape,
+                sizes: Mapping[str, int]) -> bool:
+    """Whether the row's decode cuts its cache's slots over "data": a
+    batch-1 decode of an arch with attention layers on a data axis."""
+    return shape.kind == "decode" and shape.global_batch == 1 \
+        and sizes.get("data", 1) > 1 and bool(B.layer_counts(cfg)[0])
+
+
 def _meta_step(cfg, shape: InputShape, sizes, dt):
     """(the step on meta tensors, its model's group, the rank's params)
     at the local batch; raises NotImplementedError where the port does
     not run the layout (`check_tp`)."""
     m = sizes["model"]
     data = math.prod(sizes[a] for a in data_axes(sizes))
-    group = meta_step.RecordingGroup(tuple(sizes.values())) if m > 1 \
-        else None
+    seq = seq_sharded(cfg, shape, sizes)
+    group = meta_step.RecordingGroup(tuple(sizes.values())) \
+        if m > 1 or seq else None
     model = Model(cfg, dt, "meta", group=group)
     params = model.init(0)
     b = shape.global_batch
@@ -217,9 +226,10 @@ def _meta_step(cfg, shape: InputShape, sizes, dt):
         return (lambda: model.prefill(
             params, specs["tokens"], specs["positions"], cache,
             extras=specs.get("extras"), last_only=True)), group, params
-    cache = model.init_cache(b, T)
+    cache = model.init_cache(b, T, seq_shard=seq)
     return (lambda: model.decode_step(params, specs["tokens"],
-                                      specs["seq_lens"], cache)[0]
+                                      specs["seq_lens"], cache,
+                                      seq_shard=seq)[0]
             .argmax(-1)), group, params
 
 
@@ -240,11 +250,8 @@ def run_one(cfg: ModelConfig, shape: InputShape, mesh: Mapping[str, int],
     rec.update(argument_size_in_bytes=sum(args.values()), arguments=args,
                gathered_bytes=gathered, capacity_bytes=CAPACITY_BYTES,
                capacity_of=CAPACITY_OF)
-    data = math.prod(sizes[a] for a in data_axes(sizes))
     temp = None
     try:
-        if shape.global_batch == 1 and data > 1:
-            raise NotImplementedError(SEQ_SHARD.format(data))
         step, group, params = _meta_step(cfg, shape, sizes, dt)
     except NotImplementedError as e:
         rec.update(status="refused", reason=str(e), collectives=fsdp)

@@ -4,7 +4,9 @@ JAX package's `launch/mesh.py`.
 A mesh of shape (data, model) (or (pod, data, model)) is data·model rank
 processes. The last axis is "model": ranks r with the same r // model
 share a data index and form a tensor-parallel group; the data replicas run
-the same computation, as the JAX engine's rows replicate over "data".
+the same computation, as the JAX engine's rows replicate over "data". The
+ranks of one pod and model index form a data group, over which a
+sequence-sharded decode gathers its partial results.
 The backend is the caller's: NCCL on the card, gloo on the CPU. Nothing
 switches it: NCCL with more ranks than cards fails with NCCL's own error.
 
@@ -62,11 +64,10 @@ def make_serving_group(mesh_shape: Sequence[int], backend: str, rank: int,
                        world: int, init_method: Optional[str] = None,
                        timeout_s: float = TIMEOUT_S) -> ServingGroup:
     """Join the ranks of a `mesh_shape` mesh as `rank` of `world` (their
-    product), build the tensor-parallel groups and the gloo control group,
-    and install the result as the ambient serving group. `init_method`
-    defaults to the rendezvous `spawn_ranks` gives its ranks. On NCCL one
-    all-reduce initialises the communicator before any step is captured
-    in a CUDA graph."""
+    product), build the tensor-parallel groups, the data groups and the
+    gloo control group (`mesh_group`), and install the result as the
+    ambient serving group. `init_method` defaults to the rendezvous
+    `spawn_ranks` gives its ranks."""
     shape = tuple(int(s) for s in mesh_shape)
     if not shape or len(shape) > 3 or math.prod(shape) != world:
         raise ValueError(f"mesh {shape} does not hold {world} ranks")
@@ -78,18 +79,46 @@ def make_serving_group(mesh_shape: Sequence[int], backend: str, rank: int,
             backend, init_method=init_method or os.environ[RENDEZVOUS_ENV],
             rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    group = mesh_group(shape, backend, rank)
+    set_serving_group(group)
+    return group
+
+
+def mesh_group(mesh_shape: Sequence[int], backend: str,
+               rank: int) -> Optional[ServingGroup]:
+    """The serving group of a `mesh_shape` mesh laid on the first
+    prod(mesh_shape) ranks of the running process group: the tensor-
+    parallel groups (m consecutive ranks), the data groups (one a pod and
+    model index, m apart) and a gloo control group over the mesh. Every
+    rank of the process group calls it alike (each group is made by all
+    of them); a rank past the mesh gets None. On NCCL one all-reduce
+    initialises the communicator before any step is captured in a CUDA
+    graph."""
+    shape = tuple(int(s) for s in mesh_shape)
+    n = math.prod(shape)
+    if n > dist.get_world_size():
+        raise ValueError(f"mesh {shape} needs {n} ranks, the process group "
+                         f"has {dist.get_world_size()}")
     m = shape[-1]
-    tp = None
-    for d in range(world // m):      # every rank creates every group
+    D = shape[-2] if len(shape) > 1 else 1
+    tp = dp = None
+    for d in range(n // m):          # every rank creates every group
         g = dist.new_group(list(range(d * m, (d + 1) * m)), backend=backend)
         if rank // m == d:
             tp = g
-    control = dist.new_group(list(range(world)), backend="gloo")
-    group = ServingGroup(shape, rank, world, backend, tp, control)
+    for p0 in range(0, n, D * m):
+        for j in range(m):
+            ranks = [p0 + d * m + j for d in range(D)]
+            g = dist.new_group(ranks, backend=backend) if D > 1 else None
+            if rank in ranks:
+                dp = g
+    control = dist.new_group(list(range(n)), backend="gloo")
+    if rank >= n:
+        return None
+    group = ServingGroup(shape, rank, n, backend, tp, control, dp)
     if backend == "nccl":
         group.all_reduce(torch.zeros(1, device="cuda"))
         torch.cuda.synchronize()
-    set_serving_group(group)
     return group
 
 

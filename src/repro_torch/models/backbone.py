@@ -212,13 +212,14 @@ def _state_cache(cfg: ModelConfig, rows: int, dt, device, m: int = 1
 
 
 def _cross_cache(cfg: ModelConfig, rows: int, enc_len: int, dt,
-                 device) -> Cache:
+                 device, hd: int) -> Cache:
     """Cross-attention K/V with `rows` rows on axis 1: (n_cross, rows,
-    enc_len, KV, hd), in the working dtype."""
+    enc_len, KV, hd) (hd/m under the head_dim fallback), in the working
+    dtype."""
     n = n_cross_layers(cfg)
     if not n:
         return {}
-    shape = (n, rows, enc_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (n, rows, enc_len, cfg.num_kv_heads, hd)
     return {k: torch.zeros(shape, dtype=dt, device=device)
             for k in CROSS_KEYS}
 
@@ -233,24 +234,31 @@ def _tp_dims(cfg: ModelConfig, tp) -> Tuple[int, int]:
 
 def init_cache(cfg: ModelConfig, batch: int, max_context: int, dtype=None,
                device="cpu", chunk: int = 1, enc_len: int = 0,
-               tp=None) -> Cache:
+               tp=None, seq_parts: int = 1) -> Cache:
     """Contiguous serving cache: K/V rows (a ring for windowed attention)
     and `pos` for the attention layers, plus the per-request state and the
     cross-attention K/V of `enc_len` keys a row. `tp`: a rank's, its
-    state slices and its K/V head_dim (`cfg` its local heads)."""
+    state slices and its K/V head_dim (`cfg` its local heads).
+    `seq_parts`: the slots are cut over a data axis of that size (a
+    sequence-sharded decode, `cache_specs(seq_shard=True)`), and this is
+    one data rank's contiguous 1/seq_parts of them."""
     dt = cfg_dtype(cfg, dtype)
     m, kv_hd = _tp_dims(cfg, tp)
     c: Cache = {}
     n_att, _ = layer_counts(cfg)
     if n_att:
         S_ = phys_cache_len(cfg, max_context, chunk)
+        if S_ % seq_parts:
+            raise ValueError(f"{S_} cache slots do not divide over a data "
+                             f"axis of {seq_parts}")
+        S_ //= seq_parts
         shape = (n_att, batch, S_, cfg.num_kv_heads, kv_hd)
         c["k"] = torch.zeros(shape, dtype=dt, device=device)
         c["v"] = torch.zeros(shape, dtype=dt, device=device)
         c["pos"] = torch.full((batch, S_), -1, dtype=torch.int32,
                               device=device)
     c.update(_state_cache(cfg, batch, dt, device, m))
-    c.update(_cross_cache(cfg, batch, enc_len, dt, device))
+    c.update(_cross_cache(cfg, batch, enc_len, dt, device, kv_hd))
     return c
 
 
@@ -280,7 +288,7 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
         c["pos"] = torch.full((num_blocks + 1, block_size), -1,
                               dtype=torch.int32, device=device)
     c.update(_state_cache(cfg, n_slots + 1, dt, device, m))
-    c.update(_cross_cache(cfg, n_slots + 1, enc_len, dt, device))
+    c.update(_cross_cache(cfg, n_slots + 1, enc_len, dt, device, kv_hd))
     return c
 
 
@@ -295,13 +303,19 @@ def cache_bytes(cfg: ModelConfig, batch: int, max_context: int,
 # PREFILL / DECODE (unified chunked step; decode = chunk of length 1)
 
 
-def _write_index(positions, cache: Cache, tables) -> L.WriteIndex:
+def _write_index(positions, cache: Cache, tables, tp=None,
+                 seq_shard: bool = False) -> L.WriteIndex:
     """Every attention layer writes the same slots, so the write index and
     the `pos` update are computed once, before the layer loop; each layer
     then writes its K/V in place and attends over a cache that already
-    holds this chunk (as the JAX package does)."""
+    holds this chunk (as the JAX package does). `seq_shard`: the cache is
+    this data rank of `tp`'s group's slots of a sequence-sharded one
+    (`layers.seq_write_index`)."""
     if tables is None:
-        widx = L.cache_write_index(positions, cache["k"].shape[2])
+        S = cache["k"].shape[2]
+        widx = L.cache_write_index(positions, S) if not seq_shard \
+            else L.seq_write_index(positions, S, tp.group.data_rank,
+                                   tp.group.data_size)
         L.cache_put(cache["pos"], widx, positions)
     else:
         # the pools' last block is the spare that takes invisible writes
@@ -335,17 +349,19 @@ def _mlp_tp(tp):
 
 
 def _attn_layer(lp, x, pending, positions, cache, i, widx, cfg, window,
-                tables, tp=None):
+                tables, tp=None, seq_shard: bool = False):
     """Under tensor parallelism (`tp`) the attention output and a sharded
     SwiGLU's or MoE's are partial sums over the rank's heads, d_ff columns
     or experts, made whole in their down-projections (`layers.down_proj`,
     `layers.moe_sum`), before the fused add + RMSNorm that adds them to
-    the residual stream (otherwise a rank would add its own share only)."""
+    the residual stream (otherwise a rank would add its own share only).
+    `seq_shard`: a sequence-sharded decode (`layers.decode_seq`)."""
     x, h = _norm_in(x, pending, lp["ln1"], cfg)
     if tables is None:
         a = L.self_attention_cached(lp["attn"], h, positions, cache["k"][i],
                                     cache["v"][i], cache["pos"], widx, cfg,
-                                    window=window, tp=tp)
+                                    window=window, tp=tp,
+                                    seq_shard=seq_shard)
     else:
         a = L.self_attention_paged(lp["attn"], h, positions, cache["k"][i],
                                    cache["v"][i], cache["pos"], tables, widx,
@@ -435,12 +451,13 @@ def encode(p: Params, frames, cfg: ModelConfig, tp=None):
 
 
 def _write_cross(p_cross: Params, src, cfg: ModelConfig,
-                 st: _State) -> None:
+                 st: _State, tp=None) -> None:
     """Project src (B, S, d), the image embeddings or the encoder output,
     through every cross layer's wk / wv into the batch rows' cross K/V (a
-    paged padding row's sentinel slot is left as it is)."""
+    paged padding row's sentinel slot is left as it is); under `tp` the
+    rank's share (`layers.cross_kv`)."""
     for j in range(n_cross_layers(cfg)):
-        k, v = L.cross_kv(layer_params(p_cross, j)["attn"], src, cfg)
+        k, v = L.cross_kv(layer_params(p_cross, j)["attn"], src, cfg, tp)
         for key, val in zip(CROSS_KEYS, (k, v)):
             st.put(key, j, st.get(key, j) if st.rows is not None else None,
                    val)
@@ -466,7 +483,8 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
                    tables: Optional[torch.Tensor] = None,
                    rows: Optional[torch.Tensor] = None,
                    extras: Optional[Dict[str, torch.Tensor]] = None,
-                   tp=None) -> Tuple[torch.Tensor, Cache]:
+                   tp=None, seq_shard: bool = False
+                   ) -> Tuple[torch.Tensor, Cache]:
     """tokens: (B, T); positions: (B, T) absolute, -1 for padding.
 
     Returns (logits (B, T, V) fp32, cache), the cache updated in place.
@@ -489,15 +507,27 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     `_ssm_layer`, `_rec_layer`: the self, cross and encoder attention's
     `wo`, the MLPs' `w_down`, the MoE's experts once a layer, mamba2's
     gated-norm sums and `out_proj`, the RG-LRU's `w_out`), the embedding
-    and logits made whole."""
+    and logits made whole.
+    seq_shard: a decode on a contiguous cache whose attention slots are
+    cut over the data axis of `tp`'s group (`init_cache(seq_parts=...)`):
+    each data rank writes the slots it holds and attends over them, and
+    the ranks' partial results are combined (`layers.decode_seq`); the
+    rest of the step (embedding, projections, recurrent state) every data
+    rank runs alike."""
     if decode and tokens.shape[1] != 1:
         raise ValueError("decode takes one token per row")
+    if seq_shard and (tp is None or not decode or tables is not None
+                      or cfg.family in CROSS_FAMILIES):
+        raise ValueError("a sequence-sharded cache takes contiguous decode "
+                         "steps of a decoder-only family on a group")
     if tables is not None and rows is None \
             and any(k in cache for k in STATE_KEYS + CROSS_KEYS):
         raise ValueError("the paged cache's per-request state needs `rows`")
     x = p["embed"][tokens] if tp is None else tp.embed(p["embed"], tokens)
     win = window_of(cfg)
-    widx = _write_index(positions, cache, tables) if "k" in cache else None
+    widx = _write_index(positions, cache, tables, tp, seq_shard) \
+        if "k" in cache \
+        else None
     st = _State(cache, rows if tables is not None else None)
     y = None  # the branch output pending for the next norm
     if cfg.family in CROSS_FAMILIES:
@@ -507,7 +537,8 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
         src = (extras or {}).get(extras_key(cfg))
         if cfg.family == ArchFamily.VLM:
             if src is not None:
-                _write_cross(p["cross_layers"], src.to(x.dtype), cfg, st)
+                _write_cross(p["cross_layers"], src.to(x.dtype), cfg, st,
+                             tp)
             per = cfg.num_layers // cfg.num_cross_layers
             for i in range(cfg.num_layers):
                 x, y = _attn_layer(layer_params(p["layers"], i), x, y,
@@ -520,7 +551,8 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
         else:
             if src is not None:
                 _write_cross(p["dec_cross"],
-                             encode(p, src.to(x.dtype), cfg, tp), cfg, st)
+                             encode(p, src.to(x.dtype), cfg, tp), cfg, st,
+                             tp)
             for i in range(cfg.num_layers):
                 x, y = _attn_layer(layer_params(p["dec_layers"], i), x, y,
                                    positions, cache, i, widx, cfg, win,
@@ -530,7 +562,8 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     elif cfg.family in ATTENTION_ONLY:
         for i in range(cfg.num_layers):
             x, y = _attn_layer(layer_params(p["layers"], i), x, y, positions,
-                               cache, i, widx, cfg, win, tables, tp)
+                               cache, i, widx, cfg, win, tables, tp,
+                               seq_shard)
     elif cfg.family == ArchFamily.SSM:
         for i in range(cfg.num_layers):
             x, y = _ssm_layer(layer_params(p["layers"], i), x, y, cfg, st, i,
@@ -541,7 +574,7 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
             if kind == "attention":
                 x, y = _attn_layer(layer_params(p["att_layers"], i_att), x, y,
                                    positions, cache, i_att, widx, cfg, win,
-                                   tables, tp)
+                                   tables, tp, seq_shard)
                 i_att += 1
             else:
                 x, y = _rec_layer(layer_params(p["rec_layers"], i_rec), x, y,
@@ -721,7 +754,8 @@ def _vlm_train(p, x, positions, images, cfg: ModelConfig, remat: bool,
     per = cfg.num_layers // cfg.num_cross_layers
     self_layers = unstack(p["layers"])
     cross = unstack(p["cross_layers"])
-    kv = [L.cross_kv(cp["attn"], images, cfg) for cp in cross]
+    kv = [L.cross_kv(cp["attn"], images, cfg, tp, whole=True)
+          for cp in cross]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def group(h, aux, lps, cp, ck, cv):
@@ -765,7 +799,7 @@ def _encdec_train(p, x, positions, frames, cfg: ModelConfig, remat: bool,
     enc_out = encode_train(p, frames, cfg, remat, tp)
     cross = unstack(p["dec_cross"])
     src = enc_out if tp is None else tp.copy(enc_out)
-    kv = [L.cross_kv(cp["attn"], src, cfg) for cp in cross]
+    kv = [L.cross_kv(cp["attn"], src, cfg, tp, whole=True) for cp in cross]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def body(h, lp, cp, ck, cv):

@@ -160,16 +160,45 @@ def attend(q, k, v, q_pos, k_pos, *, window: int = 0):
     return out.reshape(B, T, H * hd)
 
 
-def attention_qkv(p, x, cfg: ModelConfig):
-    B, T, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+def attention_qkv(p, x, cfg: ModelConfig, tp=None):
+    """(q, k, v) of x (B, T, d), before RoPE: q (B, T, n, hd) of the query
+    heads the rank's attention runs on (all H without `tp`), k and v
+    (B, T, KV, hd). Under the head_dim fallback (`tp.hd_split`) the
+    rank's wk / wv columns are a slice of the flat KV·hd outputs, so k
+    and v are gathered over the group whole (one gather, K and V
+    together: RoPE pairs channel i with i + hd/2, which a slice does not
+    hold), and q is the rank's head span (`TensorParallel.q_heads`: its
+    own whole heads, or the whole q gathered and the span taken)."""
+    hd = cfg.resolved_head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, T, H, hd), k.reshape(B, T, KV, hd),
-            v.reshape(B, T, KV, hd))
+    if tp is not None and tp.hd_split:
+        k, v = tp.gather(torch.stack([k, v])).unbind(0)
+    return _heads(q, hd, tp), k.unflatten(-1, (-1, hd)), \
+        v.unflatten(-1, (-1, hd))
+
+
+def _heads(q, hd: int, tp):
+    """q (..., c) -> (..., n, hd): the heads of its columns, or under `tp`
+    those the rank's attention runs on (`TensorParallel.q_heads`)."""
+    return q.unflatten(-1, (-1, hd)) if tp is None else tp.q_heads(q)
+
+
+def _span(k, v, tp):
+    """Whole K/V (..., KV, hd) -> the kv-heads the rank's query heads read
+    (under the head_dim fallback; else k and v themselves)."""
+    if tp is None or not tp.hd_split:
+        return k, v
+    return tp.kv_span(k), tp.kv_span(v)
+
+
+def out_proj(out, w, tp=None):
+    """The attention output (B, T, n·hd) of the rank's heads through `wo`
+    (`down_proj`): under a layout that gathers q, the rank's flat columns
+    of H·hd first (`TensorParallel.out_cols`), which its `wo` rows
+    take."""
+    return down_proj(out if tp is None else tp.out_cols(out), w, tp)
 
 
 def self_attention_train(p, x, positions, cfg: ModelConfig, *,
@@ -180,28 +209,18 @@ def self_attention_train(p, x, positions, cfg: ModelConfig, *,
     the enc-dec encoder's bidirectional form. `tp`: the rank's heads (x
     enters them through `copy`, `wo`'s product is made whole); under the
     head_dim fallback the new K/V columns are gathered whole, as
-    `rope_qkv` gathers them, and the rank's query heads read their
-    kv-head."""
+    `rope_qkv` gathers them, and the rank's head span reads its
+    kv-heads."""
     B, T, _ = x.shape
     if tp is not None:
         x = tp.copy(x)
-    if tp is None or not tp.hd_split:
-        q, k, v = attention_qkv(p, x, cfg)
-    else:
-        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-        if "bq" in p:
-            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-        k, v = tp.gather(torch.stack([k, v])).reshape(2, B, T, KV,
-                                                        hd).unbind(0)
-        h = tp.kv_head
-        q = q.reshape(B, T, H, hd)
-        k, v = k[..., h:h + 1, :], v[..., h:h + 1, :]
+    q, k, v = attention_qkv(p, x, cfg, tp)
+    k, v = _span(k, v, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = flash_attention_ref(q, k, v, positions, positions, window=window,
                               causal=causal)
-    return down_proj(out.reshape(B, T, -1), p["wo"], tp)
+    return out_proj(out.reshape(B, T, -1), p["wo"], tp)
 
 
 def down_proj(x, w, tp=None):
@@ -429,46 +448,68 @@ def paged_write_index(positions, tables, block_size: int,
 
 def rope_qkv(p, x, positions, cfg: ModelConfig, tp=None):
     """(q, k, v) of x (B, T, d) at absolute `positions`, RoPE on q and k:
-    q (B, T, H, hd) of the rank's heads, k and v what the rank's cache
-    stores, (B, T, KV, hd). Under the head_dim fallback (`tp.hd_split`)
-    the rank's wk / wv columns are a slice of the flat KV·hd outputs, so
-    the chunk's new k and v rows are gathered over the group first (RoPE
-    pairs channel i with i + hd/2, which a slice does not hold), and the
-    rank keeps its hd/m channels of every kv-head: (B, T, KV, hd/m)."""
+    q (B, T, n, hd) of the rank's heads, k and v what the rank's cache
+    stores, (B, T, KV, hd): under the head_dim fallback the chunk's new
+    k and v rows are gathered whole (`attention_qkv`) and the rank keeps
+    its hd/m channels of every kv-head, (B, T, KV, hd/m)."""
+    q, k, v = attention_qkv(p, x, cfg, tp)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
     if tp is None or not tp.hd_split:
-        q, k, v = attention_qkv(p, x, cfg)
-        return (apply_rope(q, positions, cfg.rope_theta),
-                apply_rope(k, positions, cfg.rope_theta), v)
-    B, T, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    k, v = tp.gather(torch.stack([k, v])).reshape(2, B, T, KV, hd).unbind(0)
-    c = tp.kv_dim(hd)
+        return q, k, v
+    c = tp.kv_dim(cfg.resolved_head_dim)
     mine = slice(tp.rank * c, (tp.rank + 1) * c)
-    return (apply_rope(q.reshape(B, T, H, hd), positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta)[..., mine],
-            v[..., mine])
+    return q, k[..., mine], v[..., mine]
 
 
 def kv_read(k, v, tp=None):
     """The K/V an attention launch reads from a layer's cache or pool slab
-    (..., KV, hd): the cache itself; under the head_dim fallback the
-    ranks' hd/m slices gathered to the whole hd (one gather of a fixed
-    shape, K and V together), at the kv-head the rank's query heads
-    read."""
+    (..., KV, hd), self or cross: the cache itself; under the head_dim
+    fallback the ranks' hd/m slices gathered to the whole hd (one gather
+    of a fixed shape, K and V together), at the kv-heads the rank's query
+    heads read (`TensorParallel.kv_heads`)."""
     if tp is None or not tp.hd_split:
         return k, v
     kv = tp.gather(torch.stack([k, v]))
-    h = tp.kv_head
-    return (kv[0, ..., h:h + 1, :].contiguous(),
-            kv[1, ..., h:h + 1, :].contiguous())
+    return tp.kv_span(kv[0]), tp.kv_span(kv[1])
+
+
+def seq_write_index(positions, S: int, rank: int, n: int) -> WriteIndex:
+    """The write index of a decode token (T = 1) in data rank `rank`'s S
+    slots of a contiguous cache whose n·S slots are cut over a data axis
+    of n (rank r holds slots [r·S, (r+1)·S), `cache_specs(seq_shard=
+    True)`): the token's ring slot pos % (n·S) is written by the rank
+    that holds it; on the others it is no write (a slot's own value goes
+    back to it)."""
+    if positions.shape[1] != 1:
+        raise ValueError("a sequence-sharded cache takes decode tokens "
+                         "only")
+    rows, slots, real = cache_write_index(positions, n * S)
+    slots = slots - rank * S
+    mine = real & (slots >= 0) & (slots < S)
+    return rows, slots.clamp(0, S - 1), mine
+
+
+def decode_seq(q, k, v, q_pos, k_pos, group, *, window: int = 0):
+    """Flash decode over a cache whose slots are cut over the data axis
+    of `group` (a `distributed.sharding.ServingGroup`): this rank's partial
+    (O, m, l) over its slots (`ops.decode_attention_partial`), every
+    data rank's gathered (one all-gather of (B, H, hd + 2) fp32), and
+    merged (`ops.attention_combine`). q (B, H, hd); k/v (B, S, KV, hd),
+    the rank's slots; k_pos (B, S) their positions. Returns (B, H, hd) in
+    q's dtype."""
+    hd = q.shape[-1]
+    o, ml = ops.decode_attention_partial(q, k, v, q_pos, k_pos,
+                                         window=window)
+    parts = group.gather_data(torch.cat([o, ml], -1))
+    return ops.attention_combine(parts[..., :hd], parts[..., hd:],
+                                 dtype=q.dtype)
 
 
 def self_attention_cached(p, x, positions, cache_k, cache_v, cache_pos,
                           widx: WriteIndex, cfg: ModelConfig, *,
-                          window: int = 0, tp=None):
+                          window: int = 0, tp=None,
+                          seq_shard: bool = False):
     """Self-attention through a contiguous (possibly ring) KV cache.
 
     x: (B, T, d) new tokens at absolute `positions` (B, T); cache_k/v:
@@ -476,26 +517,36 @@ def self_attention_cached(p, x, positions, cache_k, cache_v, cache_pos,
     cache_pos: (B, S), already holding this chunk's positions. `tp`: the
     rank's heads (`cfg` their local config; under the head_dim fallback
     the cache holds hd/m of every kv-head, `rope_qkv`, `kv_read`), `wo`'s
-    product summed over the group (`down_proj`)."""
+    product summed over the group (`out_proj`). `seq_shard`: the cache
+    holds this data rank's slots of a decode sequence-sharded over the
+    data axis of `tp`'s group (`widx` from `seq_write_index`;
+    `decode_seq`)."""
+    B, T, _ = x.shape
     q, k, v = rope_qkv(p, x, positions, cfg, tp)
     cache_put(cache_k, widx, k)
     cache_put(cache_v, widx, v)
-    out = attend(q, *kv_read(cache_k, cache_v, tp), positions, cache_pos,
-                 window=window)
-    return down_proj(out, p["wo"], tp)
+    rk, rv = kv_read(cache_k, cache_v, tp)
+    if not seq_shard:
+        out = attend(q, rk, rv, positions, cache_pos, window=window)
+    else:
+        out = decode_seq(q[:, 0], rk, rv, positions[:, 0], cache_pos,
+                         tp.group, window=window).reshape(B, 1, -1)
+    return out_proj(out, p["wo"], tp)
 
 
 def encoder_attention(p, x, positions, cfg: ModelConfig, tp=None):
     """Bidirectional self-attention of an encoder layer: x (B, S, d) at
     `positions` (B, S), RoPE on q and k, every key visible to every query
     (the flash kernel with causal=False). No cache. `tp` as in
-    `self_attention_cached`."""
+    `self_attention_cached` (under the head_dim fallback the new K/V
+    gathered whole, `attention_qkv`)."""
     B, S, _ = x.shape
-    q, k, v = attention_qkv(p, x, cfg)
+    q, k, v = attention_qkv(p, x, cfg, tp)
+    k, v = _span(k, v, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.flash_attention(q, k, v, positions, positions, causal=False)
-    return down_proj(out.reshape(B, S, -1), p["wo"], tp)
+    return out_proj(out.reshape(B, S, -1), p["wo"], tp)
 
 
 def _pool_write(pool, flat_slots, val):
@@ -531,22 +582,32 @@ def self_attention_paged(p, x, positions, pool_k, pool_v, pool_pos, tables,
         out = ops.paged_flash_attention(q, rk, rv, positions, pool_pos,
                                         tables, window=window,
                                         causal=True).reshape(B, T, -1)
-    return down_proj(out, p["wo"], tp)
+    return out_proj(out, p["wo"], tp)
 
 
 # ---------------------------------------------------------------------------
 # cross-attention (enc-dec and VLM): fixed keys, computed once a request
 
 
-def cross_kv(p, enc_out, cfg: ModelConfig):
+def cross_kv(p, enc_out, cfg: ModelConfig, tp=None, whole: bool = False):
     """K and V (B, S, KV, hd) of the encoder output or image embeddings
     (B, S, d): plain projections, no RoPE. Under tensor parallelism `p`
     holds the rank's wk / wv columns and `cfg` its kv-heads, so this is
-    the rank's share of the heads."""
-    B, S, _ = enc_out.shape
-    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return ((enc_out @ p["wk"]).reshape(B, S, KV, hd),
-            (enc_out @ p["wv"]).reshape(B, S, KV, hd))
+    the rank's share of the heads; under the head_dim fallback those
+    columns are a slice of the flat KV·hd outputs, so they are gathered
+    whole (one gather, K and V together) and the rank keeps what its
+    cross cache stores, hd/m channels of every kv-head (every channel
+    with `whole`: the training forward's)."""
+    hd = cfg.resolved_head_dim
+    k, v = enc_out @ p["wk"], enc_out @ p["wv"]
+    if tp is not None and tp.hd_split:
+        k, v = tp.gather(torch.stack([k, v])).unbind(0)
+    k, v = k.unflatten(-1, (-1, hd)), v.unflatten(-1, (-1, hd))
+    if tp is None or not tp.hd_split or whole:
+        return k, v
+    c = tp.kv_dim(hd)
+    mine = slice(tp.rank * c, (tp.rank + 1) * c)
+    return k[..., mine], v[..., mine]
 
 
 def cross_attention(p, x, cross_k, cross_v, cfg: ModelConfig, *,
@@ -558,11 +619,13 @@ def cross_attention(p, x, cross_k, cross_v, cfg: ModelConfig, *,
     hd) read in place through `rows` (B,), each slot a block of S keys
     (tables = rows.view(B, 1)) and `kpos` (N, S) the all-zero position map.
     `gated`: the VLM's output scaled by tanh(gate), taken in fp32. `tp`:
-    the rank's heads, `wo`'s product made whole (`down_proj`) before the
-    gate, as the single device scales the whole sum."""
+    the rank's heads (under the head_dim fallback its cross slab gathered
+    to the whole hd first, `kv_read`, and its head span's q), `wo`'s
+    product made whole (`out_proj`) before the gate, as the single device
+    scales the whole sum."""
     B, T, _ = x.shape
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, T, H, hd)
+    q = _heads(x @ p["wq"], cfg.resolved_head_dim, tp)
+    cross_k, cross_v = kv_read(cross_k, cross_v, tp)
     q_pos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
     if rows is None:
         k_pos = torch.zeros(cross_k.shape[:2], dtype=torch.int32,
@@ -572,7 +635,7 @@ def cross_attention(p, x, cross_k, cross_v, cfg: ModelConfig, *,
     else:
         out = ops.paged_flash_attention(q, cross_k, cross_v, q_pos, kpos,
                                         rows.view(B, 1), causal=False)
-    out = down_proj(out.reshape(B, T, H * hd), p["wo"], tp)
+    out = out_proj(out.reshape(B, T, -1), p["wo"], tp)
     if gated:
         out = torch.tanh(p["gate"].float()).to(out.dtype) * out
     return out
@@ -581,19 +644,21 @@ def cross_attention(p, x, cross_k, cross_v, cfg: ModelConfig, *,
 def cross_attention_train(p, x, cross_k, cross_v, cfg: ModelConfig, *,
                           gated: bool = False, tp=None):
     """The training form of `cross_attention`: x (B, T, d) over the
-    batch's own cross K/V (B, S, KV, hd) from `cross_kv`, every key
+    batch's own cross K/V (B, S, KV, hd) from `cross_kv` (every channel
+    of every kv-head under the head_dim fallback, `whole`), every key
     visible, in plain ops (`ref.flash_attention_ref`, non-causal); `gated`
     scales the output by tanh(gate) taken in fp32 (the VLM). `tp`: the
     rank's heads, as `self_attention_train`'s."""
     B, T, _ = x.shape
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
-    q = ((x if tp is None else tp.copy(x)) @ p["wq"]).reshape(B, T, H, hd)
+    q = _heads((x if tp is None else tp.copy(x)) @ p["wq"],
+               cfg.resolved_head_dim, tp)
+    cross_k, cross_v = _span(cross_k, cross_v, tp)
     zeros = torch.zeros((B, T), dtype=torch.int32, device=x.device)
     k_pos = torch.zeros(cross_k.shape[:2], dtype=torch.int32,
                         device=x.device)
-    out = down_proj(flash_attention_ref(q, cross_k, cross_v, zeros, k_pos,
-                                        causal=False).reshape(B, T, H * hd),
-                    p["wo"], tp)
+    out = out_proj(flash_attention_ref(q, cross_k, cross_v, zeros, k_pos,
+                                       causal=False).reshape(B, T, -1),
+                   p["wo"], tp)
     if gated:
         out = torch.tanh(p["gate"].float()).to(out.dtype) * out
     return out

@@ -140,13 +140,24 @@ class Model(nn.Module):
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, max_context: int, enc_len: int = 0,
-                   prefill_chunk: int = 1):
+                   prefill_chunk: int = 1, seq_shard: bool = False):
         """Contiguous serving cache; a VLM or enc-dec cache holds `enc_len`
-        cross keys a row (0: the family's default, `default_enc_len`)."""
+        cross keys a row (0: the family's default, `default_enc_len`).
+        `seq_shard`: this data rank's contiguous share of the attention
+        slots, cut over the group's data axis (`decode_step(seq_shard=
+        True)`)."""
         return B.init_cache(self.local_cfg, batch, max_context, self.dtype,
                             self.device, chunk=prefill_chunk,
                             enc_len=enc_len or default_enc_len(self.cfg),
-                            tp=self.tp)
+                            tp=self.tp,
+                            seq_parts=self.group.data_size
+                            if self._seq(seq_shard) else 1)
+
+    def _seq(self, seq_shard: bool) -> bool:
+        if seq_shard and self.group is None:
+            raise ValueError("a sequence-sharded cache needs a serving "
+                             "group with a data axis")
+        return seq_shard
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          n_slots: int = 0, enc_len: int = 0):
@@ -162,11 +173,12 @@ class Model(nn.Module):
     @torch.no_grad()
     def forward(self, params, tokens, positions, cache, *,
                 decode: bool = False, last_only: bool = False, tables=None,
-                rows=None, extras=None):
+                rows=None, extras=None, seq_shard: bool = False):
         return B.forward_cached(params, tokens, positions, cache,
                                 self.local_cfg, decode=decode,
                                 last_only=last_only, tables=tables,
-                                rows=rows, extras=extras, tp=self.tp)
+                                rows=rows, extras=extras, tp=self.tp,
+                                seq_shard=seq_shard)
 
     def prefill(self, params, tokens, positions, cache, extras=None,
                 last_only: bool = False):
@@ -177,11 +189,17 @@ class Model(nn.Module):
         return self(params, tokens, positions, cache, last_only=last_only,
                     extras=extras)
 
-    def decode_step(self, params, tokens, seq_lens, cache):
+    def decode_step(self, params, tokens, seq_lens, cache,
+                    seq_shard: bool = False):
         """tokens: (B,) next input ids; seq_lens: (B,) their absolute
-        positions (-1 = padding row). Returns (logits (B, V), cache)."""
+        positions (-1 = padding row). Returns (logits (B, V), cache).
+        `seq_shard`: `cache` holds this data rank's slots
+        (`init_cache(seq_shard=True)`), and each attention layer combines
+        the data ranks' partial results (the JAX dry run's batch-1
+        long-context layout, `cache_specs(seq_shard=True)`)."""
         logits, cache = self(params, tokens[:, None], seq_lens[:, None], cache,
-                             decode=True)
+                             decode=True,
+                             seq_shard=self._seq(seq_shard))
         return logits[:, 0], cache
 
     def prefill_paged(self, params, tokens, positions, tables, cache,

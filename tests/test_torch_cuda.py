@@ -1488,3 +1488,49 @@ def test_per_rank_attention_launches_match_the_whole_launch_on_card(cuda,
     else:
         same = [r["splits_whole"] == r["splits_rank"] for r in rows]
         assert any(same) and not all(same)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H,KV,hd,S,parts,window", [
+    (32, 8, 128, 512, 2, 0), (32, 8, 128, 96, 4, 64),
+    (16, 1, 256, 256, 4, 0)])
+def test_partial_decode_and_combine_match_plain_on_card(cuda, dtype, H, KV,
+                                                        hd, S, parts,
+                                                        window):
+    """The sequence-sharded decode's kernels: each of `parts` contiguous
+    slot ranges of ragged rows (one padding row, one whose last ranges
+    hold no visible key) through `decode_attention_partial`, the partials
+    through `attention_combine`: the partials within 2e-2 (bf16 inputs)
+    or 1e-4 of max|plain| (fp32) of the plain versions, the combined
+    output within the same of the plain whole decode (a padding row 0),
+    one launch each."""
+    rng = np.random.RandomState(S)
+    B = 3
+    q_pos = np.array([S - 1, S // 3, -1], np.int32)
+    k_pos = np.where(np.arange(S)[None] <= np.array([[S], [S // 3], [S]]),
+                     np.arange(S)[None], -1).astype(np.int32)
+    dt = getattr(torch, dtype)
+    q, k, v, qp, kp = _on(cuda, rng.randn(B, H, hd), rng.randn(B, S, KV, hd),
+                          rng.randn(B, S, KV, hd), q_pos, k_pos, dtype=dt)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else None
+    os_, mls = [], []
+    for i in range(parts):
+        sl = slice(i * S // parts, (i + 1) * S // parts)
+        a = (q, k[:, sl].contiguous(), v[:, sl].contiguous(), qp,
+             kp[:, sl].contiguous())
+        o, ml = ops.decode_attention_partial(*a, window=window)
+        wo, wml = ref.decode_attention_partial_ref(*a, window=window)
+        for got, want in ((o, wo), (ml, wml)):
+            torch.testing.assert_close(got, want, **(tol or dict(
+                rtol=0, atol=1e-4 * float(want.abs().max()))))
+        os_.append(o)
+        mls.append(ml)
+    out = ops.attention_combine(torch.stack(os_), torch.stack(mls), dtype=dt)
+    want = ref.decode_attention_ref(q, k, v, qp, kp, window=window)
+    assert out.dtype == dt
+    torch.testing.assert_close(out.float(), want.float(), **(tol or dict(
+        rtol=0, atol=1e-4 * float(want.abs().max()))))
+    assert float(out[2].abs().max()) == 0.0
+    assert ops.LAUNCHES["decode_attention_partial"] == parts
+    assert ops.LAUNCHES["attention_combine"] == 1

@@ -20,9 +20,13 @@ package's.
 * The meta step is faithful: its FLOP count equals FlopCounterMode's of
   the same reduced train step run on the CPU, integer for integer; a
   decode forward on a (1, 2) recording group makes the all-reduces and
-  all-gathers `graph_audit` gives the layout.
-* The CLI writes a row, skips it on a second run, and its skipped and
-  refused rows carry their reasons.
+  all-gathers `graph_audit` gives the layout, and a batch-1 decode on a
+  (4, 2) one the sequence-sharded decode's (one more gather a
+  self-attention layer, over the data axis).
+* The CLI writes a row, skips it on a second run, and its skipped rows
+  carry their reasons; starcoder2-7b's split heads and mamba2's long_500k
+  on a data axis are reckoned, and a layout `check_tp` still refuses is a
+  refused row in its words.
 """
 import json
 import os
@@ -54,7 +58,7 @@ from repro_torch.distributed.sharding import (batch_specs, cache_specs,
                                               decode_input_specs,
                                               param_specs)
 from repro_torch.launch import dryrun
-from repro_torch.models.backbone import init_params
+from repro_torch.models.backbone import init_params, phys_cache_len
 from repro_torch.models.model import build_model, input_specs
 from repro_torch.params import named_leaves
 from repro_torch.training.optimizer import adamw_init
@@ -268,6 +272,36 @@ def test_recorded_decode_collectives_are_the_layouts(arch):
     assert res["collectives"]["count"] == sum(group.calls.values())
 
 
+@pytest.mark.parametrize("arch", ["granite-3-8b", "recurrentgemma-9b",
+                                  "mamba2-2.7b"])
+def test_recorded_seq_decode_collectives_are_the_layouts(arch):
+    """A batch-1 decode on a (4, 2) mesh cuts the cache's slots over
+    "data" (`dryrun.seq_sharded`): each rank holds S/4 of them, and the
+    step's all-gathers are the layout's plus one a self-attention layer
+    over the data axis (`gathers(seq=True)`); mamba2, with no K/V, steps
+    its whole state."""
+    cfg = get_config(arch, "reduced")
+    sizes = {"data": 4, "model": 2}
+    shape = InputShape("long", 64, 1, "decode")
+    seq = dryrun.seq_sharded(cfg, shape, sizes)
+    assert seq == (arch != "mamba2-2.7b")
+    group = meta_step.RecordingGroup((4, 2))
+    model = build_model(cfg, torch.float32, "meta", group=group)
+    params = model.init(0)
+    cache = model.init_cache(1, 64, seq_shard=seq)
+    if seq:
+        assert cache["k"].shape[2] * 4 == phys_cache_len(cfg, 64)
+    tokens = torch.zeros(1, dtype=torch.int64, device="meta")
+    meta_step.run(lambda: model.decode_step(params, tokens, tokens.int(),
+                                            cache, seq_shard=seq), group)
+    assert group.calls["all-reduce"] == allreduces(model.local_cfg,
+                                                   model.tp)
+    assert group.calls["all-gather"] == gathers(model.local_cfg, model.tp,
+                                                seq=seq)
+    row = dryrun.run_one(cfg, shape, sizes, dtype=torch.float32)
+    assert row["status"] == "ok" and row["flops"] > 0
+
+
 def test_cli_writes_skips_and_gives_reasons(tmp_path, capsys):
     out = str(tmp_path / "dry.jsonl")
     argv = ["--arch", "granite-3-8b", "--shape", "train_4k", "--mesh",
@@ -283,14 +317,22 @@ def test_cli_writes_skips_and_gives_reasons(tmp_path, capsys):
     dryrun.main(["--arch", "mamba2-2.7b", "--shape", "long_500k",
                  "--mesh", "single", "--out", out])
     rows = [json.loads(ln) for ln in open(out)]
-    assert [r["status"] for r in rows] == ["ok", "skipped", "refused",
-                                           "refused"]
+    assert [r["status"] for r in rows] == ["ok", "skipped", "ok", "ok"]
     ok = rows[0]
     assert ok["mesh"] == "16x16" and ok["fits"] is True
     assert ok["peak_bytes"] == ok["argument_size_in_bytes"] \
         + ok["gathered_bytes"] + ok["temp_size_in_bytes"]
     assert ok["collectives"]["all-reduce"] > 0 and ok["flops"] > 0
     assert "sub-quadratic" in rows[1]["reason"]
-    assert "36 query heads do not divide the axis" in rows[2]["reason"]
-    assert rows[2]["argument_size_in_bytes"] > 0
-    assert "sequence-sharded decode" in rows[3]["reason"]
+    # starcoder2's 36 query heads split over 16 (q gathered, K/V on
+    # head_dim), and mamba2's batch-1 step on every data rank
+    split = rows[2]
+    assert split["argument_size_in_bytes"] > 0 and split["flops"] > 0
+    assert split["collectives"]["all-gather"] > 0
+    assert rows[3]["flops"] > 0
+    # a layout `check_tp` still refuses is a refused row, in its words
+    cfg = get_config("granite-3-8b", "reduced")
+    row = dryrun.run_one(cfg, INPUT_SHAPES["decode_32k"],
+                         {"data": 1, "model": 3})
+    assert row["status"] == "refused" and row["argument_size_in_bytes"] > 0
+    assert "neither its 2 kv-heads nor head_dim 32" in row["reason"]

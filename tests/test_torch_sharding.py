@@ -43,8 +43,9 @@ from repro.distributed.sharding import kv_head_axes as jax_kv_head_axes
 from repro_torch.config.registry import get_config, list_archs
 from repro_torch.core.memory_model import kv_shard_factor
 from repro_torch.distributed.sharding import (ServingGroup, TensorParallel,
-                                              check_tp, kv_head_axes,
-                                              local_config, segments,
+                                              check_tp, head_span,
+                                              kv_head_axes, local_config,
+                                              q_gathered, segments,
                                               serve_spec, shard_params,
                                               spec_for, tensor_parallel,
                                               validate)
@@ -100,18 +101,14 @@ def test_rule_table_matches_the_jax_package(arch, variant):
 
 def _port_serves(cfg, m) -> bool:
     """The layouts the port serves, written out: the SSD heads and the
-    RG-LRU channels divide the axis; the query heads divide it, and the
-    kv-heads too, or head_dim under the fallback, where each rank's query
-    heads read one kv-head and no cross K/V is cut on head_dim."""
+    RG-LRU channels divide the axis, and the kv-heads or head_dim do (the
+    query heads may split: a rank's span of them, `head_span`)."""
     if cfg.family.value == "ssm":
         return SM.ssm_dims(cfg)[1] % m == 0
     if cfg.family.value == "hybrid" and cfg.rglru.lru_width % m:
         return False
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    if H % m or (KV % m and hd % m):
-        return False
-    return KV % m == 0 or (m % KV == 0
-                           and cfg.family.value not in ("vlm", "encdec"))
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return not (KV % m and hd % m)
 
 
 @pytest.mark.parametrize("arch", list_archs())
@@ -148,7 +145,7 @@ def test_cache_axes_and_per_rank_cache_shapes(arch):
                     assert c["k"].shape[0] == sum(
                         k == "attention" for k in cfg.layer_kinds())
                 if "cross_k" in c:
-                    assert c["cross_k"].shape[-3:] == (5, KV // m, hd)
+                    assert c["cross_k"].shape[-3:] == (5,) + want_kv
                 if cfg.family.value == "ssm":
                     d_in, H, P, N = SM.ssm_dims(cfg)
                     assert c["conv"].shape[-1] == d_in // m + 2 * N
@@ -160,20 +157,30 @@ def test_cache_axes_and_per_rank_cache_shapes(arch):
 
 
 def test_starcoder2_36_heads_do_not_divide_16():
-    """36 heads on a 16-way model axis must not shard (the JAX file's
-    case); the port, which splits no query head, refuses starcoder2 at 8
-    and 16 (its 4 kv-heads would take the head_dim fallback, but its 36
-    query heads do not divide the axis) and serves it at 4."""
+    """36 heads on a 16-way model axis do not shard as whole heads (the JAX
+    file's case): `validate` keeps the flat 36·128 cut of `wq`, and the
+    port serves starcoder2 at 8 and 16 as the JAX package does, its 4
+    kv-heads on the head_dim fallback and each rank's attention on a span
+    of whole heads around its columns, q gathered (`head_span`,
+    `q_gathered`); at 4 a rank holds 9 whole heads. What is still
+    refused: a model axis neither the kv-heads nor head_dim divide."""
     sizes = {"data": 16, "model": 16}
     assert validate((None, "model"), (10, 36), sizes) == (None, None)
     assert validate((None, "model"), (10, 64), sizes) == (None, "model")
     cfg = get_config("starcoder2-7b", "full")
     assert cfg.num_heads == 36
     for m in (8, 16):
-        with pytest.raises(NotImplementedError, match="36 query heads do "
-                                                      "not divide"):
-            check_tp(cfg, m)
-    assert local_config(cfg, 4).num_heads == 9
+        check_tp(cfg, m)
+        assert serve_spec("layers/attn/wq", (32, 4608, 4608), cfg, m) \
+            == (None, None, "model")
+        spans = [head_span(cfg, m, r) for r in range(m)]
+        assert spans[0][0] == 0 and spans[-1][1] == 36
+        assert local_config(cfg, m, 1).num_heads == spans[1][1] - spans[1][0]
+        assert q_gathered(cfg, m)
+    assert local_config(cfg, 4).num_heads == 9 and not q_gathered(cfg, 4)
+    with pytest.raises(NotImplementedError, match="neither its 4 kv-heads "
+                                                  "nor head_dim 128"):
+        check_tp(cfg, 3)
 
 
 def _reassemble(name, parts, cfg, m, axis):

@@ -452,16 +452,18 @@ def test_tp_families_build_and_serve_on_a_group(arch):
 def test_head_dim_fallback_raises():
     """The head_dim fallback (K/V stored sharded on head_dim where the
     kv-heads do not divide the axis) is served for self-attention
-    (reduced granite's 2 kv-heads at a model axis of 4), and still raises
-    for cross-attention K/V, a later slice: reduced llama-3.2-vision's 2
-    kv-heads at 4."""
+    (reduced granite's 2 kv-heads at a model axis of 4) and for the cross
+    K/V (reduced llama-3.2-vision's 2 kv-heads at 4, served by
+    tests/test_torch_tp_layouts.py); what still raises is an axis neither
+    the kv-heads nor head_dim divide (granite's 2 and 32 at 3), and a
+    mesh given to the engine without a model on a group of its shape."""
     cfg = get_config(R.ARCH, "reduced")
     check_ported(ServeConfig(mesh_shape=(1, 4)), cfg)
+    check_ported(ServeConfig(mesh_shape=(1, 4)),
+                 get_config("llama-3.2-vision-90b", "reduced"))
     with pytest.raises(NotImplementedError,
-                       match="cross-attention K/V under the head_dim "
-                             "fallback .* later slice"):
-        check_ported(ServeConfig(mesh_shape=(1, 4)),
-                     get_config("llama-3.2-vision-90b", "reduced"))
+                       match="neither its 2 kv-heads nor head_dim 32"):
+        check_ported(ServeConfig(mesh_shape=(1, 3)), cfg)
     # a mesh given to the engine needs a model on a group of that shape
     m = build_model(cfg, torch.float32, "cpu")
     from repro_torch.serving.engine import Engine

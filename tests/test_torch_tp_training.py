@@ -71,13 +71,22 @@ def test_one_rank_group_is_the_no_group_step_bit_for_bit(ranks):
 
 def test_refused_layouts_stay_refused():
     """A model on a group (training or serving) takes `check_tp`'s
-    refusals, in its words."""
+    refusals, in its words: a model axis neither the kv-heads nor head_dim
+    divide (reduced granite at 3, starcoder2-7b at 3). The layouts once
+    refused here build and train: starcoder2-7b's 36 query heads at 16,
+    reduced llama-3.2-vision's cross K/V on the head_dim fallback at 4
+    (tests/test_torch_tp_layouts.py trains them against one device)."""
     for cfg, m, words in (
-            (get_config("starcoder2-7b"), 16,
-             "36 query heads do not divide the axis"),
-            (get_config("llama-3.2-vision-90b", "reduced"), 4,
-             "cross-attention K/V under the head_dim fallback")):
+            (get_config("starcoder2-7b"), 3,
+             "neither its 4 kv-heads nor head_dim 128 divide the axis"),
+            (get_config("granite-3-8b", "reduced"), 3,
+             "neither its 2 kv-heads nor head_dim 32 divide the axis")):
         with pytest.raises(NotImplementedError, match=words):
             check_tp(cfg, m)
         with pytest.raises(NotImplementedError, match=words):
             build_model(cfg, device="meta", group=RecordingGroup((1, m)))
+    for cfg, m in ((get_config("starcoder2-7b"), 16),
+                   (get_config("llama-3.2-vision-90b", "reduced"), 4)):
+        check_tp(cfg, m)
+        model = build_model(cfg, device="meta", group=RecordingGroup((1, m)))
+        assert model.tp.hd_split
