@@ -9,12 +9,19 @@ Phases, one JSON line each:
 2. build     nvcc builds every CUDA kernel of the port (one process per
              source, all at once). Registers and spill bytes per kernel
              instantiation, from ptxas; a spill or a stack frame in a bf16
-             tensor-core attention kernel (contiguous or paged), in any SSD
-             kernel or in any RG-LRU kernel fails, and so does a build
-             without the paged instantiations or an SSD library whose SASS
-             (cuobjdump) holds no TF32 tensor-core instruction
+             tensor-core attention kernel (the mma.sync and the wgmma
+             designs, contiguous or paged), in any SSD kernel or in any
+             RG-LRU kernel fails, and so does a build without either
+             design's paged or contiguous instantiations or an SSD library
+             whose SASS (cuobjdump) holds no TF32 tensor-core instruction
              (HMMA.1688.F32.TF32).
 3. kernels   each of the 12 kernel entries against its plain PyTorch version
+             (a prefill row named `<entry>_wgmma` where `split.route`
+             gives the call the long-row wgmma kernel, with its `kernel`
+             and host_us: the launch encodes two tensor maps; at the four
+             routing shapes, ROUTING_SHAPES, both bf16 kernels named on
+             the same call, mma_ms / wgmma_ms and their host µs; graph_ms
+             for the encoder and granite's Tq-500 chunk too)
              on the card at the serving path's shapes (the attention
              kernels, RMSNorm and the gated RG-LRU recurrence in bf16
              against the fp32 plain version, the SSD term, the RG-LRU scan
@@ -447,9 +454,14 @@ FAMILIES = {
     "llama-3.2-vision-90b": (8, ("rmsnorm", "add_rmsnorm"), True, (40, 1),
                              {}),
 }
-#: kernels no serve run launches: the TPU kernel's direct counterpart,
-#: which the model's gated entry replaced on the path
-OFF_PATH = ("rglru_scan",)
+#: kernels no FAMILIES serve run launches: the TPU kernel's direct
+#: counterpart, which the model's gated entry replaced on the path; and
+#: the long-row kernel through the block table, since no such run's paged
+#: call packs 128 rows a kv head (two busy lanes take 8 tokens each:
+#: starcoder2's 72 rows, the VLM's 64; seamless's encoder, the long-row
+#: call they make, is contiguous in both layouts). The tp runs' single
+#: lanes of the VLM (16 tokens, 128 rows) launch it.
+OFF_PATH = ("rglru_scan", "paged_flash_attention_wgmma")
 #: attention kernels by layout (paged?): (decode, chunk)
 ATTENTION = {False: ("decode_attention", "flash_attention"),
              True: ("paged_decode_attention", "paged_flash_attention")}
@@ -475,9 +487,11 @@ DEPTH_CUTS = {"llama-3.2-vision-90b": dict(num_layers=16,
                                            num_cross_layers=4)}
 #: launches a first chunk (the step that carries a request's extras) adds
 #: to its forward's: seamless-m4t's encoder, 12 layers (the first ln1
-#: plain, 23 fused norms, 12 non-causal flash calls, in either layout)
+#: plain, 23 fused norms, 12 non-causal flash calls, in either layout, on
+#: the long-row kernel)
 FIRST_CHUNK = {"seamless-m4t-medium": {"rmsnorm": 1, "add_rmsnorm": 23,
-                                       "flash_attention": 12}}
+                                       "flash_attention": 12,
+                                       "flash_attention_wgmma": 12}}
 #: the sliding-window run: mistral-nemo-12b's `sliding(window=...)` through
 #: `build_engine`'s config argument, served like FAMILIES' runs; its
 #: contiguous ring (window + chunk - 1 slots) wraps under the prompts
@@ -603,9 +617,10 @@ def max_err(got, want, bf16: bool = False) -> float:
 # phase 2: build
 
 #: the port's kernel entry functions, as they appear in mangled names
-KERNEL_NAMES = ("mma_attention_kernel", "mma_combine_kernel", "decode_kernel",
-                "flash_kernel", "rmsnorm_kernel", "sumsq_kernel",
-                "scale_kernel", "ssd_kernel", "rglru_kernel")
+KERNEL_NAMES = ("mma_attention_kernel", "mma_combine_kernel",
+                "wg_attention_kernel", "decode_kernel", "flash_kernel",
+                "rmsnorm_kernel", "sumsq_kernel", "scale_kernel",
+                "ssd_kernel", "rglru_kernel")
 
 
 def _label(mangled: str) -> str:
@@ -672,7 +687,8 @@ def kernel_cases(dev):
     RG-LRU recurrence at width 4096 (with ragged widths of 1000)."""
     import torch.nn.functional as F
     from repro_torch.bench.rglru_sweep import gated_inputs
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, split
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
@@ -791,11 +807,26 @@ def kernel_cases(dev):
         n_vis = sum(min(p + 1, end) for p in range(end - Tq, end))
         a = (q, kpool, vpool, qp, kpos, tables)
         cases.append((
-            "paged_flash_attention", label,
+            routed("paged_flash_attention", q, hd, Tq * (H // KV),
+                   tables.shape[1] * kpool.shape[1], kpool.shape[1]), label,
             lambda a=a: ops.paged_flash_attention(*a),
             lambda a=a: ref.paged_flash_attention_ref(*a),
             lambda a=a: ref.paged_flash_attention_ref(*f32(*a)),
             None, read + nbytes(q, qp, q), 4 * hd * H * n_vis, "bf16"))
+
+    def routed(name, q, hd, rows, Tk, bs=None):
+        """The entry's row name: with "_wgmma" where `split.route` gives the
+        call the long-row kernel."""
+        return name + ("_wgmma" if split.route(q.dtype, hd, rows, Tk, bs)
+                       == "wgmma" else "")
+
+    def both_kernels(label, fn):
+        """At the routing shapes, both bf16 kernels named on the same call
+        (`fn(kernel)`), timed as the row's extra calls (mma_ms, wgmma_ms and
+        their host µs)."""
+        if label not in ROUTING_SHAPES:
+            return ()
+        return ({k: lambda k=k: fn(k) for k in ("mma", "wgmma")},)
 
     def flash(Tq, H, KV, hd, label, window=0, ring=0):
         """A chunk of Tq queries ending at position 496 (or Tq) against a
@@ -820,7 +851,7 @@ def kernel_cases(dev):
         seen = int(mask.any(2).sum())
         a = (q, k, v, qp, kp)
         cases.append((
-            "flash_attention", label,
+            routed("flash_attention", q, hd, Tq * (H // KV), Tk), label,
             lambda a=a: ops.flash_attention(*a, window=window),
             lambda a=a: ref.flash_attention_ref(*a, window=window),
             lambda a=a: ref.flash_attention_ref(*f32(*a), window=window),
@@ -828,7 +859,9 @@ def kernel_cases(dev):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=m, enable_gqa=True),
             nbytes(q, q, qp) + seen * (KV * hd * 2 * 2 + 4),
-            4 * hd * H * int(mask.sum()), "bf16"))
+            4 * hd * H * int(mask.sum()), "bf16",
+            *both_kernels(label, lambda kern, a=a: flash_attention_cuda(
+                *a, window=window, _kernel=kern))))
 
     # granite-3-8b
     for B, S in ((1, 1024), (1, 1000), (8, 1024), (8, 1000)):
@@ -885,14 +918,16 @@ def kernel_cases(dev):
             kp = torch.zeros((B, Tk), dtype=torch.int32, device=dev)
         a = (q, k, v, qp, kp)
         cases.append((
-            "flash_attention", label,
+            routed("flash_attention", q, hd, Tq * (H // KV), Tk), label,
             lambda a=a: ops.flash_attention(*a, causal=False),
             lambda a=a: ref.flash_attention_ref(*a, causal=False),
             lambda a=a: ref.flash_attention_ref(*f32(*a), causal=False),
             lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 enable_gqa=True),
-            nbytes(q, q, qp, k, v, kp), 4 * hd * H * B * Tq * Tk, "bf16"))
+            nbytes(q, q, qp, k, v, kp), 4 * hd * H * B * Tq * Tk, "bf16",
+            *both_kernels(label, lambda kern, a=a: flash_attention_cuda(
+                *a, causal=False, _kernel=kern))))
 
     def paged_cross(B, Tq, Tk, H, KV, hd, label):
         """The paged cross read: B requests' cross K/V rows of 13 slots
@@ -907,7 +942,8 @@ def kernel_cases(dev):
         qp = torch.zeros((B, Tq), dtype=torch.int32, device=dev)
         a = (q, kpool, vpool, qp, kpos, tables)
         cases.append((
-            "paged_flash_attention", label,
+            routed("paged_flash_attention", q, hd, Tq * (H // KV), Tk, Tk),
+            label,
             lambda a=a: ops.paged_flash_attention(*a, causal=False),
             lambda a=a: ref.paged_flash_attention_ref(*a, causal=False),
             lambda a=a: ref.paged_flash_attention_ref(*f32(*a),
@@ -1132,7 +1168,16 @@ GRAPH_CASES = {("rmsnorm", "rows=8 d=4096"), ("add_rmsnorm", "rows=8 d=4096"),
                ("paged_decode_attention", "B=8 blocks=241"),
                ("flash_attention", "Tq=16 Tk=1024"),
                ("paged_flash_attention", "Tq=16 MB=64 bs=16"),
+               ("flash_attention_wgmma", "encoder Tq=Tk=1024 hd=64 G=1"),
+               ("flash_attention_wgmma", "Tq=500 Tk=1024"),
                ("rglru_gated_scan", "B=8 T=1 W=4096 bf16")}
+
+#: the shapes at which both bf16 prefill kernels are timed on the same call
+#: (the route's evidence): packed rows M = Tq * G of 64 (granite's Tq-16
+#: chunk, kept on the mma.sync kernel), 128 (the VLM's Tq-16 cross chunk at
+#: G 8), 1024 (seamless's encoder) and 2000 (granite's Tq 500 at G 4)
+ROUTING_SHAPES = ("Tq=16 Tk=1024", "cross Tq=16 Tk=1601 G=8",
+                  "encoder Tq=Tk=1024 hd=64 G=1", "Tq=500 Tk=1024")
 
 #: the split form's cases: rows (a decode step's 8, a 16-token chunk's)
 #: and (d_inner, a TP-2 rank's share) of mamba2-2.7b
@@ -1161,6 +1206,13 @@ KERNELS = {
     "paged_flash_attention": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:61", "Tq=16 MB=64 bs=16"),
+    "flash_attention_wgmma": (
+        "cuda", "src/repro_torch/kernels/csrc/flash_wgmma.cuh",
+        "src/repro/kernels/flash_attention.py:61",
+        "encoder Tq=Tk=1024 hd=64 G=1"),
+    "paged_flash_attention_wgmma": (
+        "cuda", "src/repro_torch/kernels/csrc/flash_wgmma.cuh",
+        "src/repro/kernels/flash_attention.py:61", "Tq=500 MB=64 bs=16"),
     "rmsnorm": (
         "cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "src/repro/kernels/rmsnorm.py:25", "rows=8 d=4096"),
@@ -1206,6 +1258,10 @@ def run_kernels(dev):
                  library_ms=time_ms(lib, flush) if lib else None,
                  bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=n_ops,
                  peak=f"{peak} {PEAK_FLOPS[peak] / 1e12} TFLOP/s")
+        if "flash_attention" in name:
+            r["kernel"] = "wgmma" if name.endswith("_wgmma") else "mma"
+        if name.endswith("_wgmma"):  # the tensor maps are encoded a launch
+            r["host_us"] = host_us(kern)
         if name in ("rmsnorm", "add_rmsnorm", "rmsnorm_split"):
             r.update(host_us=host_us(kern), library_host_us=host_us(lib))
         if name.startswith("rglru"):
@@ -2290,7 +2346,9 @@ def run_tp_kernels(dev):
                                        else t for t in a], **kw)
             lib = sdpa(case, a)
             b_ms, b_by = bound(case.rank_bytes(), case.rank_ops(), case.peak)
-            r = dict(name=case.name, case=f"TP-2 rank 0: {case.label}",
+            name = case.name + ("_wgmma" if case.kernel(tp_slices.M)
+                                 == "wgmma" else "")
+            r = dict(name=name, case=f"TP-2 rank 0: {case.label}",
                      max_abs_err=max_err(got, want),
                      tol=f"{ATOL} + {RTOL} * |plain|",
                      ms=time_ms(lambda: case.fn(*a), flush),
@@ -4066,17 +4124,18 @@ def main() -> int:
     hmma = tf32_hmma_count("ssd_scan")
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
          ssd_tf32_hmma=hmma)
-    spills = [r for r in ptxas if (r["kernel"].startswith("mma_")
+    spills = [r for r in ptxas if (r["kernel"].startswith(("mma_", "wg_"))
                                    or r["lib"] in ("ssd_scan", "rglru_scan"))
               and (r["spill_stores"] or r["spill_loads"] or r["stack"])]
-    mma = [r["kernel"] for r in ptxas
-           if r["kernel"].startswith("mma_attention_kernel")]
-    if spills or not any(k.endswith(", true>") for k in mma) \
-            or not any(k.endswith(", false>") for k in mma):
+    for kind in ("mma_attention_kernel", "wg_attention_kernel"):
+        built = [r["kernel"] for r in ptxas if r["kernel"].startswith(kind)]
+        if not any(k.endswith(", true>") for k in built) \
+                or not any(k.endswith(", false>") for k in built):
+            raise AssertionError(f"{kind}: the paged or the contiguous "
+                                 f"instantiations were not built: {built}")
+    if spills:
         raise AssertionError(f"tensor-core attention, SSD or RG-LRU kernels "
-                             f"spill or have a stack frame "
-                             f"(or the paged or contiguous ones were not "
-                             f"built): {spills}")
+                             f"spill or have a stack frame: {spills}")
     if hmma == 0:
         raise AssertionError("the SSD kernel has no TF32 tensor-core "
                              "instruction in its SASS")
@@ -4261,9 +4320,12 @@ def main() -> int:
     for name, (route, source, replaces, case) in KERNELS.items():
         rows = [r for r in kres if r["name"] == name]
         main_row = next(r for r in rows if r["case"] == case)
+        # an entry's count holds every call; its wgmma calls are counted
+        # apart too, so the mma.sync kernel's launches are the rest
+        n = launches.get(name, 0) - launches.get(f"{name}_wgmma", 0)
         summary.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=launches[name],
+            launches=n,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

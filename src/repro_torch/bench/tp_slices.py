@@ -110,6 +110,18 @@ class Case:
                               a.shape[ax] // m).contiguous()
                      for a, ax in zip(self.args, self.heads))
 
+    def _rows(self, m: int) -> int:
+        return self.rows if self.kv_split else self.rows // m
+
+    def kernel(self, m: int = 1) -> str:
+        """The bf16 kernel a launch on 1/m of the query heads takes: the
+        prefill entries' route ("mma" or "wgmma"), "mma" for decode."""
+        if "flash" not in self.name:
+            return "mma"
+        bs = self.args[1].shape[1] if self.name.startswith("paged") else None
+        return split.route(self.args[0].dtype, self.hd, self._rows(m),
+                           self.key_slots, bs)
+
     def splits(self, m: int = 1) -> int:
         """The bf16 attention kernels' key-axis split count of a launch on
         1/m of the query heads (m = 1: the whole launch); 1 in fp32 and
@@ -117,11 +129,9 @@ class Case:
         if self.args[0].dtype != torch.bfloat16 or not self.attention:
             return 1
         kv = self.kv // m if self.kv_split else self.kv
-        rows = self.rows if self.kv_split else self.rows // m
-        return split.num_splits(
-            self.batch, kv, split.row_tiles(rows),
-            -(-self.key_slots // split.key_tile(self.hd, rows)),
-            split.sm_count(self.args[0].device.index))
+        return split.launch_splits(self.kernel(m), self.batch, kv,
+                                   self._rows(m), self.key_slots, self.hd,
+                                   split.sm_count(self.args[0].device.index))
 
     def rank_bytes(self, m: int = M) -> int:
         """Bytes one rank's launch must move: its q and output, its share

@@ -41,12 +41,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "attention_combine": [_I] + [_P] * 3 + [_I] * 3 + [_P],
     },
     "flash_attention": {
-        # dtype, q, k, v, q_pos, k_pos, out, part_o, part_ml,
+        # dtype, kernel, q, k, v, q_pos, k_pos, out, part_o, part_ml,
         # B, Tq, Tk, H, KV, hd, window, causal, n_splits, stream
-        "flash_attention": [_I] + [_P] * 8 + [_I] * 9 + [_P],
-        # q, k_pool, v_pool, q_pos, kpos_pool, tables, out, part_o, part_ml,
-        # B, Tq, H, KV, hd, block_size, MB, window, causal, n_splits, stream
-        "paged_flash_attention": [_P] * 9 + [_I] * 10 + [_P],
+        "flash_attention": [_I] * 2 + [_P] * 8 + [_I] * 9 + [_P],
+        # kernel, q, k_pool, v_pool, q_pos, kpos_pool, tables, out, part_o,
+        # part_ml, B, Tq, H, KV, hd, NB, block_size, MB, window, causal,
+        # n_splits, stream
+        "paged_flash_attention": [_I] + [_P] * 9 + [_I] * 11 + [_P],
     },
     "rmsnorm": {
         # dtype, x, w, out, rows, d, eps, stream

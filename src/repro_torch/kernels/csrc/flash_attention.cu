@@ -1,19 +1,25 @@
 // Causal / non-causal flash attention for Hopper (sm_90a): the prefill
 // (chunk of T > 1 queries) attention of the serving path, over a
 // contiguous cache row (`flash_attention`) or through the paged pools and
-// a block table (`paged_flash_attention`, bf16).
+// a block table (`paged_flash_attention`).
 //
 // Replaces the Pallas kernel `flash_attention_kernel` of
 // src/repro/kernels/flash_attention.py.
 //
-// Bound: at the chunk lengths of chunked prefill against a 1k-slot cache
-// the work is small (16 queries x G heads per kv head) and bound by the
-// K/V bytes of the visible keys and by latency; at long chunks it nears
-// the card's operations-per-byte line, so the products belong on the
-// tensor cores.
+// Bound: a serving chunk (16 tokens x G heads against a 1k-slot cache) is
+// small work, bound by the visible keys' K/V bytes and by latency; a long
+// call (the seamless encoder's 1024 x 1024, a 500-token chunk) does some
+// 500 operations a byte, above the card's 295: bound by operations, which
+// only wgmma runs at the tensor cores' rate.
 //
-// Which dtype takes which path:
-// * bf16 (the serving dtype): the tensor-core kernel of attention_mma.cuh.
+// Which call takes which kernel (the `kernel` argument, decided in Python
+// by `kernels/split.py: route` from the dtype, head_dim, packed rows M =
+// Tq * G, Tk and the block size):
+// * bf16, M at least `split.WGMMA_MIN_ROWS`, head_dim 64 or 128 (kernel
+//   1): the long-row kernel of flash_wgmma.cuh: 128 rows a block, a TMA
+//   producer warp feeding a ring of K/V stages, two consumer warpgroups on
+//   wgmma (S from shared memory, P V with P in registers).
+// * bf16 otherwise (kernel 0): the tensor-core kernel of attention_mma.cuh.
 //   A block packs the G query heads of one kv head as rows, token-major
 //   (row (t, g) is q[b, t, kvh*G + g]), so a 16-token chunk of granite
 //   fills 64 rows and K/V are read once for all G heads; S and P V are
@@ -35,13 +41,13 @@
 //   issues all of its 16-byte loads of a tile before it converts and
 //   stores any, so a tile's loads are in flight together.
 //
-// Both paths: masks are the JAX package's: kpos >= 0, causal kpos <= qpos,
+// All paths: masks are the JAX package's: kpos >= 0, causal kpos <= qpos,
 // window kpos > qpos - window. Masked scores take -1e30 and probability
 // exactly 0; the denominator is clamped at 1e-30. Ragged Tq and Tk tails
 // are masked, never padded. A K/V tile in which no key is visible to any
 // row of the block (empty cache slots, keys past the causal edge) is
 // skipped whole.
-#include "attention_mma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -216,25 +222,31 @@ int dispatch_fp32(int hd, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128, 256}. Returns
-// cudaGetLastError() after the last launch. bf16 goes to the tensor-core
-// kernel, with n_splits key ranges and, when n_splits > 1, the scratch
-// part_o (n_splits, B*Tq*H, hd) fp32 and part_ml (n_splits, B*Tq*H, 2)
-// fp32 for the combine pass; fp32 goes to `flash_kernel` and ignores the
-// three.
-extern "C" int flash_attention(int dtype, const void* q, const void* k,
-                               const void* v, const void* q_pos,
-                               const void* k_pos, void* out, void* part_o,
-                               void* part_ml, int B, int Tq, int Tk, int H,
-                               int KV, int hd, int window, int causal,
-                               int n_splits, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128, 256}; kernel: 0 =
+// the dtype's kernel (bf16: attention_mma.cuh's, fp32: `flash_kernel`), 1
+// = the long-row kernel of flash_wgmma.cuh (bf16, hd 64 or 128). Returns
+// cudaGetLastError() after the last launch. bf16 takes n_splits key
+// ranges and, when n_splits > 1, the scratch part_o (n_splits, B*Tq*H, hd)
+// fp32 and part_ml (n_splits, B*Tq*H, 2) fp32 for the combine pass; fp32
+// ignores the three.
+extern "C" int flash_attention(int dtype, int kernel, const void* q,
+                               const void* k, const void* v,
+                               const void* q_pos, const void* k_pos,
+                               void* out, void* part_o, void* part_ml, int B,
+                               int Tq, int Tk, int H, int KV, int hd,
+                               int window, int causal, int n_splits,
+                               void* stream) {
   if (KV <= 0 || H % KV || Tq <= 0 || Tk <= 0 || hd < 32)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
+  if (dtype == 1 && kernel == 1)
+    return repro::wg_attention(hd, q, k, v, q_pos, k_pos, nullptr, 0, 0, 0,
+                               out, part_o, part_ml, B, Tq, Tk, H, KV, window,
+                               causal, n_splits, stream);
+  if (dtype == 1 && kernel == 0)
     return repro::mma_attention(hd, q, k, v, q_pos, k_pos, nullptr, 0, out,
                                 part_o, part_ml, B, Tq, Tk, H, KV, window,
                                 causal, n_splits, stream);
-  if (dtype == 0)
+  if (dtype == 0 && kernel == 0)
     return dispatch_fp32(hd, q, k, v, q_pos, k_pos, out, B, Tq, Tk, H, KV,
                          window, causal, stream);
   return (int)cudaErrorInvalidValue;
@@ -242,20 +254,28 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
 
 // bf16 only: q/out (B, Tq, H, hd); k/v_pool (NB, block_size, KV, hd);
 // kpos_pool (NB, block_size); tables (B, MB), -1 = unallocated; the logical
-// row is MB * block_size slots. Scratch and n_splits as `flash_attention`.
-// (fp32 inputs gather the paged view in the wrapper and take
-// `flash_attention`.)
-extern "C" int paged_flash_attention(const void* q, const void* k_pool,
-                                     const void* v_pool, const void* q_pos,
-                                     const void* kpos_pool, const void* tables,
-                                     void* out, void* part_o, void* part_ml,
-                                     int B, int Tq, int H, int KV, int hd,
+// row is MB * block_size slots. kernel, scratch and n_splits as
+// `flash_attention`. (fp32 inputs gather the paged view in the wrapper and
+// take `flash_attention`.)
+extern "C" int paged_flash_attention(int kernel, const void* q,
+                                     const void* k_pool, const void* v_pool,
+                                     const void* q_pos, const void* kpos_pool,
+                                     const void* tables, void* out,
+                                     void* part_o, void* part_ml, int B,
+                                     int Tq, int H, int KV, int hd, int NB,
                                      int block_size, int MB, int window,
                                      int causal, int n_splits, void* stream) {
   if (KV <= 0 || H % KV || Tq <= 0 || MB <= 0 || hd < 32)
     return (int)cudaErrorInvalidValue;
-  return repro::mma_attention(hd, q, k_pool, v_pool, q_pos, kpos_pool, tables,
-                              block_size, out, part_o, part_ml, B, Tq,
-                              MB * block_size, H, KV, window, causal,
-                              n_splits, stream);
+  if (kernel == 1)
+    return repro::wg_attention(hd, q, k_pool, v_pool, q_pos, kpos_pool,
+                               tables, block_size, MB, NB, out, part_o,
+                               part_ml, B, Tq, MB * block_size, H, KV, window,
+                               causal, n_splits, stream);
+  if (kernel == 0)
+    return repro::mma_attention(hd, q, k_pool, v_pool, q_pos, kpos_pool,
+                                tables, block_size, out, part_o, part_ml, B,
+                                Tq, MB * block_size, H, KV, window, causal,
+                                n_splits, stream);
+  return (int)cudaErrorInvalidValue;
 }

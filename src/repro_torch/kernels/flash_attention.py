@@ -7,19 +7,30 @@ their plain versions. Ragged Tq/Tk tails are masked in the kernel, so
 chunks of any length go through unpadded. CUDA tensors only: `ops`
 dispatches CPU tensors to the plain versions.
 
-A serving chunk (16 tokens against a 1k-slot row) is small work, bound by
-the visible keys' K/V bytes and by latency. bf16 (the serving dtype) runs
-the tensor-core kernel of `csrc/attention_mma.cuh`: rows are (token, head
-in group) pairs of one kv head, token-major, so K/V are read once for all
-G heads; S and P V are mma.sync products from bf16 tiles loaded with
-cp.async one ahead of the one in use; a tile no row can see is skipped;
-and the key axis is split across blocks when the grid is under half a
-wave, with the count from `split.num_splits` and the combine pass that
-decode shares. A paged chunk in bf16 runs the same kernel through the
-block table (the walk of `split.paged_slots`), so no per-request view of
-the pools is gathered. fp32 runs the CUDA-core fp32 kernel.
+Two bf16 designs, picked per call by `split.route` (dtype, head_dim,
+packed rows M = Tq * G, Tk, block size):
+* a serving chunk (16 tokens against a 1k-slot row, M = 16 G) is small
+  work, bound by the visible keys' K/V bytes and by latency: the mma.sync
+  kernel of `csrc/attention_mma.cuh`, rows (token, head in group) pairs of
+  one kv head, token-major, so K/V are read once for all G heads; cp.async
+  tiles one ahead of the one in use; a tile no row can see is skipped; the
+  key axis split across blocks when the grid is under half a wave
+  (`split.num_splits`, the combine pass that decode shares); paged, the
+  same kernel walks the block table (`split.paged_slots`);
+* a call of at least `split.WGMMA_MIN_ROWS` packed rows at head_dim 64 or
+  128 (the seamless encoder, long prefill chunks) is bound by operations:
+  the long-row kernel of `csrc/flash_wgmma.cuh`, 128 rows a block, K/V by
+  TMA into a ring of stages from tensor maps encoded here each call (on the
+  host, in the C entry), two consumer warpgroups on wgmma; paged, its
+  producer reads the block table.
+fp32 runs the CUDA-core fp32 kernel. `_kernel` names the kernel instead
+of the route: `ops` passes the route it counts launches by, and the
+kernels phase of `chip_smoke.py` times "mma" and "wgmma" on the same
+calls; a call the named kernel cannot run raises.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -28,8 +39,24 @@ from repro_torch.kernels import _build, ref, split
 HEAD_DIMS = (32, 64, 128, 256)
 
 
+def _kernel_for(q, hd: int, rows: int, Tk: int, kernel: Optional[str],
+                block_size: Optional[int] = None) -> str:
+    """The routed kernel, or the named one ("fp32", "mma", "wgmma") after
+    checking that it takes the call."""
+    if kernel is None:
+        return split.route(q.dtype, hd, rows, Tk, block_size)
+    bf16 = q.dtype == torch.bfloat16
+    if not (kernel == "fp32" and not bf16 or kernel == "mma" and bf16
+            or kernel == "wgmma"
+            and split.wgmma_takes(q.dtype, hd, Tk, block_size)):
+        raise ValueError(f"flash_attention: kernel {kernel!r} does not take "
+                         f"{q.dtype} hd={hd} Tk={Tk} block_size="
+                         f"{block_size}")
+    return kernel
+
+
 def flash_attention_cuda(q, k, v, q_pos, k_pos, *, window: int = 0,
-                         causal: bool = True):
+                         causal: bool = True, _kernel: Optional[str] = None):
     """q: (B, Tq, H, hd); k/v: (B, Tk, KV, hd); q_pos: (B, Tq);
     k_pos: (B, Tk). Returns (B, Tq, H, hd)."""
     B, Tq, H, hd = q.shape
@@ -45,24 +72,26 @@ def flash_attention_cuda(q, k, v, q_pos, k_pos, *, window: int = 0,
     out = torch.empty_like(q)
     ptrs = _build.cuda_args(q, k, v, dtype=q.dtype) \
         + _build.cuda_args(q_pos, k_pos, out)
+    kernel = _kernel_for(q, hd, Tq * (H // KV), Tk, _kernel)
     n_splits, scratch = split.plan(q, B, KV, Tq * (H // KV), Tk, hd,
-                                   B * Tq * H)
+                                   B * Tq * H, kernel=kernel)
     lib = _build.library("flash_attention")
     _build.check(lib.flash_attention(
-        _build.DTYPE_CODE[q.dtype], *ptrs, *split.pointers(scratch), B, Tq,
-        Tk, H, KV, hd, window, int(causal), n_splits, _build.stream()),
-        "flash_attention")
+        _build.DTYPE_CODE[q.dtype], split.KERNEL_CODE[kernel], *ptrs,
+        *split.pointers(scratch), B, Tq, Tk, H, KV, hd, window, int(causal),
+        n_splits, _build.stream()), f"flash_attention ({kernel})")
     return out
 
 
 def paged_flash_attention_cuda(q, k_pool, v_pool, q_pos, kpos_pool, tables,
-                               *, window: int = 0, causal: bool = True):
+                               *, window: int = 0, causal: bool = True,
+                               _kernel: Optional[str] = None):
     """q: (B, Tq, H, hd); k/v_pool: (NB, bs, KV, hd); q_pos: (B, Tq);
     kpos_pool: (NB, bs); tables: (B, MB), -1 = unallocated. Returns
     (B, Tq, H, hd).
 
-    bf16 (the serving dtype) walks the block table in the tensor-core
-    kernel. fp32 (the on-card model tests) is routed by its dtype to the
+    bf16 (the serving dtype) walks the block table in the routed
+    tensor-core kernel. fp32 (the on-card model tests) is routed by its dtype to the
     fp32 CUDA-core kernel over the gathered per-request view
     (`ref.paged_view`), which that kernel reads contiguously."""
     B, Tq, H, hd = q.shape
@@ -79,17 +108,19 @@ def paged_flash_attention_cuda(q, k_pool, v_pool, q_pos, kpos_pool, tables,
     if q.dtype == torch.float32:
         k, v, k_pos = ref.paged_view(k_pool, v_pool, kpos_pool, tables)
         return flash_attention_cuda(q, k, v, q_pos, k_pos, window=window,
-                                    causal=causal)
+                                    causal=causal, _kernel=_kernel)
     q_pos = q_pos.to(torch.int32).contiguous()
     kpos_pool = kpos_pool.to(torch.int32).contiguous()
     tables = tables.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     ptrs = _build.cuda_args(q, k_pool, v_pool, dtype=q.dtype) \
         + _build.cuda_args(q_pos, kpos_pool, tables, out)
+    kernel = _kernel_for(q, hd, Tq * (H // KV), MB * bs, _kernel, bs)
     n_splits, scratch = split.plan(q, B, KV, Tq * (H // KV), MB * bs, hd,
-                                   B * Tq * H)
+                                   B * Tq * H, kernel=kernel)
     lib = _build.library("flash_attention")
     _build.check(lib.paged_flash_attention(
-        *ptrs, *split.pointers(scratch), B, Tq, H, KV, hd, bs, MB, window,
-        int(causal), n_splits, _build.stream()), "paged_flash_attention")
+        split.KERNEL_CODE[kernel], *ptrs, *split.pointers(scratch), B, Tq, H,
+        KV, hd, NB, bs, MB, window, int(causal), n_splits, _build.stream()),
+        f"paged_flash_attention ({kernel})")
     return out

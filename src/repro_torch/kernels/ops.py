@@ -6,6 +6,9 @@ A meta tensor (the dry run) goes to the entry's meta form (`meta`): what
 the kernel's wrapper allocates, and its FLOPs from the shapes.
 `LAUNCHES` counts kernel launches per kernel (plain-version calls are not
 counted), so a run can show that its main path went through the kernels.
+A prefill call counts under its entry ("flash_attention",
+"paged_flash_attention") whichever kernel `split.route` gives it, and
+under "<entry>_wgmma" too when that is the long-row wgmma kernel.
 
 The kernels have no backward. A CUDA entry given an input that requires
 grad while grad mode is on raises (`_no_backward`), where it would
@@ -18,7 +21,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import meta, ref
+from repro_torch.kernels import meta, ref, split
 from repro_torch.kernels.decode_attention import (
     attention_combine_cuda, decode_attention_cuda,
     decode_attention_partial_cuda, paged_decode_attention_cuda)
@@ -35,7 +38,9 @@ LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "decode_attention_partial": 0,
                             "attention_combine": 0,
                             "flash_attention": 0,
-                            "paged_flash_attention": 0, "rmsnorm": 0,
+                            "paged_flash_attention": 0,
+                            "flash_attention_wgmma": 0,
+                            "paged_flash_attention_wgmma": 0, "rmsnorm": 0,
                             "add_rmsnorm": 0, "rmsnorm_split": 0,
                             "ssd_intra": 0,
                             "rglru_scan": 0, "rglru_gated_scan": 0}
@@ -123,9 +128,13 @@ def flash_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, window=window,
                                        causal=causal)
     _no_backward("flash_attention", q, k, v)
+    rows = q.shape[1] * (q.shape[2] // k.shape[2])  # Tq * G
+    kernel = split.route(q.dtype, q.shape[3], rows, k.shape[1])
     out = flash_attention_cuda(q, k, v, q_pos, k_pos, window=window,
-                               causal=causal)
+                               causal=causal, _kernel=kernel)
     LAUNCHES["flash_attention"] += 1
+    if kernel == "wgmma":
+        LAUNCHES["flash_attention_wgmma"] += 1
     return out
 
 
@@ -142,9 +151,14 @@ def paged_flash_attention(q, k_pool, v_pool, q_pos, kpos_pool, tables, *,
                                              kpos_pool, tables, window=window,
                                              causal=causal)
     _no_backward("paged_flash_attention", q, k_pool, v_pool)
+    rows, bs = q.shape[1] * (q.shape[2] // k_pool.shape[2]), k_pool.shape[1]
+    kernel = split.route(q.dtype, q.shape[3], rows, tables.shape[1] * bs, bs)
     out = paged_flash_attention_cuda(q, k_pool, v_pool, q_pos, kpos_pool,
-                                     tables, window=window, causal=causal)
+                                     tables, window=window, causal=causal,
+                                     _kernel=kernel)
     LAUNCHES["paged_flash_attention"] += 1
+    if kernel == "wgmma":
+        LAUNCHES["paged_flash_attention_wgmma"] += 1
     return out
 
 

@@ -1255,10 +1255,109 @@ def test_paged_cross_read_on_card(cuda, dtype, Tq, S, H, KV, hd):
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
     assert bool((got[2] == 0).all())
     if dt == torch.bfloat16:
-        flat = ops.flash_attention(q, kpool[r], vpool[r], qp,
-                                   torch.zeros((B, S), dtype=torch.int32,
-                                               device=cuda), causal=False)
+        # the paged walk is the contiguous walk of the same (mma.sync)
+        # kernel: a 16-token chunk of the VLM's 128 rows routes to the
+        # wgmma kernel when contiguous, and blocks of 1601 do not box
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        flat = flash_attention_cuda(q, kpool[r], vpool[r], qp,
+                                    torch.zeros((B, S), dtype=torch.int32,
+                                                device=cuda), causal=False,
+                                    _kernel="mma")
         torch.testing.assert_close(got, flat, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,causal,window,fill,empty_row", [
+    (1, 1024, 1024, 16, 16, 64, False, 0, 1024, False),  # the encoder
+    (1, 500, 1024, 32, 8, 128, True, 0, 496, False),     # granite Tq 500
+    (1, 256, 1024, 8, 4, 64, True, 100, 900, False),     # a sliding window
+    (2, 64, 1024, 36, 4, 128, True, 0, 700, False),      # G 9 straddles
+    (1, 16, 1601, 64, 8, 128, False, 0, 1601, False),    # ragged, split
+    (2, 200, 512, 4, 4, 64, True, 0, 400, True),         # a row sees none
+])
+def test_wgmma_flash_kernel_on_card(cuda, B, Tq, Tk, H, KV, hd, causal,
+                                    window, fill, empty_row):
+    """The long-row kernel (wgmma over a TMA ring) on the calls it is
+    routed: bf16 against the fp32 plain version at atol = rtol = 2e-2; each
+    row's last query at position fill - 1 (causal) over slots filled to
+    `fill` (-1 past it); a row whose slots are all empty comes out exactly
+    0. One launch a call, counted under the entry and under its wgmma
+    key; the VLM's Tq-16 cross chunk (8 blocks) splits its key tiles."""
+    from repro_torch.kernels import split
+    rng = np.random.RandomState(30)
+    ar = np.arange(Tk, dtype=np.int32)
+    kp = np.tile(np.where(ar < fill, ar, -1), (B, 1))
+    if empty_row:
+        kp[0] = -1
+    qp = np.tile(np.arange(fill - Tq, fill, dtype=np.int32) if causal
+                 else np.arange(Tq, dtype=np.int32), (B, 1))
+    q, k, v, qpt, kpt = _on(cuda, rng.randn(B, Tq, H, hd),
+                            rng.randn(B, Tk, KV, hd),
+                            rng.randn(B, Tk, KV, hd), qp, kp)
+    rows = Tq * (H // KV)
+    assert split.route(q.dtype, hd, rows, Tk) == "wgmma"
+    got = ops.flash_attention(q, k, v, qpt, kpt, window=window, causal=causal)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), qpt, kpt,
+                                   window=window, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES["flash_attention_wgmma"] == 1
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    if empty_row:
+        assert bool((got[0] == 0).all())
+    if Tk == 1601:
+        assert split.launch_splits("wgmma", B, KV, rows, Tk, hd,
+                                   split.sm_count(cuda.index or 0)) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq,H,KV,hd,bs,lens,holes", [
+    (500, 32, 8, 128, 16, [496, 301], {(1, 3)}),  # granite Tq 500, bs 16
+    (300, 8, 8, 64, 128, [700], set()),           # blocks of 128
+    (200, 16, 4, 64, 32, [333, 64], {(0, 5)}),    # blocks of 32: 2 boxes
+])
+def test_wgmma_paged_flash_kernel_on_card(cuda, Tq, H, KV, hd, bs, lens,
+                                          holes):
+    """The long-row kernel through the block table: shuffled physical
+    blocks, -1 table tails and holes (a box with no block is zeroed, its
+    slots empty), a stale block no table names; against the fp32 plain
+    version and one launch a call."""
+    from repro_torch.kernels import split
+    rng = np.random.RandomState(31)
+    MB = -(-1024 // bs)
+    kp, vp, kpos, tables = _paged_pools(rng, lens, bs, MB, KV, hd, holes)
+    B = len(lens)
+    qp = np.stack([np.arange(n - Tq, n, dtype=np.int32) for n in lens])
+    q, kpool, vpool, qpt, kpt, tbl = _on(cuda, rng.randn(B, Tq, H, hd), kp,
+                                         vp, qp, kpos, tables)
+    assert split.route(q.dtype, hd, Tq * (H // KV), MB * bs, bs) == "wgmma"
+    got = ops.paged_flash_attention(q, kpool, vpool, qpt, kpt, tbl)
+    want = ref.paged_flash_attention_ref(q.float(), kpool.float(),
+                                         vpool.float(), qpt, kpt, tbl)
+    assert ops.LAUNCHES["paged_flash_attention"] == 1
+    assert ops.LAUNCHES["paged_flash_attention_wgmma"] == 1
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_wgmma_kernel_refuses_what_it_cannot_run(cuda):
+    """Named on a call it cannot run (hd 256, fp32, a block size it cannot
+    box), the wgmma kernel raises; nothing falls back."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, paged_flash_attention_cuda)
+    z = torch.zeros
+    i32 = dict(dtype=torch.int32, device=cuda)
+    for hd, dt in ((256, torch.bfloat16), (64, torch.float32)):
+        q = z((1, 128, 1, hd), dtype=dt, device=cuda)
+        kv = z((1, 256, 1, hd), dtype=dt, device=cuda)
+        with pytest.raises(ValueError):
+            flash_attention_cuda(q, kv, kv, z((1, 128), **i32),
+                                 z((1, 256), **i32), _kernel="wgmma")
+    q = z((1, 128, 1, 64), dtype=torch.bfloat16, device=cuda)
+    pool = z((4, 100, 1, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        paged_flash_attention_cuda(q, pool, pool, z((1, 128), **i32),
+                                   z((4, 100), **i32), z((1, 2), **i32),
+                                   _kernel="wgmma")
 
 
 @pytest.mark.cuda

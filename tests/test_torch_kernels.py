@@ -171,6 +171,42 @@ def test_flash_attention_plain_matches_jax(Tq, Tk, H, KV, hd, bq, bk, window,
                                           block_k=bk)), **tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,window,causal,empty", [
+    (1, 160, 160, 2, 2, 64, 0, False, (150, 160)),  # encoder-like, G 1
+    (2, 128, 200, 4, 2, 64, 0, True, (190, 200)),   # 256 rows, Tk % 64 != 0
+    (1, 128, 192, 2, 2, 64, 50, True, (0, 8)),      # sliding window
+    (1, 16, 100, 9, 1, 64, 0, True, (40, 48)),      # G 9: 144 rows
+])
+def test_flash_attention_plain_matches_jax_long_rows(B, Tq, Tk, H, KV, hd,
+                                                     window, causal, empty,
+                                                     dtype):
+    """The long-row regime the wgmma kernel takes (at least 128 packed rows
+    Tq * G a kv head): the plain version the card holds it to against the
+    JAX oracle and, in fp32, the Pallas kernel in interpret mode (one key
+    block of Tk: Tk is not a multiple of 64), with empty (-1) slots in
+    [empty) of every row. Every row sees a key."""
+    rng = np.random.RandomState(11)
+    (jq, q) = both(rng.randn(B, Tq, H, hd), dtype)
+    (jk, k), (jv, v) = (both(a, dtype) for a in rng.randn(2, B, Tk, KV, hd))
+    off = Tk - Tq if causal else 0
+    qpn = np.broadcast_to(off + np.arange(Tq, dtype=np.int32)[None], (B, Tq))
+    kpn = np.broadcast_to(np.arange(Tk, dtype=np.int32)[None], (B, Tk)).copy()
+    kpn[:, empty[0]:empty[1]] = -1
+    (jqp, qp), (jkp, kp) = both(np.ascontiguousarray(qpn)), both(kpn)
+    assert Tq * (H // KV) >= 128
+    got = f32(ops.flash_attention(q, k, v, qp, kp, window=window,
+                                  causal=causal))
+    np.testing.assert_allclose(
+        got, f32(jref.flash_attention_ref(jq, jk, jv, jqp, jkp, window=window,
+                                          causal=causal)), **tol(dtype))
+    if dtype == "float32":
+        np.testing.assert_allclose(
+            got, f32(jops.flash_attention(jq, jk, jv, jqp, jkp, window=window,
+                                          causal=causal, block_q=16,
+                                          block_k=Tk)), **tol(dtype))
+
+
 # ---------------------------------------------------------------------------
 # fused RMSNorm
 

@@ -1,10 +1,13 @@
 """The key-axis split of the bf16 attention kernels (`repro_torch.kernels.
 split`): the split count and the key ranges the kernel cuts, as properties
-over grid sizes and card sizes. CPU only; the kernels themselves are held
+over grid sizes and card sizes; and the route that gives each prefill
+call one of its kernels. CPU only; the kernels themselves are held
 against their plain versions on the card by tests/test_torch_cuda.py."""
+import torch
 from _hypothesis_compat import given, settings, strategies as st
 
 from repro_torch.kernels import split
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 
 GRIDS = st.tuples(st.integers(1, 64), st.integers(1, 16), st.integers(1, 40),
                   st.integers(1, 600), st.sampled_from([1, 8, 66, 114, 132]))
@@ -55,3 +58,79 @@ def test_serving_shapes():
     assert split.num_splits(1, 8, split.row_tiles(2000), 16, 132) == 1
     assert split.num_splits(1, 8, split.row_tiles(4), 16, 132) == 8
     assert split.num_splits(8, 1, split.row_tiles(16), 16, 132) == 8
+
+
+# ---------------------------------------------------------------------------
+# the prefill route: which of the two bf16 designs (or the fp32 kernel)
+# takes a call
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+def test_route_at_the_serving_shapes():
+    """The long-row calls take the wgmma kernel: seamless's encoder (Tq =
+    Tk = 1024, hd 64, G 1) whole and as a TP-2 rank (the same rows a kv
+    head), granite's 500-token chunk (G 4: 2000 rows, hd 128) contiguous
+    and paged, starcoder2's 16-token chunk (G 9: 144 rows), the VLM's
+    16-token cross chunk (G 8: 128 rows over 1601 patches). Granite's
+    16-token chunk (64 rows), the Tq-1 cross decodes, hd 32 and 256, fp32,
+    the paged cross read in blocks of 1601 and rows past the staged key
+    slots do not."""
+    r = split.route
+    assert r(BF, 64, 1024, 1024) == "wgmma"              # encoder, its rank
+    assert r(BF, 128, 500 * 4, 1024) == "wgmma"          # granite Tq 500
+    assert r(BF, 128, 500 * 4, 64 * 16, 16) == "wgmma"   # ... paged
+    assert r(BF, 128, 16 * 9, 1024, 16) == "wgmma"       # starcoder2 Tq 16
+    assert r(BF, 128, 16 * 8, 1601) == "wgmma"           # VLM cross chunk
+    assert r(BF, 128, 16 * 4, 1024) == "mma"             # granite Tq 16
+    assert r(BF, 128, 16 * 4, 64 * 16, 16) == "mma"      # ... paged
+    assert r(BF, 64, 1, 1024) == "mma"                   # cross decode
+    assert r(BF, 128, 8, 1601) == "mma"                  # VLM cross decode
+    assert r(BF, 128, 16 * 8, 1601, 1601) == "mma"       # paged cross, bs 1601
+    assert r(BF, 64, 1024, 1024, 8) == "mma"             # 8-row boxes
+    assert r(BF, 256, 500 * 16, 1024) == "mma"           # recurrentgemma
+    assert r(BF, 32, 1024, 1024) == "mma"                # hd 32
+    assert r(F32, 64, 1024, 1024) == "fp32"
+    assert r(BF, 64, 1024, split.WGMMA_MAX_KEYS + 1) == "mma"
+
+
+def test_wgmma_splits_follow_its_own_blocks():
+    """The encoder's grid (8 row tiles of 128 on 16 kv heads) and granite's
+    Tq-500 chunk (16 on 8) fill the card: no split; a TP-2 rank (half the
+    kv heads) neither; the VLM's Tq-16 cross chunk (1 row tile on 8 kv
+    heads) splits its 26 key tiles of 64 to half a wave."""
+    ls = split.launch_splits
+    assert ls("wgmma", 1, 16, 1024, 1024, 64, 132) == 1
+    assert ls("wgmma", 1, 8, 1024, 1024, 64, 132) == 1
+    assert ls("wgmma", 1, 8, 2000, 1024, 128, 132) == 1
+    assert ls("wgmma", 1, 4, 2000, 1024, 128, 132) == 1
+    assert ls("wgmma", 1, 8, 128, 1601, 128, 132) == 8
+    assert ls("mma", 1, 8, 64, 1024, 128, 132) \
+        == split.num_splits(1, 8, 1, 16, 132)
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(1, 600), st.sampled_from([1, 2, 4, 8, 9, 16]),
+       st.sampled_from(HEAD_DIMS), st.sampled_from([BF, F32]),
+       st.sampled_from([None, 1, 8, 16, 64, 128, 1024, 1601]),
+       st.integers(1, 5000))
+def test_every_call_maps_to_one_kernel_that_takes_it(Tq, G, hd, dtype, bs,
+                                                     Tk):
+    """Every (Tq, G, hd, dtype, block size) at the prefill entries' head
+    dims takes exactly one kernel, and that kernel takes the call: fp32 the
+    CUDA-core kernel, bf16 the mma.sync kernel (every head dim) or, at
+    WGMMA_MIN_ROWS packed rows or more, the wgmma kernel where it can run
+    the call (hd 64 or 128, the key slots it stages, a block size it
+    boxes)."""
+    rows = Tq * G
+    Tk = Tk if bs is None else -(-Tk // bs) * bs
+    kernel = split.route(dtype, hd, rows, Tk, bs)
+    takes = {"fp32": dtype == F32, "mma": dtype == BF,
+             "wgmma": rows >= split.WGMMA_MIN_ROWS
+             and split.wgmma_takes(dtype, hd, Tk, bs)}
+    assert takes[kernel]
+    assert kernel in split.KERNEL_CODE
+    if dtype == F32:
+        assert kernel == "fp32"
+    else:
+        assert (kernel == "wgmma") == takes["wgmma"]
