@@ -43,13 +43,6 @@ class TelemetrySnapshot:
     prefill_lane_occupancy: float = 0.0
     ttft_queue_s: float = 0.0
     ttft_prefill_s: float = 0.0
-    # async dispatch-ahead split (DESIGN §14): recent mean wall-time per
-    # scheduling interval spent on host work (admission, lane packing,
-    # block-table edits) vs blocked at the device-step retirement fence.
-    # Under overlap the device share is the *marginal* wait — device time
-    # the host could not hide — so host+device still sum to the interval.
-    step_host_s: float = 0.0
-    step_device_s: float = 0.0
 
 
 class _Welford:
@@ -88,13 +81,9 @@ class Telemetry:
         # PD-fusion lane stats (DESIGN §6)
         self.lane_occ: Deque[float] = collections.deque(maxlen=window)
         self.lane_tokens: Dict[int, int] = {}     # lane -> prefill tokens packed
-        self.lane_chunks: Dict[int, int] = {}     # lane -> chunks packed
         self.prefill_tokens_total = 0
         self.ttft_queue = _Welford(halflife)
         self.ttft_prefill = _Welford(halflife)
-        # host-vs-device interval split (DESIGN §14)
-        self.host_s: Deque[float] = collections.deque(maxlen=window)
-        self.device_s: Deque[float] = collections.deque(maxlen=window)
 
     # -- event feeds --------------------------------------------------------
     def on_arrival(self, t: float, prompt_len: int):
@@ -115,7 +104,6 @@ class Telemetry:
         self.lane_occ.append(len(lane_tokens) / max(n_lanes, 1))
         for lane, toks in lane_tokens.items():
             self.lane_tokens[lane] = self.lane_tokens.get(lane, 0) + toks
-            self.lane_chunks[lane] = self.lane_chunks.get(lane, 0) + 1
             self.prefill_tokens_total += toks
 
     def on_first_token(self, queue_s: float, prefill_s: float):
@@ -123,14 +111,6 @@ class Telemetry:
         time being chunk-prefilled until the first token (DESIGN §6)."""
         self.ttft_queue.update(max(queue_s, 0.0))
         self.ttft_prefill.update(max(prefill_s, 0.0))
-
-    def on_interval(self, host_s: float, device_s: float):
-        """One scheduling interval's wall-time split: host work (admission,
-        lane packing, table edits) vs blocked wait at the retirement fence
-        (DESIGN §14). Fed immediately, not via the stale-by-one contract —
-        it describes the host loop itself, not the device step's output."""
-        self.host_s.append(host_s)
-        self.device_s.append(device_s)
 
     # -- snapshot ------------------------------------------------------------
     def arrival_rate(self, now: float, horizon: float = 10.0) -> float:
@@ -156,8 +136,6 @@ class Telemetry:
         occ = sum(self.lane_occ) / len(self.lane_occ) if self.lane_occ else 0.0
         tq, _ = self.ttft_queue.get()
         tp, _ = self.ttft_prefill.get()
-        hs = sum(self.host_s) / len(self.host_s) if self.host_s else 0.0
-        ds = sum(self.device_s) / len(self.device_s) if self.device_s else 0.0
         return TelemetrySnapshot(
             n_prefill_waiting=n_prefill, n_decode_running=n_decode,
             mean_in=mi, var_in=vi, mean_out=mo, var_out=vo,
@@ -167,5 +145,4 @@ class Telemetry:
             physical_used_tokens=physical_used_tokens,
             swapped_tokens=swapped_tokens,
             now=now, prefill_lane_occupancy=occ,
-            ttft_queue_s=tq, ttft_prefill_s=tp,
-            step_host_s=hs, step_device_s=ds)
+            ttft_queue_s=tq, ttft_prefill_s=tp)

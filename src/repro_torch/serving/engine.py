@@ -78,6 +78,11 @@ from position 0. As in the reference, a first chunk that carries extras
 runs as a single-row step of its own shape key ("xchunk"), whose static
 (1, enc_len, d) input the extras are staged into; it alone writes the
 request's cross-attention K/V row, which every later step reads.
+
+Tracing (`trace.py`, docs/PORT.md "Tracing the engine"): while a profiler
+collects, a busy `step()` runs inside named profiler ranges and times each
+interval's stream with CUDA events; every busy `step()` appends an
+`Interval` to `self.trace`, index-aligned with `step_host_trace`.
 """
 from __future__ import annotations
 
@@ -105,6 +110,7 @@ from repro_torch.serving.kv_cache import (BlockManager, prefix_cache_supported,
                                           swap_supported)
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import sample
+from repro_torch.serving.trace import STEP_SPANS, EngineTrace, Interval, span
 
 
 def cache_rows(cache: Dict[str, torch.Tensor],
@@ -169,12 +175,17 @@ class _StepRec:
         dataclasses.field(default_factory=list)
     lane_tokens: Optional[Dict[int, int]] = None
     n_decode: int = 0
+    prefill_tokens: int = 0
     dispatched: bool = False
     #: set at dispatch: the tokens' pinned host copy, its staging arena,
     #: and (on the card) the event recorded behind the copy
     host: Optional[torch.Tensor] = None
     arena: int = -1
     event: Optional[torch.cuda.Event] = None
+    #: the interval's trace record, and (spans on, on the card) the timing
+    #: event recorded before its first work
+    interval: Optional[Interval] = None
+    start: Optional[torch.cuda.Event] = None
 
 
 class Engine:
@@ -367,6 +378,11 @@ class Engine:
         # host_s = the remainder
         self.step_host_trace: List[float] = []
         self.step_device_trace: List[float] = []
+        # one record a busy step(), index-aligned with step_host_trace, and
+        # the submitted requests (trace.py); spans live while a profiler is
+        # collecting, decided once a busy step()
+        self.trace = EngineTrace()
+        self._spans = False
 
     # -- cache rows (contiguous layout) -----------------------------------------
     def _rows_view(self, start: int, n: int) -> Dict[str, torch.Tensor]:
@@ -470,6 +486,12 @@ class Engine:
                     self.graphs.capture(st)
             self.graphs.steps[key] = st
         return st
+
+    def _run(self, st: Step) -> torch.Tensor:
+        """`st.run()` inside its span, named by the shape key's first
+        element (`trace.STEP_SPANS`)."""
+        with span(self._spans, STEP_SPANS[st.key[0]]):
+            return st.run()
 
     def _build_step(self, key: Tuple) -> Step:
         """Static inputs holding an all-padding step (positions -1, empty
@@ -601,6 +623,7 @@ class Engine:
             r.extras = self._host_extras(extras)
         self._next_rid += 1
         self.waiting.append(r)
+        self.trace.requests.append(r)
         self.tel.on_arrival(t, r.prompt_len)
         return r
 
@@ -685,27 +708,85 @@ class Engine:
             # and telemetry, never schedulable work, so this call still
             # reports idle and run() counts the synchronous loop's steps
             self._agree(time.perf_counter(), len(self._inflight))
+            self._spans = False
             while self._inflight:
                 self._retire_step()
             self._clock_stale = True
             return False
         self._fresh_clock()
+        on = self._spans = torch.autograd._profiler_enabled()
+        with span(on, "engine.step"):
+            self._interval(on)
+        return True
+
+    def _interval(self, on: bool) -> None:
+        """The busy part of `step()`; `on`: spans and device timing."""
         t0 = time.perf_counter()
-        tel = self.tel.snapshot(
-            now=self._now(),
-            n_prefill=len(self.waiting) + len(self.prefilling),
-            n_decode=len(self.active), free_tokens=self.blocks.free_tokens,
-            logical_used_tokens=self.blocks.logical_used_tokens,
-            physical_used_tokens=self.blocks.physical_used_tokens,
-            swapped_tokens=self.blocks.swapped_tokens)
-        decision = self.policy.step(tel)
+        rec = _StepRec()
+        if on and self.device.type == "cuda":
+            # the interval's device time starts before any of its work
+            rec.start = torch.cuda.Event(enable_timing=True)
+            rec.start.record()
+        now = self._now()
+        rec.interval = iv = Interval(now)
+        with span(on, "engine.schedule"):
+            tel = self.tel.snapshot(
+                now=now,
+                n_prefill=len(self.waiting) + len(self.prefilling),
+                n_decode=len(self.active),
+                free_tokens=self.blocks.free_tokens,
+                logical_used_tokens=self.blocks.logical_used_tokens,
+                physical_used_tokens=self.blocks.physical_used_tokens,
+                swapped_tokens=self.blocks.swapped_tokens)
+            decision = self.policy.step(tel)
         # sim-mirrored admission (DESIGN §7): the controller's cap rounded
         # to the batch buckets, gated by the shared admission verdict
         cap = bucketize(decision.max_batch, self.serve.batch_buckets) \
             if self.serve.batch_buckets else decision.max_batch
         cap = min(cap, decision.max_batch, self.max_slots)
-        rec = _StepRec()
+        with span(on, "engine.admit"):
+            self._admit(cap, rec)
 
+        if self.serve.chunked_prefill:
+            # PD fusion: one fused interval = prefill chunks (within the
+            # controller's token budget) + the decode batch
+            budget = decision.chunk_budget \
+                or self.serve.chunk_budget_tokens
+            if budget <= 0 and self.prefilling and not self.active:
+                # nothing decoding and no token budget: make minimum
+                # progress on one full chunk instead of livelocking
+                budget = self.prefill_chunk
+            if self.prefilling:
+                iv.chunk_budget = budget
+            with span(on, "engine.prefill"):
+                self._advance_prefill(budget, rec)
+        if self.active:
+            with span(on, "engine.decode"):
+                self._decode_once(rec)
+        if rec.dispatched:
+            with span(on, "engine.readback"):
+                self._dispatch_readback(rec)
+            self._inflight.append(rec)
+        agreed_host_s = self._agree(
+            t0, len(self._inflight) - self.overlap_depth)
+        device_s = 0.0
+        while len(self._inflight) > self.overlap_depth:
+            with span(on, "engine.retire"):
+                device_s += self._retire_step()
+        t1 = time.perf_counter()
+        host_s = (t1 - t0) - device_s \
+            if agreed_host_s is None else agreed_host_s
+        iv.n_decode, iv.prefill_tokens = rec.n_decode, rec.prefill_tokens
+        iv.t_end = now + (t1 - t0)
+        self.step_host_trace.append(host_s)
+        self.step_device_trace.append(device_s)
+        self.trace.intervals.append(iv)
+
+    def _admit(self, cap: int, rec: _StepRec) -> None:
+        """Swap-ins, then admissions from `waiting` up to `cap` running
+        requests (prefix sharing, the pool's verdict), then the released
+        blocks' position rows and the preemptions the next decode step's
+        growth needs."""
         # swap-in drain (DESIGN §11): offloaded requests re-enter before
         # any admission, and while any remain `waiting` is held back
         while self.swapped \
@@ -758,34 +839,7 @@ class Engine:
             else:
                 self._prefill_request(r, rec)
         self._drain_released()
-
         self._preempt_if_needed()
-        if self.serve.chunked_prefill:
-            # PD fusion: one fused interval = prefill chunks (within the
-            # controller's token budget) + the decode batch
-            budget = decision.chunk_budget \
-                or self.serve.chunk_budget_tokens
-            if budget <= 0 and self.prefilling and not self.active:
-                # nothing decoding and no token budget: make minimum
-                # progress on one full chunk instead of livelocking
-                budget = self.prefill_chunk
-            self._advance_prefill(budget, rec)
-        if self.active:
-            self._decode_once(rec)
-        if rec.dispatched:
-            self._dispatch_readback(rec)
-            self._inflight.append(rec)
-        agreed_host_s = self._agree(
-            t0, len(self._inflight) - self.overlap_depth)
-        device_s = 0.0
-        while len(self._inflight) > self.overlap_depth:
-            device_s += self._retire_step()
-        host_s = (time.perf_counter() - t0) - device_s \
-            if agreed_host_s is None else agreed_host_s
-        self.step_host_trace.append(host_s)
-        self.step_device_trace.append(device_s)
-        self.tel.on_interval(host_s, device_s)
-        return True
 
     # -- PD fusion internals (DESIGN §6) ---------------------------------------
     def _fill_lanes(self):
@@ -833,7 +887,7 @@ class Engine:
         if "slots" in st.inputs:
             self._stage(st, "slots", np.fromiter((r.slot for r in reqs),
                                                  np.int64, g))
-        return st.run().argmax(-1)
+        return self._run(st).argmax(-1)
 
     def _advance_prefill(self, budget_tokens: int, rec: _StepRec) -> None:
         """Advance up to n_prefill_lanes prefilling requests by one chunk
@@ -874,6 +928,7 @@ class Engine:
                 first_tok[j] = toks[i]
 
         rec.lane_tokens = {j: t for j, _, t in plan}
+        rec.prefill_tokens += sum(rec.lane_tokens.values())
         for _, r, take in plan:
             r.prefill_pos += take
             if self.prefix:
@@ -930,6 +985,7 @@ class Engine:
             r.slot = len(self.active)
             self._clear_row(r.slot)
         r.state = RequestState.PREFILLING
+        rec.prefill_tokens += r.prompt_len - start0
         tok = None
         for start in range(start0, r.prompt_len, self.prefill_chunk):
             r.prefill_pos = start
@@ -1108,7 +1164,7 @@ class Engine:
             slots = np.full(bucket, self.n_slots, np.int64)
             slots[:n] = [r.slot for r in self.active]
             self._stage(st, "slots", slots)
-        logits = st.run()
+        logits = self._run(st)
         sampled = sample(logits[:n], self.generator, self.temperature)
         rec.dec = sampled
         rec.n_decode = n
@@ -1159,7 +1215,7 @@ class Engine:
         rec.host = self._staging.readback(flat)
         rec.arena = self._staging.seal()
         if self.device.type == "cuda":
-            rec.event = torch.cuda.Event()
+            rec.event = torch.cuda.Event(enable_timing=rec.start is not None)
             rec.event.record()
 
     def _retire_step(self) -> float:
@@ -1176,9 +1232,12 @@ class Engine:
         step's TBT sample, as in the reference."""
         rec = self._inflight.popleft()
         t0 = time.perf_counter()
-        if rec.event is not None:
-            rec.event.synchronize()
+        with span(self._spans, "engine.retire.wait"):
+            if rec.event is not None:
+                rec.event.synchronize()
         dev_s = time.perf_counter() - t0
+        if rec.start is not None:
+            rec.interval.device_ms = rec.start.elapsed_time(rec.event)
         if self._agreed_waits:
             # under a mesh: rank 0's wait (`_agree` waited already)
             dev_s = self._agreed_waits.popleft()

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.serving.trace import span
 
 #: eager runs on the side stream before a capture (lazy initialisation:
 #: the kernel libraries, cuBLAS's workspace on that stream, the kernels'
@@ -95,7 +96,12 @@ class StepGraphs:
         """WARMUP_RUNS eager runs of the step on the side stream (their
         launches are real and stay counted), then its capture into the
         shared pool; the launches the capture recorded are taken out of
-        `ops.LAUNCHES` and added back at each replay."""
+        `ops.LAUNCHES` and added back at each replay. Inside a profiler
+        range while a profiler is collecting (`trace.py`)."""
+        with span(torch.autograd._profiler_enabled(), "graphs.capture"):
+            self._capture(st)
+
+    def _capture(self, st: Step) -> None:
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
