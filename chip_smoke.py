@@ -455,13 +455,10 @@ FAMILIES = {
                              {}),
 }
 #: kernels no FAMILIES serve run launches: the TPU kernel's direct
-#: counterpart, which the model's gated entry replaced on the path; and
-#: the long-row kernel through the block table, since no such run's paged
-#: call packs 128 rows a kv head (two busy lanes take 8 tokens each:
-#: starcoder2's 72 rows, the VLM's 64; seamless's encoder, the long-row
-#: call they make, is contiguous in both layouts). The tp runs' single
-#: lanes of the VLM (16 tokens, 128 rows) launch it.
-OFF_PATH = ("rglru_scan", "paged_flash_attention_wgmma")
+#: counterpart, which the model's gated entry replaced on the path. The
+#: long-row kernel through the block table is on it: starcoder2's paged
+#: mixed steps pad each lane to the 16-token chunk, 144 rows a kv head.
+OFF_PATH = ("rglru_scan",)
 #: attention kernels by layout (paged?): (decode, chunk)
 ATTENTION = {False: ("decode_attention", "flash_attention"),
              True: ("paged_decode_attention", "paged_flash_attention")}
@@ -2372,7 +2369,8 @@ def run_tp_kernels(dev):
 
 
 def step_allreduces(eng) -> dict:
-    """The all-reduces and gathers of the engine's bucket-8 decode step
+    """The all-reduces and gathers of the engine's bucket-8 decode step,
+    on the mixed path of that bucket's mixed step with every lane's chunk
     and, where the family takes extras, of a first chunk with them, each
     run once eagerly on its static all-padding inputs under `OpTrace`,
     beside the model layout's counts (`graph_audit.allreduces`,
@@ -2381,6 +2379,8 @@ def step_allreduces(eng) -> dict:
 
     keys = [("decode", max(eng.buckets))] + sorted(
         (k for k in eng.graphs.steps if k[0] == "xchunk"), key=str)[:1]
+    if eng.mixed:
+        keys.append(("mixed", max(eng.buckets), eng.n_lanes))
     out = {}
     for key in keys:
         st = eng._step(key)
@@ -3746,10 +3746,11 @@ def run_audit(dev, full, full_s: float, synced: dict) -> dict:
 def run_graph_check(eng, name: str):
     """Replay against eager run of the same step, bit for bit, from the
     same cache and inputs: decode at the largest bucket (8, or the arch's
-    cut b_max), a lane's full chunk and, for a family with extras, a
-    lane's full first chunk with random extras (the encoder and the cross
-    K/V write), on random cache contents and inputs (distinct blocks and
-    state slots).
+    cut b_max), a lane's full chunk, on the mixed path the mixed step of
+    that bucket with every lane's full chunk and, for a family with
+    extras, a lane's full first chunk with random extras (the encoder and
+    the cross K/V write), on random cache contents and inputs (distinct
+    blocks and state slots).
     The cache's two copies (the start, the eager run's result) are kept on
     the card, or in host memory where they do not fit beside the weights
     (qwen1.5-32b)."""
@@ -3761,21 +3762,40 @@ def run_graph_check(eng, name: str):
         else torch.device("cpu")
     lane = ("chunk", 1, eng.prefill_chunk, -1 if eng.paged else eng.max_slots)
     keys = [("decode", max(eng.buckets)), lane]
+    if eng.mixed:
+        keys.append(("mixed", max(eng.buckets), eng.n_lanes))
     if eng.enc_len:
         keys.append(("xchunk",) + lane[1:])
     checks = []
     for key in keys:
         st = eng.graphs.steps[key]
         fill_cache(eng, seed=len(checks))
-        rows, T = st.inputs["tokens"].shape
-        starts = rng.randint(T, eng.max_context - 2 * T, size=rows)
-        host = {"tokens": rng.randint(0, eng.cfg.vocab_size, (rows, T)),
-                "positions": starts[:, None] + np.arange(T)}
+        per = eng.max_blocks
+        if key[0] == "mixed":
+            # one row of tokens: the bucket's decode tokens, then a full
+            # chunk a lane, each row on blocks of its own (as many as the
+            # pool holds for every row; the rest of its table unallocated)
+            C = eng.prefill_chunk
+            rows, T = key[1] + key[2], C
+            per = min(per, eng.mem.num_blocks // rows)
+            starts = rng.randint(T, per * eng.serve.block_size - T,
+                                 size=rows)
+            pos = np.concatenate([starts[:key[1]], (
+                starts[key[1]:, None] + np.arange(C)).ravel()])
+            host = {"tokens": rng.randint(0, eng.cfg.vocab_size,
+                                          (1, pos.size)),
+                    "positions": pos[None]}
+        else:
+            rows, T = st.inputs["tokens"].shape
+            starts = rng.randint(T, eng.max_context - 2 * T, size=rows)
+            host = {"tokens": rng.randint(0, eng.cfg.vocab_size, (rows, T)),
+                    "positions": starts[:, None] + np.arange(T)}
         if eng.paged:
-            per = eng.max_blocks
-            host["block_table"] = rng.permutation(
+            host["block_table"] = np.full((rows, eng.max_blocks), -1)
+            host["block_table"][:, :per] = rng.permutation(
                 eng.mem.num_blocks)[:rows * per].reshape(rows, per)
-            host["slots"] = rng.permutation(eng.n_slots)[:rows]
+            if "slots" in st.inputs:
+                host["slots"] = rng.permutation(eng.n_slots)[:rows]
         for k, v in host.items():
             eng._stage(st, k, v.astype(np.int64))
         if "extras" in st.inputs:

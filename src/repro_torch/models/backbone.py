@@ -319,8 +319,10 @@ def _write_index(positions, cache: Cache, tables, tp=None,
         L.cache_put(cache["pos"], widx, positions)
     else:
         # the pools' last block is the spare that takes invisible writes
-        widx = L.paged_write_index(positions, tables, cache["k"].shape[2],
-                                   spare=cache["k"].shape[1] - 1)
+        index = L.mixed_write_index if isinstance(tables, L.MixedRows) \
+            else L.paged_write_index
+        widx = index(positions, tables, cache["k"].shape[2],
+                     spare=cache["k"].shape[1] - 1)
         flat, real = widx
         cache["pos"].view(-1)[flat] = torch.where(real, positions, -1).to(
             cache["pos"].dtype)
@@ -493,7 +495,12 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     tables: optional (B, MB) per-request physical block tables; with them
     the cache is the paged pools of `init_paged_cache` (DESIGN §9), and
     `rows` (B,) names each batch row's state slot (the sentinel slot for a
-    padding row) in families with per-request state or cross K/V.
+    padding row) in families with per-request state or cross K/V. A
+    `layers.MixedRows` in place of the tables makes a mixed step of the
+    attention-only families: tokens and positions (1, N) hold b decode
+    rows' tokens and n lane chunks' in one row, the attention splits at b
+    (`layers.mixed_attention`), and the logits are (1, b, V), of the
+    decode tokens only.
     extras: the VLM's {"images": (B, S, d)} or enc-dec's {"enc_frames":
     (B, S, d)}, given on a request's first chunk only: the images are
     projected (the frames encoded, then projected) into the rows' cross
@@ -523,6 +530,10 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
     if tables is not None and rows is None \
             and any(k in cache for k in STATE_KEYS + CROSS_KEYS):
         raise ValueError("the paged cache's per-request state needs `rows`")
+    mixed = isinstance(tables, L.MixedRows)
+    if mixed and (cfg.family not in ATTENTION_ONLY or tokens.shape[0] != 1):
+        raise ValueError("a mixed step takes one row of tokens of an "
+                         "attention-only family")
     x = p["embed"][tokens] if tp is None else tp.embed(p["embed"], tokens)
     win = window_of(cfg)
     widx = _write_index(positions, cache, tables, tp, seq_shard) \
@@ -580,7 +591,9 @@ def forward_cached(p: Params, tokens, positions, cache: Cache,
                 x, y = _rec_layer(layer_params(p["rec_layers"], i_rec), x, y,
                                   cfg, st, i_rec, tp)
                 i_rec += 1
-    if last_only:
+    if mixed:
+        x, y = x[:, :tables.b], y[:, :tables.b]
+    elif last_only:
         x, y = x[:, -1:], y[:, -1:]
     return logits_head(p, x, y, cfg, tp), cache
 

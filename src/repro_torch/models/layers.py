@@ -24,7 +24,7 @@ kernel either.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -446,6 +446,53 @@ def paged_write_index(positions, tables, block_size: int,
     return flat, real
 
 
+class MixedRows(NamedTuple):
+    """The rows of a mixed step, one forward over an interval's decode rows
+    and its prefill lanes' chunks: its N = b + n·chunk tokens lie in one
+    row (tokens and positions (1, N)), the b decode rows' one token each,
+    then n lane rows of `chunk` tokens each. A lane's unused tail and a
+    decode padding row sit at position -1. `tables` (b + n, MB) holds each
+    row's block table. The token-wise ops run once over the N tokens;
+    attention splits at the static boundary b (`mixed_attention`), and the
+    vocab projection reads the b decode tokens only: a lane in a mixed
+    step does not finish its prompt, so no token is sampled from it."""
+    b: int
+    chunk: int
+    tables: torch.Tensor
+
+    def split(self, x):
+        """x (1, N, ...) -> its decode rows' (b, ...) and its lanes'
+        (n, chunk, ...)."""
+        return x[0, :self.b], x[0, self.b:].unflatten(0, (-1, self.chunk))
+
+
+def mixed_write_index(positions, rows: MixedRows, block_size: int,
+                      spare: int) -> WriteIndex:
+    """`paged_write_index` of a mixed step's (1, N) tokens: each half
+    through its own rows' block tables, as (1, N) tensors."""
+    (pd, pl), b = rows.split(positions), rows.b
+    fd, rd = paged_write_index(pd[:, None], rows.tables[:b], block_size,
+                               spare)
+    fl, rl = paged_write_index(pl, rows.tables[b:], block_size, spare)
+    return (torch.cat([fd.reshape(-1), fl.reshape(-1)])[None],
+            torch.cat([rd.reshape(-1), rl.reshape(-1)])[None])
+
+
+def mixed_attention(q, k_pool, v_pool, positions, pool_pos, rows: MixedRows,
+                    *, window: int = 0):
+    """A mixed step's attention, split at its static boundary: the decode
+    rows through the paged flash-decode kernel, the lane rows through the
+    paged flash-attention kernel (causal), each over its own block tables.
+    q (1, N, H, hd) -> (1, N, H·hd)."""
+    (qd, ql), (pd, pl), b = rows.split(q), rows.split(positions), rows.b
+    dec = ops.paged_decode_attention(qd, k_pool, v_pool, pd, pool_pos,
+                                     rows.tables[:b], window=window)
+    lanes = ops.paged_flash_attention(ql, k_pool, v_pool, pl, pool_pos,
+                                      rows.tables[b:], window=window,
+                                      causal=True)
+    return torch.cat([dec.flatten(1), lanes.flatten(0, 1).flatten(1)])[None]
+
+
 def rope_qkv(p, x, positions, cfg: ModelConfig, tp=None):
     """(q, k, v) of x (B, T, d) at absolute `positions`, RoPE on q and k:
     q (B, T, n, hd) of the rank's heads, k and v what the rank's cache
@@ -563,18 +610,22 @@ def self_attention_paged(p, x, positions, pool_k, pool_v, pool_pos, tables,
 
     pool_k/v: (NB, bs, KV, hd), written in place at `widx`
     (`paged_write_index`); pool_pos: (NB, bs), already holding this chunk's
-    positions; tables: (B, MB) physical block ids (-1 = unallocated).
-    Decode and chunks both walk the block table in the kernels (paged
-    flash decode, paged flash attention); nothing is gathered first.
-    `tp` as in `self_attention_cached` (under the head_dim fallback the
-    layer's whole pool slab is gathered)."""
+    positions; tables: (B, MB) physical block ids (-1 = unallocated), or
+    the `MixedRows` of a mixed step (`mixed_attention`). Decode and chunks
+    both walk the block table in the kernels (paged flash decode, paged
+    flash attention); nothing is gathered first. `tp` as in
+    `self_attention_cached` (under the head_dim fallback the layer's whole
+    pool slab is gathered)."""
     B, T, _ = x.shape
     q, k, v = rope_qkv(p, x, positions, cfg, tp)
     flat, _ = widx
     _pool_write(pool_k, flat, k)
     _pool_write(pool_v, flat, v)
     rk, rv = kv_read(pool_k, pool_v, tp)
-    if T == 1:
+    if isinstance(tables, MixedRows):
+        out = mixed_attention(q, rk, rv, positions, pool_pos, tables,
+                              window=window)
+    elif T == 1:
         out = ops.paged_decode_attention(q[:, 0], rk, rv, positions[:, 0],
                                          pool_pos, tables,
                                          window=window).reshape(B, 1, -1)

@@ -12,6 +12,20 @@ multi-row prefill. Finished lanes promote into the compacted decode region.
 The paged cache (DESIGN §9) keeps K/V in block pools addressed through the
 BlockManager's tables, so promotion, finish and eviction copy nothing.
 
+On the paged pool of the attention-only families (no per-request state,
+no cross K/V: `mixed`), an interval that decodes runs its decode rows and
+the chunks of every lane that does not finish its prompt as one forward,
+the mixed step (`layers.MixedRows`): one pass over the weights. A chunk
+takes a row of `prefill_chunk` tokens, its unused tail at position -1; an
+idle lane takes no row, since each row's attention walks its whole block
+table. A finishing lane's chunk runs first, as a chunk step of its own, so
+that the request it promotes decodes in the same interval from its first
+token, as in the reference. An interval without decode rows runs chunk
+steps only. The stateful families keep exact-size chunks with no pad
+tokens (`pack_chunks`), a first chunk with extras runs as its own step,
+and the contiguous layout keeps its lane rows: those run a chunk step a
+chunk size, then the decode step.
+
 Per-request state (DESIGN §9; SSM conv/ssm, RG-LRU conv/rec) is a cache row
 per slot. In the contiguous layout it moves with the K/V row. In the paged
 layout a request pins a state slot from `_free_slots` for its whole life;
@@ -20,10 +34,11 @@ sentinel slot, which reads zeros and is never written. State-only families
 (no K/V: `mem.bytes_per_token == 0`) hold one block per request as an
 admission cap, never grow it, and never preempt.
 
-Every decode step and prefill chunk is a `graphs.Step` per shape key, the
-counterpart of the reference's `jax.jit` per shape: on the card the replay
-of a CUDA graph captured once (`warmup()` captures every decode bucket and
-full-chunk lane shape; tail chunks capture at first use), on the CPU the
+Every decode step, mixed step and prefill chunk is a `graphs.Step` per
+shape key, the counterpart of the reference's `jax.jit` per shape: on the
+card the replay of a CUDA graph captured once (`warmup()` captures every
+decode bucket, its mixed steps and every full-chunk lane shape; tail chunks
+capture at first use), on the CPU the
 same function run eagerly. Step inputs are staged in pinned host memory and
 copied without blocking.
 
@@ -82,7 +97,8 @@ request's cross-attention K/V row, which every later step reads.
 Tracing (`trace.py`, docs/PORT.md "Tracing the engine"): while a profiler
 collects, a busy `step()` runs inside named profiler ranges and times each
 interval's stream with CUDA events; every busy `step()` appends an
-`Interval` to `self.trace`, index-aligned with `step_host_trace`.
+`Interval` to `self.trace`, index-aligned with `step_host_trace`, with the
+step replays it dispatched (`Interval.replays`).
 """
 from __future__ import annotations
 
@@ -103,6 +119,7 @@ from repro_torch.core.telemetry import Telemetry
 from repro_torch.distributed.sharding import check_tp
 from repro_torch.models.backbone import (CROSS_KEYS, STATE_KEYS, extras_key,
                                          init_cache, init_paged_cache)
+from repro_torch.models.layers import MixedRows
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serving.cost_model import PROFILES, CostModel
 from repro_torch.serving.graphs import Staging, Step, StepGraphs
@@ -174,6 +191,10 @@ class _StepRec:
     completions: List[Tuple[Request, int]] = \
         dataclasses.field(default_factory=list)
     lane_tokens: Optional[Dict[int, int]] = None
+    #: (request, chunk start, take) of the chunks the decode step runs
+    #: with its rows, as one mixed step, a chunk row each
+    lanes: List[Tuple[Request, int, int]] = \
+        dataclasses.field(default_factory=list)
     n_decode: int = 0
     prefill_tokens: int = 0
     dispatched: bool = False
@@ -278,6 +299,11 @@ class Engine:
             self.cache = model.init_cache(self.n_slots, max_context,
                                           enc_len=enc_len,
                                           prefill_chunk=prefill_chunk)
+        # the mixed step: lane chunks padded beside the decode rows in one
+        # forward, where a pad token reaches no request's state (the paged
+        # pools of a family without per-request state or cross K/V)
+        self.mixed = self.paged and serve.chunked_prefill and not any(
+            k in self.cache for k in STATE_KEYS + CROSS_KEYS)
         # a request's extras: (1, enc_len, d) in the working dtype
         self.enc_len = self.cache["cross_k"].shape[2] \
             if "cross_k" in self.cache else 0
@@ -383,6 +409,7 @@ class Engine:
         # collecting, decided once a busy step()
         self.trace = EngineTrace()
         self._spans = False
+        self._replays = 0         # step runs, for `Interval.replays`
 
     # -- cache rows (contiguous layout) -----------------------------------------
     def _rows_view(self, start: int, n: int) -> Dict[str, torch.Tensor]:
@@ -477,7 +504,9 @@ class Engine:
         first use: ("decode", bucket) or ("chunk", rows, take, cache row),
         the cache row set only for a one-row contiguous chunk, which runs
         on a view of that row (-1 otherwise); ("xchunk", 1, take, cache
-        row): a first chunk that carries its request's extras."""
+        row): a first chunk that carries its request's extras; ("mixed",
+        bucket, chunks): a decode bucket and that many lane chunks in one
+        forward."""
         st = self.graphs.steps.get(key)
         if st is None:
             st = self._build_step(key)
@@ -489,7 +518,8 @@ class Engine:
 
     def _run(self, st: Step) -> torch.Tensor:
         """`st.run()` inside its span, named by the shape key's first
-        element (`trace.STEP_SPANS`)."""
+        element (`trace.STEP_SPANS`), counted in `_replays`."""
+        self._replays += 1
         with span(self._spans, STEP_SPANS[st.key[0]]):
             return st.run()
 
@@ -498,6 +528,8 @@ class Engine:
         tables, the sentinel state slot, or the lane rows of a contiguous
         multi-row chunk), which writes no visible slot, and the function
         that runs the model on them at fixed cache addresses."""
+        if key[0] == "mixed":
+            return self._build_mixed(*key[1:])
         decode = key[0] == "decode"
         rows, take = (key[1], 1) if decode else key[1:3]
         row = -1 if decode else key[3]
@@ -550,6 +582,27 @@ class Engine:
                 return logits[:, -1]
         return Step(key, inp, fn, cache_rows=kept)
 
+    def _build_mixed(self, bucket: int, n: int) -> Step:
+        """A mixed step's static inputs, all padding: `bucket` decode rows
+        of one token, then `n` chunk rows of `prefill_chunk` tokens, in one
+        row of tokens (`layers.MixedRows`), and one block table a row.
+        Returns the logits of the decode rows."""
+        C, dev = self.prefill_chunk, self.device
+        width = bucket + n * C
+        inp = {"tokens": torch.zeros((1, width), dtype=torch.int64,
+                                     device=dev),
+               "positions": torch.full((1, width), -1, dtype=torch.int32,
+                                       device=dev),
+               "block_table": torch.full((bucket + n, self.max_blocks), -1,
+                                         dtype=torch.int32, device=dev)}
+        m, p = self.model, self.params
+
+        def fn(i):
+            rows = MixedRows(bucket, C, i["block_table"])
+            return m(p, i["tokens"], i["positions"], self.cache,
+                     tables=rows)[0][0]
+        return Step(("mixed", bucket, n), inp, fn)
+
     @contextlib.contextmanager
     def _state_kept(self, st: Step):
         """Keep the per-request state of the contiguous rows `st` writes
@@ -580,11 +633,15 @@ class Engine:
         self._staging.copy(st.inputs[name], host)
 
     def warmup(self) -> None:
-        """Build, and on the card capture, every decode bucket and every
-        full-chunk lane shape ahead of time (the reference's
-        `Engine.warmup`); tail chunks are captured at first use. The
-        all-padding steps change no visible cache slot."""
+        """Build, and on the card capture, every decode bucket (and its
+        mixed steps, one to `n_prefill_lanes` chunks) and every full-chunk
+        lane shape ahead of time (the reference's `Engine.warmup`); tail
+        chunks are captured at first use. The all-padding steps change no
+        visible cache slot."""
         keys = [("decode", b) for b in self.buckets]
+        if self.mixed:
+            keys += [("mixed", b, n) for b in self.buckets
+                     for n in range(1, self.n_lanes + 1)]
         C = self.prefill_chunk
         if self.paged:
             groups = range(1, self.n_lanes + 1) \
@@ -722,12 +779,13 @@ class Engine:
     def _interval(self, on: bool) -> None:
         """The busy part of `step()`; `on`: spans and device timing."""
         t0 = time.perf_counter()
+        replays0 = self._replays
         rec = _StepRec()
         if on and self.device.type == "cuda":
             # the interval's device time starts before any of its work
             rec.start = torch.cuda.Event(enable_timing=True)
             rec.start.record()
-        now = self._now()
+        now, t_now = self._now(), time.perf_counter()
         rec.interval = iv = Interval(now)
         with span(on, "engine.schedule"):
             tel = self.tel.snapshot(
@@ -777,7 +835,10 @@ class Engine:
         host_s = (t1 - t0) - device_s \
             if agreed_host_s is None else agreed_host_s
         iv.n_decode, iv.prefill_tokens = rec.n_decode, rec.prefill_tokens
-        iv.t_end = now + (t1 - t0)
+        iv.replays = self._replays - replays0
+        # the engine clock at t1: from its reading, not from t0, so that an
+        # interval ends before the next one's start
+        iv.t_end = now + (t1 - t_now)
         self.step_host_trace.append(host_s)
         self.step_device_trace.append(device_s)
         self.trace.intervals.append(iv)
@@ -909,7 +970,12 @@ class Engine:
                 self._cow_blocks(self.blocks.cow_range(
                     r.rid, r.prefill_pos, r.prefill_pos + take))
         # same-size chunks run as one multi-row step; a first chunk that
-        # carries extras (they differ per request) runs alone, first
+        # carries extras (they differ per request) runs alone, first. In an
+        # interval that decodes, a lane that does not finish its prompt
+        # runs its chunk in the mixed step (`_decode_once`); a finishing
+        # lane's chunk runs here, so its request decodes this interval
+        decodes = bool(self.active) or any(
+            r.prefill_pos + t >= r.prompt_len for _, r, t in plan)
         first_tok: Dict[int, torch.Tensor] = {}   # lane -> next token
         groups: Dict[int, list] = {}
         for j, r, t in plan:
@@ -918,6 +984,9 @@ class Engine:
                 rec.dispatched = True
                 rec.probe = toks
                 first_tok[j] = toks[0]
+            elif self.mixed and decodes \
+                    and r.prefill_pos + t < r.prompt_len:
+                rec.lanes.append((r, r.prefill_pos, t))
             else:
                 groups.setdefault(t, []).append((j, r))
         for take, entries in groups.items():
@@ -932,7 +1001,9 @@ class Engine:
         for _, r, take in plan:
             r.prefill_pos += take
             if self.prefix:
-                # the chunk's K/V is dispatched: index its full blocks
+                # the chunk's K/V is dispatched (a mixed step's, this
+                # interval, before any later admission can map it): index
+                # its full blocks
                 self.blocks.commit_prefill(r.rid, r.prompt_tokens,
                                            r.prefill_pos)
         # promote finished lanes in lane-index order (deterministic): paged
@@ -1132,6 +1203,9 @@ class Engine:
         self.active.pop()
 
     def _decode_once(self, rec: _StepRec):
+        """The interval's decode step over `active`, in its bucket; with
+        `rec.lanes` the mixed step of that bucket and that many chunk
+        rows."""
         if self.prefix:
             # copy-on-write guard on the position each row writes
             for r in self.active:
@@ -1140,7 +1214,8 @@ class Engine:
         n = len(self.active)
         ge = [b for b in self.buckets if b >= n]
         bucket = min(ge) if ge else self.max_slots
-        st = self._step(("decode", bucket))
+        st = self._step(("mixed", bucket, len(rec.lanes)) if rec.lanes
+                        else ("decode", bucket))
         toks = np.zeros((bucket, 1), np.int64)
         # the pending token sits at absolute position context_len - 1
         lens = np.full((bucket, 1), -1, np.int32)
@@ -1151,6 +1226,11 @@ class Engine:
             else:
                 toks[i, 0] = r.output_tokens[-1]
             lens[i, 0] = r.context_len - 1
+        tables = self._block_tables(self.active, bucket) if self.paged \
+            else None
+        if rec.lanes:
+            toks, lens, tables = self._lane_rows(rec.lanes, toks, lens,
+                                                 tables)
         self._stage(st, "tokens", toks)
         self._stage(st, "positions", lens)
         if pend:
@@ -1158,8 +1238,8 @@ class Engine:
             st.inputs["tokens"].view(-1).index_copy_(0, idx, torch.stack(
                 [self._pending_tok[self.active[i].rid] for i in pend]))
         if self.paged:
-            self._stage(st, "block_table",
-                        self._block_tables(self.active, bucket))
+            self._stage(st, "block_table", tables)
+        if "slots" in st.inputs:
             # padding rows read the sentinel slot n_slots (zeros)
             slots = np.full(bucket, self.n_slots, np.int64)
             slots[:n] = [r.slot for r in self.active]
@@ -1202,6 +1282,21 @@ class Engine:
                 self._evict(self.active.index(r), r)
         # decode grows may have taken cached blocks for reuse
         self._drain_released()
+
+    def _lane_rows(self, lanes, toks, lens, tables):
+        """The mixed step's host inputs: the decode rows' tokens, positions
+        and block tables followed by the chunk rows', each chunk from its
+        start, padded to `prefill_chunk` tokens at position -1."""
+        n, C = len(lanes), self.prefill_chunk
+        lt = np.zeros((n, C), np.int64)
+        lp = np.full((n, C), -1, np.int32)
+        for i, (r, start, take) in enumerate(lanes):
+            lt[i, :take] = r.prompt_tokens[start:start + take]
+            lp[i, :take] = np.arange(start, start + take)
+        return (np.concatenate([toks.ravel(), lt.ravel()])[None],
+                np.concatenate([lens.ravel(), lp.ravel()])[None],
+                np.concatenate([tables, self._block_tables(
+                    [r for r, _, _ in lanes], n)]))
 
     def _dispatch_readback(self, rec: _StepRec) -> None:
         """Queue the interval's readback behind its steps: the sampled and

@@ -12,11 +12,12 @@ that was open on the host when it began. The names form a fixed set:
     engine.schedule      the telemetry snapshot and the policy (Alg 1, Alg 2)
     engine.admit         swap-in drain, admission, released blocks, preemption
     engine.prefill       the interval's prefill chunks (`_advance_prefill`)
-    engine.decode        the decode step (`_decode_once`)
+    engine.decode        the decode step, or the mixed step that runs the
+                         lanes' chunks with it (`_decode_once`)
     engine.readback      the readback's dispatch
     engine.retire        one retirement (`_retire_step`)
     engine.retire.wait   its wait on the readback event: the loop's one wait
-    step.decode, step.chunk, step.xchunk
+    step.decode, step.mixed, step.chunk, step.xchunk
                          one compiled step's run (`graphs.Step.run`, from
                          `Engine._run`), named by its shape key's first
                          element
@@ -39,8 +40,8 @@ import torch
 _NULL = contextlib.nullcontext()
 
 #: `graphs.Step.run`'s span, by the first element of the step's shape key
-STEP_SPANS = {"decode": "step.decode", "chunk": "step.chunk",
-              "xchunk": "step.xchunk"}
+STEP_SPANS = {"decode": "step.decode", "mixed": "step.mixed",
+              "chunk": "step.chunk", "xchunk": "step.xchunk"}
 
 
 def span(on: bool, name: str):
@@ -53,7 +54,7 @@ class Interval:
     """One busy `step()`, index-aligned with the engine's
     `step_host_trace`; times on the engine clock (`Engine._now()`)."""
     __slots__ = ("t", "t_end", "n_decode", "prefill_tokens", "chunk_budget",
-                 "device_ms")
+                 "device_ms", "replays")
 
     def __init__(self, t: float):
         self.t = t                  # the interval's start
@@ -67,6 +68,9 @@ class Interval:
         #: its stream's time from its first work to its readback, in ms;
         #: None unless timed (spans on, on the card) and retired
         self.device_ms: Optional[float] = None
+        #: the compiled steps it ran (`Engine._run`): each a graph replay
+        #: on the card, so each a pass over the weights
+        self.replays = 0
 
 
 class Window:

@@ -117,8 +117,9 @@ def test_family_serving_steps_audit_clean(arch):
     assert t["builds"] == t["keys"] and t["captures"] == 0
     if arch == "granite-3-8b":
         # decode buckets 1, 2 and the lane chunks (contiguous: one per
-        # lane row and the two-lane group; paged: 1 and 2 rows), a layout
-        assert t["keys"] == (2 + 3) + (2 + 2)
+        # lane row and the two-lane group; paged: 1 and 2 rows, and each
+        # bucket's mixed steps with 1 and 2 chunks), a layout
+        assert t["keys"] == (2 + 3) + (2 + 2 + 4)
 
 
 @pytest.mark.parametrize("arch", OTHERS)

@@ -137,10 +137,10 @@ def test_paged_write_index_writes_the_nonzero_slots(case, seed):
 # engines on the CPU
 
 
-def _engine(arch, paged, chunked=True, lanes=2, **kw):
+def _engine(arch, paged, chunked=True, lanes=2, b_max=4, **kw):
     cfg = get_config(arch, "reduced")
     m = build_model(cfg, torch.float32, "cpu")
-    serve = ServeConfig(policy="memory", b_max=4, max_new_tokens=5,
+    serve = ServeConfig(policy="memory", b_max=b_max, max_new_tokens=5,
                         kv_pool_tokens=1024, block_size=8,
                         chunked_prefill=chunked, chunk_budget_tokens=16,
                         n_prefill_lanes=lanes, paged_kv=paged)
@@ -192,14 +192,19 @@ def test_padding_steps_change_no_visible_slot(arch, paged):
     want = {("decode", b) for b in (1, 2, 4)}
     want |= {("chunk", 1, 8, -1), ("chunk", 2, 8, -1)} if paged else \
         {("chunk", 1, 8, 4), ("chunk", 1, 8, 5), ("chunk", 2, 8, -1)}
+    if eng.mixed:
+        want |= {("mixed", b, n) for b in (1, 2, 4) for n in (1, 2)}
+    assert eng.mixed == (paged and arch == "granite-3-8b")
     assert keys == want
     _fill_cache(eng)
     before = {k: v.clone() for k, v in eng.cache.items()}
     for st in eng.graphs.steps.values():
         with eng._state_kept(st):
             out = st.run()
-        assert out.shape == (st.inputs["tokens"].shape[0],
-                             eng.cfg.vocab_size)
+        # a mixed step: its bucket's rows only
+        rows = st.key[1] if st.key[0] == "mixed" \
+            else st.inputs["tokens"].shape[0]
+        assert out.shape == (rows, eng.cfg.vocab_size)
         for k, v in eng.cache.items():
             got, was = (v[:, :-1], before[k][:, :-1]) \
                 if paged and k in ("k", "v") else (v, before[k])
@@ -245,6 +250,23 @@ def _legacy_inputs(eng, kind, reqs, take):
             tbl[i, :len(ids)] = ids
         return torch.from_numpy(tbl)
 
+    if kind == "mixed":
+        # the decode rows' inputs, then a row a chunk: the chunk from its
+        # start, padded to the prefill chunk at position -1
+        out = _legacy_inputs(eng, "decode", None, take)
+        del out["slots"]
+        C, toks, pos = eng.prefill_chunk, [], []
+        for r, start, t in reqs:
+            toks += r.prompt_tokens[start:start + t] + [0] * (C - t)
+            pos += list(range(start, start + t)) + [-1] * (C - t)
+        out["tokens"] = torch.cat([out["tokens"].view(-1),
+                                   torch.tensor(toks)])[None]
+        out["positions"] = torch.cat([out["positions"].view(-1),
+                                      torch.tensor(pos, dtype=torch.int32)
+                                      ])[None]
+        out["block_table"] = torch.cat(
+            [out["block_table"], tables([r for r, _, _ in reqs])])
+        return out
     if kind == "decode":
         n = len(eng.active)
         bucket = take
@@ -279,10 +301,16 @@ def _legacy_inputs(eng, kind, reqs, take):
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_staged_inputs_are_the_eager_loops_inputs(arch, paged, monkeypatch):
     """Every step of a served run (decode with first tokens spliced in,
-    one- and two-lane chunks) runs on the inputs the eager loop built."""
-    eng = _engine(arch, paged)
+    one- and two-lane chunks, and on the mixed path mixed steps) runs on
+    the inputs the eager loop built. Alg 1's batch of 16 (4 slots) leaves
+    a budget above the chunk of 8 beside the decode rows, and prompts of
+    up to 40 tokens outlast a chunk, so two lanes take a chunk in one
+    interval: in a mixed step on the mixed path."""
+    eng = _engine(arch, paged, b_max=16)
     calls = {}
     seen = {"decode": 0, "pending": 0, "chunk": 0, "lanes": 0}
+    if eng.mixed:
+        seen["mixed"] = 0
     prefill_group, decode_once, run = (Engine._prefill_group,
                                        Engine._decode_once, Step.run)
 
@@ -292,7 +320,7 @@ def test_staged_inputs_are_the_eager_loops_inputs(arch, paged, monkeypatch):
 
     def do(self, rec):
         n = len(self.active)
-        calls["now"] = ("decode", None,
+        calls["now"] = ("mixed" if rec.lanes else "decode", rec.lanes,
                         min(b for b in self.buckets if b >= n))
         return decode_once(self, rec)
 
@@ -304,15 +332,17 @@ def test_staged_inputs_are_the_eager_loops_inputs(arch, paged, monkeypatch):
             assert torch.equal(st.inputs[k], v.to(st.inputs[k].dtype)), \
                 (st.key, k)
         seen[kind] += 1
-        seen["pending"] += kind == "decode" and any(
+        seen["pending"] += kind != "chunk" and any(
             r.output_tokens[-1] is None for r in eng.active)
-        seen["lanes"] += kind == "chunk" and len(reqs) > 1
+        # two lanes' chunks in one step (beside the decode rows in a
+        # mixed step)
+        seen["lanes"] += kind != "decode" and len(reqs) > 1
         return run(st, eager)
 
     monkeypatch.setattr(Engine, "_prefill_group", pg)
     monkeypatch.setattr(Engine, "_decode_once", do)
     monkeypatch.setattr(Step, "run", checked_run)
-    hs, _ = _serve(eng, _prompts(eng, 6, lo=5, hi=20, seed=1))
+    hs, _ = _serve(eng, _prompts(eng, 6, lo=5, hi=40, seed=1))
     assert all(len(h.output_tokens) == 5 for h in hs)
     assert all(seen[k] > 0 for k in seen), seen
 

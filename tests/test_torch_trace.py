@@ -16,7 +16,7 @@ from repro_torch.serving.engine import Engine
 
 SPANS = ("engine.step", "engine.schedule", "engine.admit", "engine.prefill",
          "engine.decode", "engine.readback", "engine.retire",
-         "engine.retire.wait", "step.decode", "step.chunk")
+         "engine.retire.wait", "step.decode", "step.mixed", "step.chunk")
 #: summary() keys that count work (the rest are times, or rest on them)
 COUNTERS = ("total_tokens", "decode_steps", "mean_batch", "finished",
             "admitted", "preemptions", "oom_events", "rejected",
@@ -174,6 +174,33 @@ def test_intervals_align_with_the_engines_records(monkeypatch):
     # the whole run as one window holds every request
     w = eng.trace.window(0, len(ivs))
     assert w.requests == hs and w.intervals == ivs
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["fused0", "fused1"])
+def test_replays_count_every_step_an_interval_ran(chunked, monkeypatch):
+    """`Interval.replays` is 0 on a fresh record and, on every busy
+    `step()`, the compiled steps that interval ran."""
+    assert trace.Interval(0.0).replays == 0
+    eng = _engine(chunked)
+    runs, steps = [], []
+    run, step = Engine._run, Engine.step
+
+    def counted_run(self, st):
+        runs[-1] += 1
+        return run(self, st)
+
+    def counted_step(self):
+        runs.append(0)
+        busy = step(self)
+        steps.append(busy)
+        return busy
+
+    monkeypatch.setattr(Engine, "_run", counted_run)
+    monkeypatch.setattr(Engine, "step", counted_step)
+    _serve(eng, staggered=True)
+    busy = [n for n, b in zip(runs, steps) if b]
+    assert [iv.replays for iv in eng.trace.intervals] == busy
+    assert all(n > 0 for n in busy) and sum(busy) == sum(runs)
 
 
 def test_the_window_takes_the_requests_that_arrived_in_it():
